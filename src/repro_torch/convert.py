@@ -1,0 +1,33 @@
+"""Carry the JAX package's parameter tree across to the port.
+
+The tree arrives as nested dicts of numpy-convertible arrays (``np.asarray``
+of each leaf; nothing of JAX is imported here).  Layout and layer stacking
+are kept as they are: ``x @ W`` weights of shape (d_in, d_out), and every
+leaf under ``"layers"`` keeps its leading ``L`` axis — the port's
+transformer indexes that axis per layer.  Both packages then compute the
+same function.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _leaf(a, device):
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":     # ml_dtypes bf16: exact via fp32
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))          # own the memory
+    return t.to(device)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """Nested dict of arrays -> the same nest of tensors on ``device``, in
+    the arrays' own dtypes."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    return _leaf(tree, dev)

@@ -1,0 +1,51 @@
+"""Model API: ``get_model(cfg)`` dispatches on ``cfg.family`` (port of the
+JAX package's ``models/api.py``).
+
+Every family exposes, with ``cfg`` bound:
+  init_params(gen) -> params                       (on gen.device)
+  forward(params, batch, impl) -> (logits, aux)
+  init_cache(batch, cache_len, device) -> cache
+  prefill(params, batch, cache_len, impl, window) -> (logits, cache)
+  decode_step(params, token, cache, pos, ring, window) -> (logits, cache)
+
+Only ``dense`` is registered in this slice; ``loss_fn`` comes with the
+training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init_params: Callable
+    forward: Callable
+    init_cache: Callable | None = None
+    prefill: Callable | None = None
+    decode_step: Callable | None = None
+
+    def num_params(self, params) -> int:
+        if isinstance(params, dict):
+            return sum(self.num_params(v) for v in params.values())
+        return params.numel()
+
+
+_FAMILY_MODULES = {"dense": transformer}
+
+
+def get_model(cfg: ModelConfig) -> Model:
+    if cfg.family not in _FAMILY_MODULES:
+        raise NotImplementedError(transformer.NOT_PORTED.format(cfg.family))
+    mod = _FAMILY_MODULES[cfg.family]
+    return Model(cfg=cfg,
+                 init_params=partial(mod.init_params, cfg),
+                 forward=partial(mod.forward, cfg),
+                 init_cache=partial(mod.init_cache, cfg),
+                 prefill=partial(mod.prefill, cfg),
+                 decode_step=partial(mod.decode_step, cfg))
