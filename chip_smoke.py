@@ -8,8 +8,8 @@ checkout of this repo around it; exits non-zero, printing no result,
 without either.  Phases, each of which raises on a failed check:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the time to build the kernel library from ``src/repro_torch/
-   kernels/csrc`` (``nvcc``, first use).
+   and the time to build the kernel libraries from ``src/repro_torch/
+   kernels/csrc`` (one ``nvcc`` per source, all started together).
 2. Kernels: ``flash_attention`` on the card against its plain PyTorch
    version on the same inputs, at the granite-3-2b prefill shapes (B=1,
    H=32, K=8, D=64; S in {1, 127, 128, 777, 2048}) plus D=128 at S=1024, in
@@ -17,7 +17,16 @@ without either.  Phases, each of which raises on a failed check:
    kernel, its plain version and one library call
    (``scaled_dot_product_attention``, timed here only, never called by the
    port) at S=2048, bf16, causal, beside the card's bound.
-3. Serve: granite-3-2b at full width and depth (40 layers, bf16, random
+3. fused_agg kernel: ``fused_agg_cuda`` against ``fused_agg_plain`` within
+   ``fused_agg.kernel_tolerance``, on every leaf of the CIFAR CNN at C=40
+   with s = mask p E from a sustainable round (p = 1/40, E in {1, 5, 10,
+   20}), on ragged M in {1, 257, 16385} in fp32 and bf16, on a bf16
+   granite-3-2b MLP weight (2048 x 8192) at C=8, and with s = 0 (out must
+   equal w exactly).  Times the whole CNN tree (10 launches) and fc1.w
+   alone (C=40, M=1,572,864, fp32): kernel, plain version and one library
+   call (``torch.addmv``, timed here only, never called by the port)
+   beside the card's bound.
+4. Serve: granite-3-2b at full width and depth (40 layers, bf16, random
    weights from ``--seed``) through ``DecodeEngine.run``: 4 slots, 6 greedy
    requests of 32 new tokens, arrivals 2 steps apart, prompt lengths
    {2048, 1537, 777, 1024, 129, 1999}.  Every kernel's launch count is set
@@ -27,6 +36,29 @@ without either.  Phases, each of which raises on a failed check:
    in bf16 and with the same weights in fp32; the engine's per-stage
    microbenchmark and a profile of one prefill and one decode step (wall
    time, device-busy time, kernel count) are printed.
+5. Train: ``repro_torch.launch.train``'s path (``make_run`` ->
+   ``train_round`` -> ``core.round.parallel_round``) with the paper's §V
+   setup: the CIFAR CNN at full width (1,702,794 params, fp32, TF32 off:
+   set on before ``make_run`` and asserted off after it), N=40 clients,
+   taus (1, 5, 10, 20), T=5, batch 24, Adam lr 1e-3, p = 1/40; 5 rounds
+   of ``sustainable`` and 3 of ``wait_all`` (the loss is 0 from round 4
+   on).  Every kernel's count is set to 0 before each run and read after
+   it (10 fused_agg launches per round).  The card's masks must equal the
+   CPU's bitwise, no-op rounds must leave the model bitwise unchanged, and
+   the loss must fall.  Each round with participants is run again from
+   the card's params before it: on the card through
+   ``core.replay_round``, which reads out every local step's max-pool and
+   ReLU decisions and must equal the round bitwise, and on the CPU
+   replaying those decisions in float32 and in float64.  The card's round
+   must agree with the CPU's float32 round (loss to 1e-4, 90% of the params
+   to 1e-6 (1 + |w|), or to the CPU's own float32 distance from float64
+   where that is larger) and lie within one round's Adam bound.  Two SGD
+   rounds (lr 1e-2) through the same entry point are held elementwise, to
+   1e-6 + 1e-5 |w|, against their float64 replays.  Prints per-round ms,
+   client-steps/s and a profile of one round.
+6. Fig. 1: ``repro_torch.launch.fig1.run_fig1`` for 20 rounds under
+   ``sustainable`` and ``greedy`` (N=40, the faithful participants-only
+   driver), with test accuracy, which must be above chance.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes a
@@ -37,6 +69,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -63,6 +96,30 @@ PEAK_BYTES = 3.35e12
 # fp32 (the same weights upcast, TF32 off): sum order only, through 40
 # layers.
 LOGIT_ATOL = {"bfloat16": 0.5, "float32": 1e-3}
+
+# the training phase: the paper's §V setup, cut to a few rounds
+TRAIN = dict(clients=40, local_steps=5, batch=24, taus=(1, 5, 10, 20),
+             lr=1e-3)
+TRAIN_ROUNDS = {"sustainable": 5, "wait_all": 3}
+# each round of the card with participants, against the same round on
+# the CPU from the card's params before it, every max-pool and ReLU taking
+# the card's decision of the same step and client (``replay_round``; a
+# float32 near-tie, two candidates one or two ulps apart, may otherwise
+# route a client's gradient elsewhere), in float32 and in float64:
+# - the round's loss within 1e-4 relative, or within the CPU's own float32
+#   distance from float64 where that is larger;
+# - 90% of the params within 1e-6 (1 + |w|), or within the 90% quantile
+#   of the CPU's own float32 distance from float64 where that is larger
+#   (once the loss is small, Adam turns float32 noise in small gradients
+#   into steps: ~1e-4 of it in round 3, on the CPU as on the card);
+# - every param within the hard Adam bound of one round
+#   (``adam_step_bound``).
+# And SGD rounds, elementwise: every param within 1e-6 + 1e-5 |w| of the
+# float64 replay.
+LOSS_RTOL = 1e-4
+BULK_Q, BULK_TOL = 0.9, 1e-6
+SGD_CHECK = dict(policy="sustainable", optimizer="sgd", lr=1e-2, rounds=2)
+FIG1_ROUNDS = 20
 
 PROMPT_LENS = (2048, 1537, 777, 1024, 129, 1999)
 GEN = 32
@@ -119,7 +176,8 @@ def device_profile(torch, fn) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_share": device_ms / wall_ms,
             "kernels": sum(e.count for e in kernels),
-            "top": [(e.key[:60], e.self_device_time_total / 1e3) for e in top]}
+            "top": [(e.key[:60], e.self_device_time_total / 1e3) for e in top],
+            "all": [(e.key, e.self_device_time_total / 1e3) for e in kernels]}
 
 
 def _tree_map(tree, fn):
@@ -414,6 +472,373 @@ def serve_phase(torch, fa, seed: int, card: str) -> dict:
                 at_limit.joules_per_decode_step}
 
 
+def fused_agg_check(torch, agg, w, ws, s, label, show=True) -> tuple:
+    """Hold ``fused_agg_cuda`` against ``fused_agg_plain`` on the same
+    inputs within ``kernel_tolerance``, and s = 0 to give w back exactly;
+    raises on a failure.  Returns (max abs error, largest error / bound)."""
+    got = agg.fused_agg_cuda(w, ws, s)
+    torch.cuda.synchronize()
+    want = agg.fused_agg_plain(w, ws, s)
+    tol = agg.kernel_tolerance(w, ws, s, want)
+    err = (got.float() - want.float()).abs()
+    ratio = (err / tol).max().item()
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    same = agg.fused_agg_cuda(w, ws, torch.zeros_like(s))
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(same, w))
+    if show or not (ok and exact):
+        print(f"kernel fused_agg {label}: max_abs_err={err.max().item():.3e},"
+              f" worst err/bound={ratio:.3f}, s=0 exact={exact} "
+              f"{'ok' if ok and exact else 'FAIL'}", flush=True)
+    if not (ok and exact):
+        raise AssertionError(f"fused_agg kernel disagrees with its plain "
+                             f"version at {label}")
+    return err.max().item(), ratio
+
+
+def stack_like(torch, tree, C, gen):
+    """(C, ...) client models around a global tree: w + 1e-3 N(0, 1)."""
+    return _tree_map(tree, lambda t: t[None] + 1e-3 * torch.randn(
+        (C,) + tuple(t.shape), generator=gen, device=t.device, dtype=t.dtype))
+
+
+def fused_agg_phase(torch, agg, seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core import EnergyProfile, participation_mask
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    C = TRAIN["clients"]
+    E = EnergyProfile(C, TRAIN["taus"]).cycles()
+    # the first sustainable round in which the last client takes part, so
+    # that every client's term reaches the kernel
+    rnd = next(r for r in range(100)
+               if participation_mask("sustainable", seed, r, E)[-1] == 1)
+    mask = participation_mask("sustainable", seed, rnd, E)
+    s = (mask * (1.0 / C) * E.float()).cuda()
+    params = get_model(get_config("cifar-cnn")).init_params(gen)
+    stack = stack_like(torch, params, C, gen)
+    worst, worst_ratio = 0.0, 0.0
+
+    def record(res):
+        nonlocal worst, worst_ratio
+        worst, worst_ratio = max(worst, res[0]), max(worst_ratio, res[1])
+
+    for name in params:
+        for leaf in params[name]:
+            w, ws = params[name][leaf], stack[name][leaf]
+            record(fused_agg_check(
+                torch, agg, w.reshape(-1), ws.reshape(C, -1), s,
+                f"cnn {name}.{leaf} C={C} M={w.numel()} fp32 "
+                f"(sustainable round {rnd}, {int(mask.sum())} participants)"))
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for M in (1, 257, 16385):
+            w = torch.randn(M, generator=gen, device="cuda").to(dt)
+            ws = torch.randn((C, M), generator=gen, device="cuda").to(dt)
+            sr = torch.rand(C, generator=gen, device="cuda") * (5.0 / C)
+            record(fused_agg_check(torch, agg, w, ws, sr,
+                                   f"ragged C={C} M={M} {dname}"))
+    w = torch.randn(2048 * 8192, generator=gen, device="cuda").bfloat16()
+    ws = (w[None].float() + 1e-2 * torch.randn(
+        (8, w.numel()), generator=gen, device="cuda")).bfloat16()
+    record(fused_agg_check(torch, agg, w, ws, s[:8] + 0.01,
+                           "granite-3-2b MLP weight 2048x8192 C=8 bfloat16"))
+
+    # timing: the whole CNN tree (one aggregation of the train path) and
+    # fc1.w alone, against the bytes bound and one library call per leaf
+    def library(wt, wst):
+        return torch.addmv(wt, wst.t(), s, beta=1.0 - float(s.sum()))
+
+    leaves = [(params[n][l].reshape(-1), stack[n][l].reshape(C, -1))
+              for n in params for l in params[n]]
+    fc1 = (params["fc1"]["w"].reshape(-1), stack["fc1"]["w"].reshape(C, -1))
+    lib_err = max((library(w, ws) - agg.fused_agg_cuda(w, ws, s)).abs()
+                  .max().item() for w, ws in leaves)
+    times = {}
+    for label, items in (("tree", leaves), ("fc1.w", [fc1])):
+        nbytes = sum((C + 2) * w.numel() * w.element_size() for w, _ in items)
+        times[label] = {
+            "kernel_ms": cuda_ms(lambda: ops.fused_agg_tree(params, stack, s)
+                                 if label == "tree" else
+                                 agg.fused_agg_cuda(*fc1, s), 50, torch),
+            "plain_ms": cuda_ms(lambda: [agg.fused_agg_plain(w, ws, s)
+                                         for w, ws in items], 5, torch),
+            "library_ms": cuda_ms(lambda: [library(w, ws) for w, ws in items],
+                                  50, torch),
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "launches_per_call": len(items)}
+        t = times[label]
+        print(f"fused_agg {label} (C={C}, fp32): kernel {t['kernel_ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, library addmv "
+              f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s)",
+              flush=True)
+    print(f"fused_agg: |addmv - kernel| max {lib_err:.3e} over the CNN tree",
+          flush=True)
+    # the tree's 10 launches are short: how much of its wall is the device
+    prof = device_profile(torch, lambda: ops.fused_agg_tree(params, stack, s))
+    times["tree"]["device_ms"] = sum(ms for n, ms in prof["all"]
+                                     if "fused_agg" in n)
+    times["tree"]["profile_wall_ms"] = prof["wall_ms"]
+    print(f"profile fused_agg tree: wall {prof['wall_ms']:.4f} ms, fused_agg "
+          f"kernels {times['tree']['device_ms']:.4f} ms of device time, "
+          f"{prof['kernels']} kernels", flush=True)
+    fc1_t = times["fc1.w"]
+    return {
+        "name": "fused_agg",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
+        "replaces": "src/repro/kernels/fused_agg.py:23",
+        "launches": None,
+        "max_abs_err": worst,
+        "worst_err_over_bound": worst_ratio,
+        "ms": fc1_t["kernel_ms"],
+        "plain_ms": fc1_t["plain_ms"],
+        "bound_ms": fc1_t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": fc1_t["library_ms"],
+        "timed_at": f"fc1.w of the CIFAR CNN, the largest leaf of the "
+                    f"train path: C={C}, M={fc1[0].numel()}, fp32",
+        "tree": times["tree"],
+        "library_max_abs_diff": lib_err,
+    }
+
+
+def adam_step_bound(T, b1=0.9, b2=0.999):
+    """Largest |m^| / sqrt(v^) of Adam within its first T steps
+    (Cauchy-Schwarz on the moment sums; tests/test_torch_round.py)."""
+    worst = 0.0
+    for t in range(1, T + 1):
+        s = sum((1 - b1) ** 2 * b1 ** (2 * k) / ((1 - b2) * b2 ** k)
+                for k in range(t))
+        worst = max(worst, math.sqrt(s) * math.sqrt(1 - b2 ** t)
+                    / (1 - b1 ** t))
+    return worst
+
+
+def tree_diff(torch, a, b):
+    """(|a - b|, |a|) of two param trees, flattened into two vectors."""
+    names = [(n, l) for n in a for l in a[n]]
+    d = torch.cat([(a[n][l].cpu() - b[n][l].cpu()).abs().reshape(-1)
+                   for n, l in names])
+    w = torch.cat([a[n][l].cpu().abs().reshape(-1) for n, l in names])
+    return d, w
+
+
+def replayed(run, w, r, routes=None, dtype=None):
+    """Round r of ``run`` from ``w`` through ``core.replay_round``: (new
+    params, loss, each local step's decisions)."""
+    from repro_torch.core import replay_round
+    from repro_torch.models import cnn
+
+    w_new, m, seen = replay_round(cnn.loss_and_decisions, run.optimizer,
+                                  run.fed, w, run.batch_fn(r), run.p, run.E,
+                                  r, routes=routes, dtype=dtype)
+    return w_new, float(m["loss"]), seen
+
+
+def round_check(torch, card, cpu, w, w_next, r) -> dict:
+    """Round r from ``w`` (the card's params) on the card, against the CPU
+    replaying the card's decisions in float32 and in float64."""
+    from repro_torch.tree import tree_leaves
+
+    to_cpu = lambda tree: _tree_map(tree, lambda t: t.cpu())
+    w_card, l_card, routes = replayed(card, w, r)
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(w_card), tree_leaves(w_next)))
+    w32, l32, _ = replayed(cpu, to_cpu(w), r, routes)
+    w64, l64, _ = replayed(cpu, to_cpu(w), r, routes, torch.float64)
+    d, wabs = tree_diff(torch, w32, w_next)
+    d64, w64abs = tree_diff(torch, w64, w32)
+    dc64, _ = tree_diff(torch, w64, w_next)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    return {"round": r, "replay_equals_round": same,
+            "loss": l_card, "loss_rel_diff": rel(l_card, l32),
+            "cpu_loss_rel_diff_f64": rel(l32, l64),
+            "bulk": torch.quantile(d / (1 + wabs), BULK_Q).item(),
+            "cpu_bulk_f64": torch.quantile(d64 / (1 + w64abs),
+                                           BULK_Q).item(),
+            "max_diff": d.max().item(),
+            "over_sgd_tol_f64": int((dc64 > 1e-6 + 1e-5 * w64abs).sum())}
+
+
+def train_phase(torch, fa, agg, seed: int, card: str) -> dict:
+    from repro_torch.core import scheduling
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    # the entry point must turn TF32 off for matmuls and convolutions
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    out = {}
+    for policy, rounds in TRAIN_ROUNDS.items():
+        run = train.make_run(policy=policy, seed=seed, device="cuda", **TRAIN)
+        if not train.tf32_off():
+            raise AssertionError("the train entry point left TF32 on")
+        cpu = train.make_run(policy=policy, seed=seed, device="cpu", **TRAIN)
+        w0 = run.params
+        C, T = run.fed.num_clients, run.fed.local_steps
+        masks = []
+        real = scheduling.participation_mask
+
+        def recorder(*a, **k):
+            m = real(*a, **k)
+            masks.append(m.clone())
+            return m
+
+        train.train_round(run, w0, 0)            # warm-up (allocator, cuBLAS)
+        torch.cuda.synchronize()
+        fa.flash_attention_cuda.launches = 0
+        agg.fused_agg_cuda.launches = 0
+        scheduling.participation_mask = recorder
+        w, hist, trees = w0, [], [w0]
+        try:
+            t_run = time.perf_counter()
+            for r in range(rounds):
+                t0 = time.perf_counter()
+                w, m = train.train_round(run, w, r)
+                dt = time.perf_counter() - t0
+                hist.append({"round": r, **m, "round_ms": dt * 1e3,
+                             "client_steps_per_s": C * T / dt})
+                trees.append(w)
+            wall = time.perf_counter() - t_run
+        finally:
+            scheduling.participation_mask = real
+        launches = agg.fused_agg_cuda.launches
+        flash = fa.flash_attention_cuda.launches
+        for h in hist:
+            print(f"train {policy} round {h['round']}: loss {h['loss']:.4f} "
+                  f"participants {h['participants']:.0f} {h['round_ms']:.2f} "
+                  f"ms ({h['client_steps_per_s']:.1f} client-steps/s)",
+                  flush=True)
+        print(f"train {policy}: {rounds} rounds in {wall:.3f} s = "
+              f"{rounds * C * T / wall:.1f} client-steps/s on {card}; "
+              f"fused_agg launches {launches}, flash_attention launches "
+              f"{flash}", flush=True)
+        if launches != 10 * rounds:
+            raise AssertionError(f"fused_agg launched {launches} times in "
+                                 f"{rounds} rounds, expected 10 per round")
+        want = [real(policy, seed, r, cpu.E) for r in range(rounds)]
+        parts = [h["participants"] for h in hist]
+        if not (len(masks) == rounds and all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(masks, want))
+                and parts == [float(m.sum()) for m in want]):
+            raise AssertionError(f"train {policy}: the card's masks or "
+                                 f"participants differ from the CPU's")
+        for r in range(rounds):
+            if parts[r] == 0 and not all(
+                    torch.equal(a, b) for a, b in zip(
+                        tree_leaves(trees[r + 1]), tree_leaves(trees[r]))):
+                raise AssertionError(f"train {policy}: no-op round {r} "
+                                     f"changed the model")
+
+        # each round with participants again, from the card's params
+        # before it, replaying the card's decisions on the CPU
+        scale = scheduling.aggregation_scale(policy, run.E)
+        step = 2.0 * adam_step_bound(T) * TRAIN["lr"] * T
+        checks, failed = [], []
+        t0 = time.perf_counter()
+        for r in range(rounds):
+            if parts[r] == 0:
+                continue
+            c = round_check(torch, run, cpu, trees[r], trees[r + 1], r)
+            c["adam_bound"] = step * float((want[r] * (1.0 / C) * scale)
+                                           .sum())
+            loss_tol = max(LOSS_RTOL, c["cpu_loss_rel_diff_f64"])
+            bulk_tol = max(BULK_TOL, c["cpu_bulk_f64"])
+            ok = (c["replay_equals_round"] and c["loss_rel_diff"] <= loss_tol
+                  and c["bulk"] <= bulk_tol
+                  and c["max_diff"] <= c["adam_bound"])
+            print(f"train {policy} round {r}, card vs CPU replaying its "
+                  f"decisions from its params: replay equals the round "
+                  f"bitwise {c['replay_equals_round']}; loss rel diff "
+                  f"{c['loss_rel_diff']:.2e} (tol {loss_tol:.2e}; CPU "
+                  f"float32 vs float64 {c['cpu_loss_rel_diff_f64']:.2e}); "
+                  f"{BULK_Q:.0%} quantile of |d|/(1+|w|) {c['bulk']:.2e} "
+                  f"(tol {bulk_tol:.2e}; CPU float32 vs float64 "
+                  f"{c['cpu_bulk_f64']:.2e}); max |d| {c['max_diff']:.3e} "
+                  f"(Adam bound {c['adam_bound']:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            checks.append(c)
+            if not ok:
+                failed.append(r)
+        cpu_s = time.perf_counter() - t0
+        if failed:
+            raise AssertionError(f"train {policy}: rounds {failed} on the "
+                                 f"card differ from the CPU's beyond the "
+                                 f"stated bounds")
+        live = [h["loss"] for h in hist if h["participants"] > 0]
+        if policy == "sustainable" and not (
+                all(math.isfinite(x) for x in live) and live[-1] < live[0]):
+            raise AssertionError(f"train {policy}: loss did not fall: {live}")
+        prof = device_profile(torch, lambda: train.train_round(run, w, 0))
+        agg_ms = sum(ms for n, ms in prof["all"] if "fused_agg" in n)
+        print(f"profile train round ({policy}): wall {prof['wall_ms']:.3f} "
+              f"ms, device busy {prof['device_ms']:.3f} ms "
+              f"({prof['device_share']:.1%}), {prof['kernels']} kernels, "
+              f"fused_agg {agg_ms:.4f} ms "
+              f"({agg_ms / prof['device_ms']:.2%} of busy); top: "
+              + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"][:5]),
+              flush=True)
+        steady = hist[1:]
+        out[policy] = {
+            "rounds": rounds, "history": hist, "wall_s": wall,
+            "round_ms_steady_mean": sum(h["round_ms"] for h in steady)
+            / len(steady),
+            "client_steps_per_s": rounds * C * T / wall,
+            "fused_agg_launches": launches, "flash_launches": flash,
+            "cpu_s": cpu_s, "card_vs_cpu": checks,
+            "profile": {k: v for k, v in prof.items() if k != "all"},
+            "profile_fused_agg_ms": agg_ms}
+    out["sgd"] = sgd_check(torch, train, seed)
+    return out
+
+
+def sgd_check(torch, train, seed: int) -> list:
+    """SGD rounds through the same entry point, each held elementwise
+    against a float64 CPU replay of the card's decisions."""
+    kw = {**TRAIN, **{k: v for k, v in SGD_CHECK.items() if k != "rounds"}}
+    run = train.make_run(seed=seed, device="cuda", **kw)
+    cpu = train.make_run(seed=seed, device="cpu", **kw)
+    w, checks = run.params, []
+    for r in range(SGD_CHECK["rounds"]):
+        w_next, _ = train.train_round(run, w, r)
+        c = round_check(torch, run, cpu, w, w_next, r)
+        ok = c["replay_equals_round"] and c["over_sgd_tol_f64"] == 0
+        print(f"train sgd (lr {SGD_CHECK['lr']}) round {r}: replay equals "
+              f"the round bitwise {c['replay_equals_round']}; params past "
+              f"1e-6 + 1e-5 |w| of the float64 replay: "
+              f"{c['over_sgd_tol_f64']} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        checks.append(c)
+        if not ok:
+            raise AssertionError(f"train sgd round {r}: the card's round "
+                                 f"differs from the float64 replay")
+        w = w_next
+    return checks
+
+
+def fig1_phase(torch, seed: int) -> dict:
+    from repro_torch.launch.fig1 import run_fig1
+
+    t0 = time.perf_counter()
+    res = run_fig1(rounds=FIG1_ROUNDS, policies=["sustainable", "greedy"],
+                   seed=seed, eval_every=10, verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+    for policy, r in res.items():
+        print(f"fig1 {policy}: test acc {r['test_acc']} at rounds "
+              f"{r['rounds']} (chance 0.1), final loss {r['final_loss']:.4f},"
+              f" participants/round {sum(r['participants']) / FIG1_ROUNDS:.2f},"
+              f" {r['wall_s']} s", flush=True)
+        if not r["final_acc"] > 0.12:     # 2000 test images: 0.1 + 3 sigma
+            raise AssertionError(f"fig1 {policy}: accuracy {r['final_acc']} "
+                                 f"is not above chance")
+    return {"wall_s": wall, "results": res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -430,6 +855,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_agg as agg
 
     # the port is held to float32 where it computes in float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -438,26 +864,37 @@ def main(argv=None) -> int:
     card = nvidia_smi()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda},"
           f" {torch.cuda.get_device_name(0)}; allow_tf32=False", flush=True)
-    seconds = build.build("flash_attention")
-    print("kernel library build: " + (f"{seconds:.2f} s" if seconds is not None
-                                      else "already built"), flush=True)
-    for line in build.ptxas_log("flash_attention").splitlines():
-        if ("entry function" in line or "registers" in line
-                or "spill" in line):
-            print("ptxas:", line.strip())
+    t0 = time.perf_counter()
+    seconds = build.build_all(["flash_attention", "fused_agg"])
+    print(f"kernel library builds (in parallel, {time.perf_counter() - t0:.2f}"
+          f" s): " + ", ".join(f"{n} " + (f"{t:.2f} s" if t is not None
+                                         else "already built")
+                               for n, t in seconds.items()), flush=True)
+    for name in seconds:
+        for line in build.ptxas_log(name).splitlines():
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
+                print("ptxas:", line.strip())
 
     kernel = kernel_phase(torch, fa, args.seed)
+    agg_kernel = fused_agg_phase(torch, agg, args.seed)
     serve = serve_phase(torch, fa, args.seed, card)
     kernel["launches"] = serve["flash_launches"]
+    train = train_phase(torch, fa, agg, args.seed, card)
+    agg_kernel["launches"] = sum(train[policy]["fused_agg_launches"]
+                                 for policy in TRAIN_ROUNDS)
+    fig1 = fig1_phase(torch, args.seed)
 
+    kernels = [kernel, agg_kernel]
     record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "kernels": [kernel], "serve": serve}
+              "cuda": torch.version.cuda, "kernels": kernels, "serve": serve,
+              "train": train, "fig1": fig1}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
 
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

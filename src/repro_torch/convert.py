@@ -31,3 +31,26 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return _leaf(tree, dev)
+
+
+CNN_CONVS = ("conv1", "conv2")
+
+
+def cnn_params_from_numpy(tree, device="cuda"):
+    """The reference CNN's params (conv weights HWIO) -> the port's (conv
+    weights OIHW), on ``device``."""
+    tree = {name: dict(leaves) for name, leaves in tree.items()}
+    for name in CNN_CONVS:
+        tree[name]["w"] = np.asarray(tree[name]["w"]).transpose(3, 2, 0, 1)
+    return params_from_numpy(tree, device)
+
+
+def cnn_params_to_numpy(tree):
+    """The port's CNN params (or grads) -> numpy in the reference's layout
+    (conv weights HWIO)."""
+    out = {name: {k: v.detach().float().cpu().numpy()
+                  for k, v in leaves.items()} for name, leaves in tree.items()}
+    for name in CNN_CONVS:
+        out[name]["w"] = np.ascontiguousarray(
+            out[name]["w"].transpose(2, 3, 1, 0))
+    return out

@@ -1,0 +1,121 @@
+"""Host-side faithful simulation of Algorithm 1 and the paper's benchmarks
+(port of the JAX package's ``core/simulate.py``).
+
+Unlike the client-stacked round engine (``round.py``), this driver computes
+local updates ONLY for scheduled participants — exactly the paper's
+Algorithm 1 control flow.  Per round r:
+
+  alpha   = participation_mask(policy, seed, r, E, phase)
+  for i with alpha_i = 1:   w_i <- T local optimizer steps from w   (eq. 7)
+  w <- w + sum_i alpha_i p_i scale_i (w_i - w)                      (eqs. 9/12/13)
+
+The reference's second scheduling source, the energy closed loop
+(``energy=EnergyLoop(...)``: masks from stochastic harvests gated by
+battery state, optionally under a server controller), belongs to the
+energy fleet, which is not ported yet (``ROADMAP.md`` slice 3):
+``simulate(..., energy=...)`` raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.core import aggregation, scheduling
+from repro_torch.core.round import FedConfig, local_update
+from repro_torch.optim import Optimizer
+
+PyTree = Any
+
+ENERGY_NOT_PORTED = ("simulate(..., energy=...) needs the energy fleet's "
+                     "EnergyLoop, which is not ported yet (ROADMAP.md "
+                     "slice 3: the energy fleet scan)")
+
+
+def _accepts_num_steps(batch_fn: Callable) -> bool:
+    """True if ``batch_fn`` can take a third (num_steps) positional arg —
+    decided once from its signature, so a provider's contract is stable."""
+    try:
+        params = list(inspect.signature(batch_fn).parameters.values())
+    except (TypeError, ValueError):   # builtins / C callables: assume legacy
+        return False
+    if any(p.kind is inspect.Parameter.VAR_POSITIONAL for p in params):
+        return True
+    positional = [p for p in params if p.kind in
+                  (inspect.Parameter.POSITIONAL_ONLY,
+                   inspect.Parameter.POSITIONAL_OR_KEYWORD)]
+    return len(positional) >= 3
+
+
+@dataclasses.dataclass
+class SimResult:
+    params: PyTree
+    history: list[dict]
+
+    def curve(self, key: str) -> tuple[np.ndarray, np.ndarray]:
+        xs = [h["round"] for h in self.history if key in h]
+        ys = [h[key] for h in self.history if key in h]
+        return np.asarray(xs), np.asarray(ys)
+
+
+def simulate(loss_fn: Callable, optimizer: Optimizer, cfg: FedConfig,
+             w0: PyTree, batch_fn: Callable, p, E, num_rounds: int,
+             rng: torch.Tensor, eval_fn: Callable[[PyTree], dict] | None = None,
+             eval_every: int = 0, verbose: bool = False,
+             energy=None) -> SimResult:
+    """Run ``num_rounds`` global rounds of Algorithm 1 / a benchmark policy.
+
+    ``batch_fn(round, client)`` gives that client's (T, B, ...) batches; a
+    provider that accepts a third positional argument is called as
+    ``(round, client, num_steps)``.  Client i's key in round r is
+    ``fold_in(fold_in(rng, r), i)``.
+    """
+    if energy is not None:
+        raise NotImplementedError(ENERGY_NOT_PORTED)
+    E = np.asarray(E)
+    p = np.asarray(p)
+    phase = cfg.phase_array()
+    batch_takes_steps = _accepts_num_steps(batch_fn)
+    scale = scheduling.aggregation_scale(cfg.policy,
+                                         torch.as_tensor(E)).numpy()
+    T = cfg.local_steps
+
+    w = w0
+    history: list[dict] = []
+    t0 = time.time()
+    for r in range(num_rounds):
+        mask = scheduling.participation_mask(cfg.policy, cfg.seed, r,
+                                             torch.as_tensor(E), phase=phase)
+        parts = np.nonzero(mask.numpy())[0]
+        rec = {"round": r, "participants": int(len(parts))}
+        if len(parts):
+            acc = aggregation.zeros_like_fp32(w)
+            losses = []
+            for i in parts:
+                key = prng.fold_in(prng.fold_in(rng, r), int(i))
+                batch = (batch_fn(r, int(i), T) if batch_takes_steps
+                         else batch_fn(r, int(i)))
+                w_i, loss = local_update(loss_fn, optimizer, w, batch, key, T,
+                                         micro_batches=cfg.micro_batches,
+                                         step_offset=r * T)
+                coeff = float(p[i] * scale[i])
+                acc = aggregation.accumulate_client_delta(acc, w_i, w, coeff)
+                losses.append(float(loss))
+            w = aggregation.apply_accumulated(w, acc, cfg.server_lr)
+            rec["loss"] = float(np.mean(losses))
+        if eval_fn is not None and eval_every and \
+                ((r + 1) % eval_every == 0 or r == num_rounds - 1):
+            rec.update({k: float(v) for k, v in eval_fn(w).items()})
+        history.append(rec)
+        if verbose and (r % max(1, num_rounds // 20) == 0
+                        or r == num_rounds - 1):
+            msg = " ".join(f"{k}={v:.4f}" for k, v in rec.items()
+                           if isinstance(v, float))
+            print(f"[{cfg.policy}] round {r:4d} |S|={rec['participants']:2d} "
+                  f"{msg} ({time.time()-t0:.0f}s)", flush=True)
+    return SimResult(w, history)

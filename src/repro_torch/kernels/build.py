@@ -10,6 +10,7 @@ the CPU tests import every module, and this machine may have no ``nvcc``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -71,6 +72,14 @@ def build(name: str) -> float | None:
     (out.parent / "ptxas.log").write_text(log)
     os.replace(tmp, out)            # atomic: a reader never sees a part
     return time.perf_counter() - t0
+
+
+def build_all(names) -> dict:
+    """Build several libraries at once, one ``nvcc`` process each, all
+    started together; returns {name: seconds or None} as ``build``."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def ptxas_log(name: str) -> str:

@@ -23,3 +23,9 @@ def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def agg_reference(w, w_stack, s):
+    """out = w + sum_c s_c (w_c - w);  w (M,), w_stack (C, M), s (C,)."""
+    d = w_stack.float() - w.float()[None]
+    return (w.float() + torch.einsum("c,cm->m", s.float(), d)).to(w.dtype)

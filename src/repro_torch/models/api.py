@@ -4,12 +4,13 @@ JAX package's ``models/api.py``).
 Every family exposes, with ``cfg`` bound:
   init_params(gen) -> params                       (on gen.device)
   forward(params, batch, impl) -> (logits, aux)
-  init_cache(batch, cache_len, device) -> cache
+  loss_fn(params, batch, rng, impl) -> scalar
+  init_cache(batch, cache_len, device) -> cache    (decoder families)
   prefill(params, batch, cache_len, impl, window) -> (logits, cache)
   decode_step(params, token, cache, pos, ring, window) -> (logits, cache)
 
-Only ``dense`` is registered in this slice; ``loss_fn`` comes with the
-training slice.
+Registered: ``dense`` (served; its ``loss_fn`` raises until the LM local
+update is ported) and ``cnn`` (trained).
 """
 from __future__ import annotations
 
@@ -18,7 +19,12 @@ from functools import partial
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import cnn, transformer
+
+LM_LOSS_NOT_PORTED = (
+    "loss_fn of family {!r} is not ported yet (ROADMAP.md Queue 1 item 10: "
+    "LM local update, which needs a flash backward); the training slice "
+    "trains family 'cnn'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +32,7 @@ class Model:
     cfg: ModelConfig
     init_params: Callable
     forward: Callable
+    loss_fn: Callable
     init_cache: Callable | None = None
     prefill: Callable | None = None
     decode_step: Callable | None = None
@@ -36,16 +43,22 @@ class Model:
         return params.numel()
 
 
-_FAMILY_MODULES = {"dense": transformer}
+def _lm_loss_not_ported(cfg: ModelConfig, *args, **kwargs):
+    raise NotImplementedError(LM_LOSS_NOT_PORTED.format(cfg.family))
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in _FAMILY_MODULES:
+    if cfg.family == "cnn":
+        return Model(cfg=cfg, init_params=partial(cnn.init_params, cfg),
+                     forward=partial(cnn.forward, cfg),
+                     loss_fn=partial(cnn.loss_fn, cfg))
+    if cfg.family != "dense":
         raise NotImplementedError(transformer.NOT_PORTED.format(cfg.family))
-    mod = _FAMILY_MODULES[cfg.family]
+    mod = transformer
     return Model(cfg=cfg,
                  init_params=partial(mod.init_params, cfg),
                  forward=partial(mod.forward, cfg),
+                 loss_fn=partial(_lm_loss_not_ported, cfg),
                  init_cache=partial(mod.init_cache, cfg),
                  prefill=partial(mod.prefill, cfg),
                  decode_step=partial(mod.decode_step, cfg))

@@ -19,7 +19,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 
 NOT_PORTED = ("family {!r} is not ported yet (ROADMAP.md Queue 1, slice 4: "
-              "remaining families); this slice serves family 'dense'")
+              "remaining families); the port serves family 'dense' and "
+              "trains family 'cnn'")
 
 
 def _require_dense(cfg: ModelConfig):

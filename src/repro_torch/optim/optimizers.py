@@ -1,0 +1,110 @@
+"""Minimal optimizers on trees of tensors (port of the JAX package's
+``optim/optimizers.py``): SGD, SGD with momentum, and Adam.
+
+``Optimizer(init, update)``: ``update(grads, state, params, step) ->
+(new_params, new_state)`` is functional (new tensors, nothing updated in
+place), so it applies unchanged to client-stacked trees.  The state is
+float32 whatever the params' dtype; new params are cast back to each
+param's dtype.  ``step`` is the global schedule index handed to the
+learning-rate schedule.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.optim.schedules import constant
+from repro_torch.tree import tree_map
+
+PyTree = Any
+Schedule = Callable[[Any], torch.Tensor]
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[PyTree], PyTree]
+    update: Callable[[PyTree, PyTree, PyTree, Any], tuple[PyTree, PyTree]]
+    # update(grads, state, params, step) -> (new_params, new_state)
+
+
+def _cast_like(new, ref):
+    return tree_map(lambda n, r: n.to(r.dtype), new, ref)
+
+
+def _zeros_f32(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def sgd(lr: Schedule | float, momentum: float = 0.0) -> Optimizer:
+    sched = lr if callable(lr) else constant(lr)
+
+    def init(params):
+        if momentum == 0.0:
+            return ()
+        return tree_map(_zeros_f32, params)
+
+    def update(grads, state, params, step):
+        eta = sched(step)
+        if momentum == 0.0:
+            new = tree_map(lambda p, g: p.float() - eta * g.float(),
+                           params, grads)
+            return _cast_like(new, params), state
+        new_m = tree_map(lambda m, g: momentum * m + g.float(), state, grads)
+        new = tree_map(lambda p, m: p.float() - eta * m, params, new_m)
+        return _cast_like(new, params), new_m
+
+    return Optimizer(init, update)
+
+
+def adam(lr: Schedule | float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Optimizer:
+    sched = lr if callable(lr) else constant(lr)
+
+    def init(params):
+        # "t" counts steps since init: the bias correction tracks the moment
+        # buffers (fresh every round, the FedAvg convention), while ``step``
+        # is the global schedule index, which keeps decaying across rounds
+        return {"m": tree_map(_zeros_f32, params),
+                "v": tree_map(_zeros_f32, params),
+                "t": torch.zeros((), dtype=torch.float32)}
+
+    def update(grads, state, params, step):
+        step_f = state["t"] + 1.0
+        eta = sched(step)
+        m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
+                     state["m"], grads)
+        v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
+                     state["v"], grads)
+        # float32 powers of a float32 counter, as jnp computes them
+        mhat_scale = 1.0 / (1 - torch.pow(torch.tensor(b1), step_f))
+        vhat_scale = 1.0 / (1 - torch.pow(torch.tensor(b2), step_f))
+        new = tree_map(
+            lambda p, m_, v_: p.float()
+            - eta * (m_ * mhat_scale) / (torch.sqrt(v_ * vhat_scale) + eps),
+            params, m, v)
+        return _cast_like(new, params), {"m": m, "v": v, "t": step_f}
+
+    return Optimizer(init, update)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adam"          # adam | sgd | sgd_momentum
+    lr: float = 1e-3
+    momentum: float = 0.9
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+
+def make_optimizer(cfg: OptimizerConfig,
+                   schedule: Schedule | None = None) -> Optimizer:
+    lr = schedule if schedule is not None else cfg.lr
+    if cfg.name == "adam":
+        return adam(lr, cfg.b1, cfg.b2, cfg.eps)
+    if cfg.name == "sgd":
+        return sgd(lr, 0.0)
+    if cfg.name == "sgd_momentum":
+        return sgd(lr, cfg.momentum)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")

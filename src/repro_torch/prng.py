@@ -1,0 +1,128 @@
+"""A bit-exact copy of the part of ``jax.random`` that the schedules use.
+
+JAX's default generator is Threefry-2x32 (20 rounds) with
+``jax_threefry_partitionable=True`` and 64-bit types off; under those
+defaults the functions below return the same bits as their ``jax.random``
+namesakes:
+
+* a key is an int64 tensor of shape (..., 2) holding two uint32 words
+  (JAX's raw ``uint32[2]`` key); leading dimensions batch independent keys,
+  as ``vmap`` over keys would;
+* ``fold_in(key, d)`` = threefry(key, (0, d));
+* ``split(key, n)[i]`` = threefry(key, (0, i)) (the partitionable split
+  counts with a 64-bit iota, so it equals ``fold_in(key, i)``);
+* ``bits(key, shape)`` = w1 ^ w2 of threefry(key, (hi(j), lo(j))) for the
+  flat index j of each element;
+* ``randint`` draws two words per element from ``split(key, 2)`` and folds
+  them with the multiplier ``2^32 mod span``, not a plain modulus.
+
+Torch has no full uint32 arithmetic, so every word is held in int64 and
+every sum, shift and rotation is masked with ``& 0xFFFFFFFF``.  Keys are
+made with ``PRNGKey(seed)`` = (0, seed); ``core.scheduling`` builds its key
+as the reference does, ``PRNGKey(0) + seed`` = (seed, seed).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _word(x, device=None) -> torch.Tensor:
+    """A uint32 word (or words) as int64; negative ints wrap as in a cast
+    to uint32."""
+    return torch.as_tensor(x, dtype=torch.int64, device=device) & MASK32
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32, 20 rounds, on int64 tensors holding uint32 words
+    (broadcast against each other).  Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x = [(x1 + ks[0]) & MASK32, (x2 + ks[1]) & MASK32]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & MASK32
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & MASK32
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x[0], x[1]
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``: (seed >> 32, seed & 0xFFFFFFFF)."""
+    return torch.stack([_word(int(seed) >> 32 if seed >= 0 else 0, device),
+                        _word(seed, device)])
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``; ``data`` (an int or an int tensor) broadcasts
+    against the key's leading dimensions."""
+    d = _word(data, key.device)
+    y1, y2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: (num, ..., 2) keys."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    i = i.reshape((num,) + (1,) * (key.dim() - 1))
+    y1, y2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(i), i)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (32-bit): int64 words of shape
+    (*key.shape[:-1], *shape)."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n >= 2 ** 32:
+        raise NotImplementedError("more than 2^32 random words from one key")
+    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    batch = key.shape[:-1]
+    k1 = key[..., 0].reshape(batch + (1,) * len(shape))
+    k2 = key[..., 1].reshape(batch + (1,) * len(shape))
+    y1, y2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return y1 ^ y2
+
+
+def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` into int32; the
+    bounds broadcast against (*key.shape[:-1], *shape)."""
+    k = split(key, 2)
+    hi, lo = bits(k[0], shape), bits(k[1], shape)
+    minval = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
+    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    minval = minval.clamp(-2 ** 31, 2 ** 31 - 1)
+    maxval = maxval.clamp(-2 ** 31, 2 ** 31 - 1)
+    span = torch.where(maxval <= minval, torch.ones_like(maxval),
+                       (maxval - minval) & MASK32)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK32) % span     # uint32 product: wraps
+    off = ((hi % span) * mult) & MASK32
+    off = ((off + lo % span) & MASK32) % span
+    out = (minval + off) & MASK32
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
+
+
+def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0
+            ) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: 23 random mantissa bits under
+    exponent 0, minus one, scaled to [minval, maxval).
+
+    XLA contracts ``floats * (hi - lo) + lo`` into one fused multiply-add;
+    the product of two float32 values is exact in float64, so the scaling
+    is done there and rounded to float32 once."""
+    f = ((bits(key, shape) >> 9) | 0x3F800000).to(torch.int32)
+    floats = f.view(torch.float32) - 1.0
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=key.device)
+    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)

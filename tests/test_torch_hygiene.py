@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and nothing in
-``chip_smoke.py`` imports JAX or the JAX package, and the package calls no
-library attention kernel."""
+``chip_smoke.py`` or ``probes/`` imports JAX or the JAX package, and the package calls no
+library attention or aggregation kernel."""
 import ast
 import os
 
@@ -38,12 +38,22 @@ def test_package_has_modules():
     names = {os.path.relpath(p, PKG) for p in _port_files()}
     for need in ("device.py", "convert.py", "kernels/flash_attention.py",
                  "kernels/build.py", "models/transformer.py",
-                 "serve/engine.py", "launch/serve.py"):
+                 "serve/engine.py", "launch/serve.py", "prng.py",
+                 "kernels/fused_agg.py", "models/cnn.py",
+                 "core/scheduling.py", "core/aggregation.py",
+                 "core/round.py", "core/simulate.py", "optim/optimizers.py",
+                 "data/synthetic.py", "launch/train.py", "launch/fig1.py"):
         assert need in names
 
 
+def _probe_files():
+    d = os.path.join(REPO, "probes")
+    return sorted(os.path.join(d, f) for f in os.listdir(d)
+                  if f.endswith(".py"))
+
+
 @pytest.mark.parametrize("path", _port_files() + [
-    os.path.join(REPO, "chip_smoke.py")],
+    os.path.join(REPO, "chip_smoke.py")] + _probe_files(),
     ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
@@ -53,3 +63,10 @@ def test_no_jax_or_reference_import(path):
 def test_package_calls_no_library_attention():
     for path in _port_files():
         assert "scaled_dot_product_attention" not in open(path).read(), path
+
+
+def test_package_calls_no_library_aggregation():
+    """The server's aggregation runs on the port's own ``fused_agg``
+    kernel; ``chip_smoke.py`` times ``torch.addmv`` as its yardstick only."""
+    for path in _port_files():
+        assert "addmv" not in open(path).read(), path

@@ -6,11 +6,12 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
         tests/test_torch_kernels_cuda.py
 
-(``--noconftest``: the suite's conftest imports JAX.)  The kernel is held
-against its plain version within ``flash_attention.kernel_tolerance``
-(bf16: twice the largest move of rounding P to bf16, plus the output's
-rounding; fp32: the reference's 2e-5); ``chip_smoke.py`` repeats the check
-at the main path's shapes.
+(``--noconftest``: the suite's conftest imports JAX.)  Each kernel is held
+against its plain version within its module's ``kernel_tolerance``: flash
+attention's (bf16: twice the largest move of rounding P to bf16, plus the
+output's rounding; fp32: the reference's 2e-5) and fused_agg's (twice the
+first-order rounding bound of a float32 evaluation, plus two bf16 ulps in
+bf16); ``chip_smoke.py`` repeats the checks at the main path's shapes.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_agg as agg
 from repro_torch.kernels import ops
 from repro_torch.models import get_model
 from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
@@ -96,6 +98,85 @@ def test_engine_on_card_matches_engine_on_cpu(card):
         len(specs) * cfg.num_layers)
     for i in range(len(specs)):
         np.testing.assert_array_equal(got[i].tokens, want[i].tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,M", [(40, 1), (40, 257), (40, 16385),
+                                 (40, 2400), (40, 10), (8, 2048 * 8192)])
+def test_fused_agg_matches_plain(card, dtype, C, M):
+    """Ragged and aligned leaves (both the scalar and the vector path);
+    s = 0 gives w back exactly; one launch per call."""
+    r = np.random.default_rng(M)
+    w = torch.tensor(r.standard_normal(M), dtype=torch.float32).to(dtype)
+    ws = torch.tensor(r.standard_normal((C, M)),
+                      dtype=torch.float32).to(dtype)
+    s = torch.tensor(r.uniform(0, 5.0 / C, C), dtype=torch.float32)
+    w, ws, s = w.to(card), ws.to(card), s.to(card)
+    before = agg.fused_agg_cuda.launches
+    got = ops.fused_agg(w, ws, s)
+    torch.cuda.synchronize()
+    assert agg.fused_agg_cuda.launches == before + 1
+    want = agg.fused_agg_plain(w, ws, s)
+    tol = agg.kernel_tolerance(w, ws, s, want)
+    err = (got.float() - want.float()).abs()
+    assert got.dtype == dtype and bool((err <= tol).all()), (
+        (err / tol).max().item())
+    assert torch.equal(ops.fused_agg(w, ws, torch.zeros_like(s)), w)
+
+
+@pytest.mark.cuda
+def test_fused_agg_rejects_what_it_does_not_take(card):
+    w = torch.zeros(64, device=card)
+    ws = torch.zeros(3, 64, device=card)
+    s = torch.zeros(3, device=card)
+    with pytest.raises(ValueError, match="float32 or both"):
+        agg.fused_agg_cuda(w.half(), ws.half(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        agg.fused_agg_cuda(w, ws.t().contiguous().t(), s)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        agg.fused_agg_cuda(w, ws, s.cpu())
+    with pytest.raises(ValueError, match="do not match"):
+        agg.fused_agg_cuda(w, ws, torch.zeros(4, device=card))
+
+
+@pytest.mark.cuda
+def test_train_round_on_card_matches_cpu(card):
+    """One CNN round (C=4, T=2, B=8, SGD) on the card, through the kernel,
+    against the same round on the CPU (plain path): same participants, and
+    every param within 1e-6 + 1e-5 |w| (float32 sums in other orders, as
+    ``tests/test_torch_round.py`` holds the port against the reference)."""
+    from repro_torch import prng
+    from repro_torch.core import FedConfig, parallel_round
+    from repro_torch.launch.train import disable_tf32
+    from repro_torch.optim import sgd
+    disable_tf32()
+    cfg = get_smoke_config("cifar-cnn")
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    r = np.random.default_rng(0)
+    batch = {"images": torch.tensor(r.standard_normal((4, 2, 8, 32, 32, 3)),
+                                    dtype=torch.float32),
+             "labels": torch.tensor(r.integers(0, 10, (4, 2, 8)))}
+    E = torch.tensor([1, 5, 10, 20], dtype=torch.int32)
+    p = torch.full((4,), 0.25)
+    fed = FedConfig(num_clients=4, local_steps=2)
+
+    def run(w, b, dev):
+        return parallel_round(lambda q, x, k: model.loss_fn(q, x), sgd(1e-2),
+                              fed, w, b, p.to(dev), E, 0, prng.PRNGKey(0))
+
+    before = agg.fused_agg_cuda.launches
+    got, mg = run(_to(params, card), _to(batch, card), card)
+    torch.cuda.synchronize()
+    assert agg.fused_agg_cuda.launches - before == 10     # one per leaf
+    want, mw = run(params, batch, "cpu")
+    assert float(mg["participants"]) == float(mw["participants"])
+    flat = lambda t: torch.cat([t[k][kk].cpu().reshape(-1) for k in t
+                                for kk in t[k]])
+    d = (flat(got) - flat(want)).abs()
+    tol = 1e-6 + 1e-5 * flat(want).abs()
+    assert bool((d <= tol).all()), (int((d > tol).sum()), d.max().item())
 
 
 def _to(tree, device):
