@@ -45,8 +45,9 @@ without either.  Phases, each of which raises on a failed check:
    on).  Every kernel's count is set to 0 before each run and read after
    it (10 fused_agg launches per round).  The card's masks must equal the
    CPU's bitwise, no-op rounds must leave the model bitwise unchanged, and
-   the loss must fall.  Each round with participants is run again from
-   the card's params before it: on the card through
+   the loss must fall.  Sustainable rounds 0, 2 and 3 and wait_all round
+   0 (rounds 1 and 4 are left out for time: ~1 min each) are run again
+   from the card's params before them: on the card through
    ``core.replay_round``, which reads out every local step's max-pool and
    ReLU decisions and must equal the round bitwise, and on the CPU
    replaying those decisions in float32 and in float64.  The card's round
@@ -59,6 +60,30 @@ without either.  Phases, each of which raises on a failed check:
 6. Fig. 1: ``repro_torch.launch.fig1.run_fig1`` for 20 rounds under
    ``sustainable`` and ``greedy`` (N=40, the faithful participants-only
    driver), with test accuracy, which must be above chance.
+7. fleet_step kernel (run after phase 3): ``fleet_step_cuda`` against
+   ``fleet_step_plain`` for every gate (sustainable, threshold, greedy),
+   with and without histograms, groups (G=3) and mask output, at ragged
+   n in {1, 257, 65537}, with per-client battery fields and costs, and at
+   n = 10,000,000: every per-client output bitwise, the stats within
+   ``fleet_step.kernel_tolerance`` of their float64 sums (histogram counts
+   exact), and bitwise on a dyadic configuration.  Times the main path's
+   instantiation at n = 10,000,000 (device time of its two launches from
+   ``torch.profiler``, and CUDA events around back-to-back calls, which
+   include the wrapper's host time) against its plain version and the
+   bytes bound (``step_ops.bytes_moved``; no library call computes it).
+8. Fleet: ``repro_torch.launch.fleet``'s path, ``examples/energy_fleet.py``'s
+   scenario at N = 1,000,000: 150 rounds each of sustainable, greedy and
+   threshold 1.5 with histograms, and one grouped sustainable run; every
+   kernel's count is set to 0 before each run and read after it (one
+   fleet_step launch a round, no other kernel), energy is conserved every
+   round and each histogram counts N clients.  Then the card against the
+   chip machine's CPU: a
+   Bernoulli fleet for 10 rounds (masks, charge, streak and counts
+   bitwise), the scenario's first 2 rounds per policy (its exponential
+   marks are ulp-close, so up to 1e-5 N clients may land on the other
+   side of a threshold or bin edge; energy stats to 1e-5), and the
+   8-client closed loop through ``core.simulate``.  Prints rounds/s,
+   client-rounds/s and a profile of one round.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes a
@@ -74,6 +99,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
@@ -101,6 +128,9 @@ LOGIT_ATOL = {"bfloat16": 0.5, "float32": 1e-3}
 TRAIN = dict(clients=40, local_steps=5, batch=24, taus=(1, 5, 10, 20),
              lr=1e-3)
 TRAIN_ROUNDS = {"sustainable": 5, "wait_all": 3}
+# the rounds replayed on the CPU (~1 min each): sustainable rounds 1 and 4
+# (loss 0 from round 4 on) are left out to keep the script within its time
+TRAIN_REPLAY = {"sustainable": (0, 2, 3), "wait_all": (0,)}
 # each round of the card with participants, against the same round on
 # the CPU from the card's params before it, every max-pool and ReLU taking
 # the card's decision of the same step and client (``replay_round``; a
@@ -606,6 +636,402 @@ def fused_agg_phase(torch, agg, seed: int) -> dict:
     }
 
 
+FLEET_KERNEL_NS = (1, 257, 65537)
+FLEET_KERNEL_BIG = 10_000_000        # fleet_scale.py's largest round step
+FLEET_GROUPS = 3
+FLEET_GATES = ("sustainable", "threshold", "greedy")
+
+
+def fleet_inputs(torch, n, gen, *, dyadic=False, per_client=False,
+                 groups=None):
+    """One round's inputs on the card: (battery, env without the battery,
+    round cost).  Non-dyadic: charge U(0, 3), harvest Exp(0.7), want 0/1,
+    valid 0 on every seventh lane (padding lanes), streak in 0..69,
+    battery 2.5 J / leak 0.02 (or per client U(1, 3) / U(0, 0.1) with a
+    per-client cost U(0.5, 1.5)).  Dyadic: quarters everywhere, leak 0.25,
+    cost 0.75, so every sum of one round is exact in float32."""
+    from repro_torch.energy.battery import BatteryConfig
+
+    dev = "cuda"
+    u = lambda: torch.rand(n, generator=gen, device=dev)
+    ri = lambda hi: torch.randint(0, hi, (n,), generator=gen, device=dev)
+    if dyadic:
+        bat = BatteryConfig(capacity=2.5, leak=0.25)
+        env = {"charge": ri(11).float() * 0.25,
+               "harvest": ri(5).float() * 0.25,
+               "valid": torch.ones(n, device=dev)}
+        cost = torch.tensor(0.75, device=dev)
+    else:
+        bat = (BatteryConfig(capacity=1.0 + 2.0 * u(), leak=0.1 * u())
+               if per_client else BatteryConfig(capacity=2.5, leak=0.02))
+        env = {"charge": 3.0 * u(), "harvest": -0.7 * torch.log1p(-u()),
+               "valid": (torch.arange(n, device=dev) % 7 != 6).float()}
+        cost = (0.5 + u()) if per_client else torch.tensor(1.0, device=dev)
+    env.update(want=(u() < 0.5).float(), streak=ri(70).float(),
+               threshold=torch.tensor(1.5, device=dev))
+    if groups:
+        env["groups"] = ri(groups).to(torch.int32)
+    return bat, env, cost
+
+
+def fleet_step_check(torch, fs, gate, n, gen, *, hist, groups, emit,
+                     label, show=False, **kw) -> dict:
+    """``fleet_step_cuda`` against ``fleet_step_plain`` on the same inputs:
+    every per-client output bitwise, the stats within
+    ``fleet_step.kernel_tolerance`` of their float64 sums (histogram counts
+    exact); on dyadic inputs every stat bitwise equal to the plain
+    version's.  Raises on a failure."""
+    from repro_torch.energy import step_ops
+
+    bat, inputs, cost = fleet_inputs(torch, n, gen, groups=groups, **kw)
+    program, env = step_ops.fleet_step_program(bat, gate, groups, hist=hist,
+                                               device="cuda")
+    env.update(inputs, round_cost=cost)
+    got_state, got_emits, got = fs.fleet_step_cuda(
+        program, env, n=n, emit=emit, num_groups=groups)
+    torch.cuda.synchronize()
+    out, plain = step_ops.run_step(program, env, valid=env["valid"],
+                                   groups=env.get("groups"),
+                                   num_groups=groups)
+    same = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
+    per_client = [same(got_state[k], out[k]) for k in program.state_out]
+    if emit:
+        per_client.append(same(got_emits["mask"], out["mask"]))
+    exact = fs.stats_float64(program, out, env["valid"], env.get("groups"),
+                             groups)
+    ratios = fs.stats_error(got, exact, fs.kernel_tolerance(
+        program, out, env["valid"], n, env.get("groups"), groups))
+    worst = max(ratios.values())
+    err = max((got[k].double() - plain[k].double()).abs().max().item()
+              for k in got)
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    ok = all(per_client) and finite and worst <= 1.0
+    if kw.get("dyadic"):
+        ok = ok and all(same(got[k], plain[k]) for k in got)
+    if show or not ok:
+        print(f"kernel fleet_step {label}: per-client outputs bitwise "
+              f"{all(per_client)}; stats worst err/bound {worst:.3f}, max "
+              f"|kernel - plain| {err:.3e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+    if not ok:
+        raise AssertionError(f"fleet_step kernel disagrees with its plain "
+                             f"version at {label}: {ratios}")
+    return {"worst": worst, "err": err}
+
+
+def fleet_step_phase(torch, fs, seed: int) -> dict:
+    from repro_torch.energy import step_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst, err, cases = 0.0, 0.0, 0
+
+    def record(res):
+        nonlocal worst, err, cases
+        worst, err = max(worst, res["worst"]), max(err, res["err"])
+        cases += 1
+
+    for n in FLEET_KERNEL_NS:
+        for gate in FLEET_GATES:
+            for hist in (False, True):
+                for groups in (None, FLEET_GROUPS):
+                    for emit in (False, True):
+                        record(fleet_step_check(
+                            torch, fs, gate, n, gen, hist=hist,
+                            groups=groups, emit=emit,
+                            label=f"{gate} n={n} hist={hist} "
+                                  f"groups={groups} emit={emit}"))
+        for gate in FLEET_GATES:
+            record(fleet_step_check(
+                torch, fs, gate, n, gen, hist=True, groups=FLEET_GROUPS,
+                emit=True, per_client=True, show=n == FLEET_KERNEL_NS[-1],
+                label=f"{gate} n={n} per-client battery and cost"))
+            if n > 1:
+                record(fleet_step_check(
+                    torch, fs, gate, n, gen, hist=True, groups=FLEET_GROUPS,
+                    emit=True, dyadic=True, show=n == FLEET_KERNEL_NS[-1],
+                    label=f"{gate} n={n} dyadic (stats bitwise)"))
+    n = FLEET_KERNEL_BIG
+    for gate in FLEET_GATES:
+        record(fleet_step_check(torch, fs, gate, n, gen, hist=True,
+                                groups=None, emit=False, show=True,
+                                label=f"{gate} n={n} hist"))
+    record(fleet_step_check(torch, fs, "sustainable", n, gen, hist=True,
+                            groups=FLEET_GROUPS, emit=True, show=True,
+                            label=f"sustainable n={n} hist groups emit"))
+    print(f"kernel fleet_step: {cases} cases, worst stats err/bound "
+          f"{worst:.3f}, max |kernel - plain| {err:.3e}", flush=True)
+
+    # timing: the main path's instantiation (sustainable, hist, no groups,
+    # no mask output) at fleet_scale.py's largest round-step size
+    bat, inputs, cost = fleet_inputs(torch, n, gen)
+    program, env = step_ops.fleet_step_program(bat, "sustainable", None,
+                                               hist=True, device="cuda")
+    env.update(inputs, round_cost=cost)
+    event_ms = cuda_ms(lambda: fs.fleet_step_cuda(program, env, n=n), 20,
+                       torch)
+    plain_ms = cuda_ms(lambda: fs.fleet_step_plain(program, env, n=n), 3,
+                       torch)
+    # CUDA events around back-to-back calls also count the wrapper's host
+    # time between launches; the kernel's own time is the device time of
+    # its two launches per call
+    reps = 10
+    prof = device_profile(torch, lambda: [
+        fs.fleet_step_cuda(program, env, n=n) for _ in range(reps)])
+    parts = {name: ms / reps for name, ms in prof["all"]
+             if "fleet_step" in name}
+    kernel_ms = sum(parts.values())
+    nbytes = step_ops.bytes_moved(program, env, n)["fused_bytes"]
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    print(f"fleet_step n={n} sustainable hist: kernel {kernel_ms:.4f} ms of "
+          f"device time a call ("
+          + ", ".join(f"{'reduce' if 'reduce' in k else 'step'} {v:.4f}"
+                      for k, v in parts.items())
+          + f"), {event_ms:.4f} ms between CUDA events (host included); "
+          f"plain {plain_ms:.4f} ms, no library call; bound {bound_ms:.4f} "
+          f"ms ({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s)",
+          flush=True)
+    return {
+        "name": "fleet_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fleet_step.cu",
+        "replaces": "src/repro/kernels/fleet_step.py:102",
+        "launches": None,
+        "max_abs_err": err,
+        "worst_err_over_bound": worst,
+        "ms": kernel_ms,
+        "event_ms": event_ms,
+        "kernel_parts_ms": parts,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "timed_at": f"n={n}, sustainable gate, hist, no groups, no mask "
+                    f"output, scalar battery and cost: {nbytes} bytes; ms "
+                    f"is device time from torch.profiler",
+        "cases": cases,
+    }
+
+
+# the fleet phase: examples/energy_fleet.py's scenario at fleet_scale.py's
+# largest host-local size
+FLEET = dict(clients=1_000_000, rounds=150)
+FLEET_GROUPS_RUN = 4                # the §V taus: group = client mod 4
+FLEET_BERNOULLI_ROUNDS = 10         # card vs CPU, masks and charge bitwise
+FLEET_CPU_ROUNDS = 2                # the scenario's first rounds on the CPU
+# card vs CPU on the scenario: its exponential marks are ulp-close, not
+# bitwise (log1p is rounded differently), so a client within a few ulp of
+# the round cost, the threshold or a bin edge may land on the other side:
+# at most FLEET_FLIP_FRAC of the fleet per round; the energy totals and
+# averages (sums of nonnegative terms in other orders) to FLEET_STAT_RTOL
+FLEET_FLIP_FRAC = 1e-5
+FLEET_STAT_RTOL = 1e-5
+
+
+def conservation_check(stats, n, charge0_sum, depth) -> float:
+    """harvested - consumed - leaked - overflowed == change of the fleet's
+    charge, per round.  Returns the largest |difference| / bound; the bound
+    is (depth + 5) u times the magnitudes involved (each client's identity
+    holds to a few roundings, each stat sum to ``depth`` of them)."""
+    worst = 0.0
+    prev = charge0_sum
+    for r in range(len(stats["harvested"])):
+        f = {k: float(stats[k][r]) for k in
+             ("harvested", "consumed", "leaked", "overflowed")}
+        now = float(stats["mean_charge"][r]) * n
+        lhs = f["harvested"] - f["consumed"] - f["leaked"] - f["overflowed"]
+        bound = (depth + 5) * 2.0 ** -24 * (sum(f.values()) + prev + now)
+        worst = max(worst, abs(lhs - (now - prev)) / bound)
+        prev = now
+    return worst
+
+
+COUNT_STATS = ("participants", "consumed", "frac_depleted")
+
+
+def fleet_compare(card, cpu, n) -> dict:
+    """The card's run against the CPU's, worst over the rounds: clients
+    whose mask differs; for the counting stats (participants, consumed at
+    1 J a round, frac_depleted x N) and each histogram the clients that
+    moved (|difference|, summed over the bins); for the energy stats the
+    relative difference."""
+    out = {"mask_flips": int((card.masks.cpu() != cpu.masks).sum(dim=1)
+                             .max())}
+    for k, v in cpu.stats.items():
+        a, b = np.asarray(card.stats[k], np.float64), v.astype(np.float64)
+        d = np.abs(a - b)
+        if k.startswith("hist_"):
+            out[k] = float(d.sum(axis=-1).max())
+        elif k in COUNT_STATS:
+            out[k] = float(d.max()) * (n if k == "frac_depleted" else 1)
+        else:
+            out[k] = float((d / np.maximum(np.abs(b), 1e-30)).max())
+    return out
+
+
+def fleet_within(diff, flips) -> bool:
+    """Every count within ``flips`` clients (a moved client changes two
+    bins of a histogram), every energy stat within FLEET_STAT_RTOL."""
+    return all(v <= (2 * flips if k.startswith("hist_") else flips
+                     if k in COUNT_STATS or k == "mask_flips"
+                     else FLEET_STAT_RTOL) for k, v in diff.items())
+
+
+def fleet_rel(diff) -> float:
+    return max(v for k, v in diff.items() if not k.startswith("hist_")
+               and k not in COUNT_STATS and k != "mask_flips")
+
+
+def fleet_phase(torch, fs, seed: int, card: str) -> dict:
+    from repro_torch.energy.arrivals import Bernoulli
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_agg as agg
+    from repro_torch.launch import fleet as launch
+
+    counters = (fa.flash_attention_cuda, agg.fused_agg_cuda,
+                fs.fleet_step_cuda)
+
+    n, rounds = FLEET["clients"], FLEET["rounds"]
+    process, battery, E = launch.scenario(n, seed, "cuda")
+    charge0 = float(battery.init(1)[0]) * n
+    depth = fs.reduction_depth(n)
+    runs = []
+    kw_runs = [(p, thr, {}) for p, thr in launch.POLICIES]
+    groups = torch.arange(n, device="cuda") % FLEET_GROUPS_RUN
+    kw_runs.append((launch.POLICIES[0][0], 1.0, {"groups": groups}))
+    launch.run_policy(process, E, n, 2, *launch.POLICIES[0], seed, True,
+                      "cuda")                        # warm-up, not counted
+    last = None
+    for policy, thr, extra in kw_runs:
+        for kernel in counters:
+            kernel.launches = 0
+        torch.cuda.synchronize()
+        res, wall, launches = launch.run_policy(process, E, n, rounds, policy,
+                                                thr, seed, True, "cuda",
+                                                **extra)
+        others = fa.flash_attention_cuda.launches + agg.fused_agg_cuda.launches
+        label = policy.value + (" groups" if extra else "")
+        s = res.stats
+        cons = conservation_check(s, n, charge0, depth)
+        finite = all(np.isfinite(v).all() for v in s.values())
+        shapes = (s["participants"].shape == (rounds,)
+                  and s["hist_soc"].shape == (rounds, 32)
+                  and (not extra or s["group_participants"].shape
+                       == (rounds, FLEET_GROUPS_RUN)))
+        counts = all(np.array_equal(s[k].sum(axis=1), np.full(rounds, n))
+                     for k in ("hist_soc", "hist_spend", "hist_streak"))
+        ok = (launches == rounds == fs.fleet_step_cuda.launches
+              and others == 0 and cons <= 1.0 and finite and shapes
+              and counts and 0 <= s["participants"].min()
+              and s["participants"].max() <= n)
+        print(f"fleet {label}: N={n:,} x {rounds} rounds in {wall:.3f} s = "
+              f"{rounds / wall:.2f} rounds/s, {n * rounds / wall:.4g} "
+              f"client-rounds/s on {card}; participation "
+              f"{100 * res.participation_rate.mean():.2f}%, depleted "
+              f"{100 * s['frac_depleted'].mean():.2f}%; fleet_step launches "
+              f"{launches} (flash_attention and fused_agg {others}); "
+              f"conservation worst err/bound {cons:.3f}; hist "
+              f"counts sum to N {counts} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"fleet {label}: a check failed")
+        runs.append({"policy": label, "wall_s": wall,
+                     "rounds_per_s": rounds / wall,
+                     "client_rounds_per_s": n * rounds / wall,
+                     "launches": launches, "conservation": cons,
+                     "participation": float(res.participation_rate.mean())})
+        last = res
+
+    # card vs the chip machine's CPU: a Bernoulli fleet bitwise, the
+    # scenario's first rounds within the stated tolerances
+    checks = {}
+    bern = Bernoulli.create(n, prob=0.35, amount=1.2)
+    on = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        on[dev] = launch.run_policy(bern, E.to(dev), n,
+                                    FLEET_BERNOULLI_ROUNDS,
+                                    launch.POLICIES[0][0], 1.0, seed, True,
+                                    dev, record_masks=True)[0]
+        checks[f"bernoulli_{dev}_s"] = time.perf_counter() - t0
+    a, b = on["cuda"], on["cpu"]
+    same = lambda x, y: torch.equal(x.cpu().view(torch.int32),
+                                    y.view(torch.int32))
+    diff = fleet_compare(a, b, n)
+    bitwise = (same(a.masks, b.masks) and same(a.final_charge, b.final_charge)
+               and same(a.final_streak, b.final_streak))
+    ok = bitwise and fleet_within(diff, 0)
+    print(f"fleet card vs CPU, Bernoulli fleet N={n:,}, "
+          f"{FLEET_BERNOULLI_ROUNDS} sustainable rounds: masks, charge and "
+          f"streak bitwise {bitwise}; participants, consumed, depleted and "
+          f"hist counts equal {fleet_within(diff, 0)}; energy stats rel "
+          f"diff max {fleet_rel(diff):.3e} (tol {FLEET_STAT_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"fleet: the card's Bernoulli run differs from "
+                             f"the CPU's: {diff}")
+    checks["bernoulli"] = diff
+    cpu_process, _, cpu_E = launch.scenario(n, seed, "cpu")
+    for policy, thr in launch.POLICIES:
+        kw = dict(record_masks=True)
+        a = launch.run_policy(process, E, n, FLEET_CPU_ROUNDS, policy, thr,
+                              seed, True, "cuda", **kw)[0]
+        t0 = time.perf_counter()
+        b = launch.run_policy(cpu_process, cpu_E, n, FLEET_CPU_ROUNDS,
+                              policy, thr, seed, True, "cpu", **kw)[0]
+        cpu_s = time.perf_counter() - t0
+        diff = fleet_compare(a, b, n)
+        flips = FLEET_FLIP_FRAC * n
+        ok = fleet_within(diff, flips)
+        print(f"fleet card vs CPU, scenario {policy.value}, first "
+              f"{FLEET_CPU_ROUNDS} rounds (CPU {cpu_s:.1f} s): mask flips "
+              f"{diff['mask_flips']}, clients moved in a count or histogram "
+              f"{max(v for k, v in diff.items() if k.startswith('hist_') or k in COUNT_STATS):.0f}"
+              f" (allowed {flips:.0f}, 2x in a histogram); energy stats rel "
+              f"diff max {fleet_rel(diff):.3e} (tol {FLEET_STAT_RTOL}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"fleet {policy.value}: the card's rounds "
+                                 f"differ from the CPU's: {diff}")
+        checks[policy.value] = diff
+
+    # the closed loop (core.simulate with an EnergyLoop), card vs CPU
+    for kernel in counters:
+        kernel.launches = 0
+    loop = {"cuda": launch.closed_loop(seed, "cuda")}
+    loop_launches = fs.fleet_step_cuda.launches
+    loop["cpu"] = launch.closed_loop(seed, "cpu")
+    ha, hb = loop["cuda"].history, loop["cpu"].history
+    ok = (loop_launches == len(ha)
+          and [h["participants"] for h in ha] == [h["participants"]
+                                                   for h in hb]
+          and all(abs(x.get("loss", 0.0) - y.get("loss", 0.0)) <= 1e-5
+                  for x, y in zip(ha, hb)))
+    print(f"fleet closed loop (8 clients, threshold, {len(ha)} rounds): "
+          f"participants card == CPU {ok}, fleet_step launches "
+          f"{loop_launches} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("fleet: the closed loop on the card differs "
+                             "from the CPU's")
+
+    # where a round's time goes
+    prof = device_profile(torch, lambda: launch.run_policy(
+        process, E, n, 1, launch.POLICIES[0][0], 1.0, seed, True, "cuda",
+        state=last.final_state, round_offset=rounds))
+    step_ms = sum(ms for name, ms in prof["all"] if "fleet_step" in name)
+    print(f"profile fleet round (sustainable, N={n:,}): wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['device_ms']:.3f} ms "
+          f"({prof['device_share']:.1%}), {prof['kernels']} kernels, "
+          f"fleet_step {step_ms:.4f} ms ({step_ms / prof['device_ms']:.2%} of "
+          f"busy); top: " + "; ".join(f"{nm} {ms:.3f} ms"
+                                      for nm, ms in prof["top"][:5]),
+          flush=True)
+    return {"clients": n, "rounds": rounds, "runs": runs,
+            "launches": sum(r["launches"] for r in runs),
+            "card_vs_cpu": checks, "closed_loop_launches": loop_launches,
+            "profile": {k: v for k, v in prof.items() if k != "all"},
+            "profile_fleet_step_ms": step_ms}
+
+
 def adam_step_bound(T, b1=0.9, b2=0.999):
     """Largest |m^| / sqrt(v^) of Adam within its first T steps
     (Cauchy-Schwarz on the moment sums; tests/test_torch_round.py)."""
@@ -741,7 +1167,7 @@ def train_phase(torch, fa, agg, seed: int, card: str) -> dict:
         step = 2.0 * adam_step_bound(T) * TRAIN["lr"] * T
         checks, failed = [], []
         t0 = time.perf_counter()
-        for r in range(rounds):
+        for r in TRAIN_REPLAY[policy]:
             if parts[r] == 0:
                 continue
             c = round_check(torch, run, cpu, trees[r], trees[r + 1], r)
@@ -855,6 +1281,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fleet_step as fs
     from repro_torch.kernels import fused_agg as agg
 
     # the port is held to float32 where it computes in float32
@@ -865,7 +1292,7 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda},"
           f" {torch.cuda.get_device_name(0)}; allow_tf32=False", flush=True)
     t0 = time.perf_counter()
-    seconds = build.build_all(["flash_attention", "fused_agg"])
+    seconds = build.build_all(["flash_attention", "fused_agg", "fleet_step"])
     print(f"kernel library builds (in parallel, {time.perf_counter() - t0:.2f}"
           f" s): " + ", ".join(f"{n} " + (f"{t:.2f} s" if t is not None
                                          else "already built")
@@ -878,17 +1305,20 @@ def main(argv=None) -> int:
 
     kernel = kernel_phase(torch, fa, args.seed)
     agg_kernel = fused_agg_phase(torch, agg, args.seed)
+    fleet_kernel = fleet_step_phase(torch, fs, args.seed)
     serve = serve_phase(torch, fa, args.seed, card)
     kernel["launches"] = serve["flash_launches"]
     train = train_phase(torch, fa, agg, args.seed, card)
     agg_kernel["launches"] = sum(train[policy]["fused_agg_launches"]
                                  for policy in TRAIN_ROUNDS)
     fig1 = fig1_phase(torch, args.seed)
+    fleet = fleet_phase(torch, fs, args.seed, card)
+    fleet_kernel["launches"] = fleet["launches"]
 
-    kernels = [kernel, agg_kernel]
+    kernels = [kernel, agg_kernel, fleet_kernel]
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels, "serve": serve,
-              "train": train, "fig1": fig1}
+              "train": train, "fig1": fig1, "fleet": fleet}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -6,7 +6,9 @@ transformers through the continuous-batching decode engine
 hand-written Hopper kernel (`kernels/csrc/flash_attention.cu`), and trains
 the paper's CIFAR CNN with Algorithm 1 (`core`, `launch.train`,
 `launch.fig1`), with the server's aggregation on a second one
-(`kernels/csrc/fused_agg.cu`).
+(`kernels/csrc/fused_agg.cu`), and runs the battery-gated energy fleet
+scan (`energy.fleet.simulate_fleet`, `launch.fleet`), each round's step on
+a third (`kernels/csrc/fleet_step.cu`).
 
 Public functions keep the JAX package's layouts — (B, S, H, hd)
 activations, ``x @ W`` weights of shape (d_in, d_out), layer-stacked caches

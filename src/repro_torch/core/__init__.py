@@ -2,8 +2,8 @@
 aggregation (port of the JAX package's ``core``).
 
 Scheduling is stateless (assumed renewal cycles ``E``); the physical
-energy layer that plugs into ``simulate`` through ``energy=`` is not
-ported yet (``ROADMAP.md`` slice 3).
+energy layer plugs into ``simulate`` through ``energy=`` (an
+``energy.fleet.EnergyLoop``).
 """
 from repro_torch.core.scheduling import (
     EnergyProfile,

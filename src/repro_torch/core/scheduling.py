@@ -27,7 +27,7 @@ class Policy(str, enum.Enum):
     GREEDY = "greedy"            # Benchmark 1: participate on every energy arrival
     WAIT_ALL = "wait_all"        # Benchmark 2: server waits for all clients
     ALWAYS = "always"            # Unconstrained FedAvg upper bound (no energy limit)
-    THRESHOLD = "threshold"      # battery-driven: needs battery state (slice 3)
+    THRESHOLD = "threshold"      # battery-driven: needs battery state (energy.fleet)
 
 
 def _int(x, like: torch.Tensor | None = None) -> torch.Tensor:
@@ -104,8 +104,7 @@ def participation_mask(policy, seed, rnd, E, phase=None) -> torch.Tensor:
         raise ValueError(
             f"policy {pol.value!r} is battery-driven and has no stateless "
             f"(seed, round, E) schedule; battery-gated masks come from "
-            f"repro_torch.energy.fleet.fleet_mask, which is not ported yet "
-            f"(ROADMAP.md slice 3)")
+            f"repro_torch.energy.fleet.fleet_mask")
     if phase is not None:
         if pol in (Policy.SUSTAINABLE, Policy.GREEDY):
             return _POLICIES[pol](seed, rnd, E, phase)

@@ -9,11 +9,11 @@ Algorithm 1 control flow.  Per round r:
   for i with alpha_i = 1:   w_i <- T local optimizer steps from w   (eq. 7)
   w <- w + sum_i alpha_i p_i scale_i (w_i - w)                      (eqs. 9/12/13)
 
-The reference's second scheduling source, the energy closed loop
-(``energy=EnergyLoop(...)``: masks from stochastic harvests gated by
-battery state, optionally under a server controller), belongs to the
-energy fleet, which is not ported yet (``ROADMAP.md`` slice 3):
-``simulate(..., energy=...)`` raises.
+The second scheduling source is the energy closed loop
+(``energy=energy.fleet.EnergyLoop(...)``): each round's mask comes from
+stochastic harvests gated by battery state, and the history gains the
+loop's telemetry as ``energy_*`` keys.  An `EnergyLoop` with a server
+controller raises: the controller waits for ``ROADMAP.md`` Queue 1 item 17.
 """
 from __future__ import annotations
 
@@ -32,9 +32,9 @@ from repro_torch.optim import Optimizer
 
 PyTree = Any
 
-ENERGY_NOT_PORTED = ("simulate(..., energy=...) needs the energy fleet's "
-                     "EnergyLoop, which is not ported yet (ROADMAP.md "
-                     "slice 3: the energy fleet scan)")
+CONTROLLER_NOT_PORTED = ("simulate(..., energy=EnergyLoop(controller=...)): "
+                         "the server controller is not ported yet "
+                         "(ROADMAP.md Queue 1 item 17)")
 
 
 def _accepts_num_steps(batch_fn: Callable) -> bool:
@@ -73,10 +73,13 @@ def simulate(loss_fn: Callable, optimizer: Optimizer, cfg: FedConfig,
     ``batch_fn(round, client)`` gives that client's (T, B, ...) batches; a
     provider that accepts a third positional argument is called as
     ``(round, client, num_steps)``.  Client i's key in round r is
-    ``fold_in(fold_in(rng, r), i)``.
+    ``fold_in(fold_in(rng, r), i)``.  ``energy`` (an
+    ``energy.fleet.EnergyLoop``) draws the masks from realised harvests.
     """
     if energy is not None:
-        raise NotImplementedError(ENERGY_NOT_PORTED)
+        if getattr(energy, "controller", None) is not None:
+            raise NotImplementedError(CONTROLLER_NOT_PORTED)
+        energy.reset()
     E = np.asarray(E)
     p = np.asarray(p)
     phase = cfg.phase_array()
@@ -89,10 +92,17 @@ def simulate(loss_fn: Callable, optimizer: Optimizer, cfg: FedConfig,
     history: list[dict] = []
     t0 = time.time()
     for r in range(num_rounds):
-        mask = scheduling.participation_mask(cfg.policy, cfg.seed, r,
-                                             torch.as_tensor(E), phase=phase)
-        parts = np.nonzero(mask.numpy())[0]
+        if energy is not None:
+            mask, estats = energy.step(cfg.policy, cfg.seed, r, E, T,
+                                       phase=phase)
+        else:
+            mask, estats = scheduling.participation_mask(
+                cfg.policy, cfg.seed, r, torch.as_tensor(E),
+                phase=phase).numpy(), None
+        parts = np.nonzero(mask)[0]
         rec = {"round": r, "participants": int(len(parts))}
+        if estats is not None:
+            rec.update({f"energy_{k}": v for k, v in estats.items()})
         if len(parts):
             acc = aggregation.zeros_like_fp32(w)
             losses = []

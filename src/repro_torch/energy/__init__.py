@@ -1,6 +1,41 @@
-"""Energy accounting of the port: decode-path costs in this slice."""
+"""The energy-harvesting subsystem of the port: stochastic arrivals, battery
+dynamics, device cost models, the fleet round step and the fleet-scale
+battery-gated scheduling simulator with its closed-loop hook for
+``core.simulate``.  The server controller (``energy.control``) waits for
+``ROADMAP.md`` Queue 1 item 17."""
+from repro_torch.energy.arrivals import (
+    Bernoulli,
+    CompoundPoisson,
+    DeterministicRenewal,
+    MarkovSolar,
+    Scaled,
+    Sum,
+    client_exponential,
+    client_keys,
+    client_randint,
+    client_uniform,
+    truncated_poisson,
+)
+from repro_torch.energy.battery import BatteryConfig, absorb, drain, step
 from repro_torch.energy.costs import (DEVICE_WATTS, JOULES_PER_BYTE_RADIO,
-                                      JOULES_PER_FLOP, DecodeCostModel)
+                                      JOULES_PER_FLOP, DecodeCostModel,
+                                      DeviceCostModel, from_flops)
+from repro_torch.energy.fleet import (
+    FLEET_POLICIES,
+    EnergyLoop,
+    FleetConfig,
+    FleetResult,
+    fleet_mask,
+    simulate_fleet,
+)
 
-__all__ = ["DEVICE_WATTS", "JOULES_PER_BYTE_RADIO", "JOULES_PER_FLOP",
-           "DecodeCostModel"]
+__all__ = [
+    "Bernoulli", "CompoundPoisson", "DeterministicRenewal", "MarkovSolar",
+    "Scaled", "Sum", "client_exponential", "client_keys", "client_randint",
+    "client_uniform", "truncated_poisson",
+    "BatteryConfig", "absorb", "drain", "step",
+    "DEVICE_WATTS", "JOULES_PER_BYTE_RADIO", "JOULES_PER_FLOP",
+    "DecodeCostModel", "DeviceCostModel", "from_flops",
+    "FLEET_POLICIES", "EnergyLoop", "FleetConfig", "FleetResult",
+    "fleet_mask", "simulate_fleet",
+]

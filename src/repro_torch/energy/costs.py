@@ -1,5 +1,7 @@
-"""Decode-path energy costs (the part of the JAX package's
-``energy/costs.py`` that serving uses).
+"""Device energy costs (the JAX package's ``energy/costs.py``): what one
+federated round (`DeviceCostModel`) and one inference request
+(`DecodeCostModel`) debit the battery.  ``from_dryrun`` waits for the
+dry-run pipeline (``ROADMAP.md`` Queue 1 item 27).
 
 Nominal constants (order-of-magnitude for an edge-class accelerator and a
 wireless uplink; override per deployment):
@@ -20,6 +22,34 @@ import dataclasses
 JOULES_PER_FLOP = 1e-11
 JOULES_PER_BYTE_RADIO = 1e-7
 DEVICE_WATTS = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCostModel:
+    """Joules debited per federated-round component."""
+
+    joules_per_step: float          # one local optimizer step (T per round)
+    joules_per_upload: float        # send the model delta to the server
+    joules_per_download: float = 0.0  # fetch the global model
+
+    def round_cost(self, local_steps: int) -> float:
+        """Total joules for one participated round of ``local_steps``
+        steps."""
+        return (local_steps * self.joules_per_step + self.joules_per_upload
+                + self.joules_per_download)
+
+
+def from_flops(flops_per_step: float, upload_bytes: float,
+               download_bytes: float = 0.0,
+               joules_per_flop: float = JOULES_PER_FLOP,
+               joules_per_byte: float = JOULES_PER_BYTE_RADIO
+               ) -> DeviceCostModel:
+    """Cost model from raw workload counts."""
+    return DeviceCostModel(
+        joules_per_step=flops_per_step * joules_per_flop,
+        joules_per_upload=upload_bytes * joules_per_byte,
+        joules_per_download=download_bytes * joules_per_byte,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,289 @@
+"""The fleet round step as a small op IR (port of the JAX package's
+``energy/step_ops.py``, fleet program).
+
+The physics pipeline — leak → absorb/clip → gate → drain → telemetry — is
+a sequence of per-client step ops (`StepOp`: reads/writes over a named
+buffer environment) plus a declarative telemetry spec (`StepProgram`'s
+totals, averages, group stats and histograms).  Two executors run it:
+
+* `run_step` — the ops as plain PyTorch on (N,) tensors, reduced through
+  `dist.collectives`: the twin of the reference's ``run_step_lax``, and the
+  plain version of the ``fleet_step`` kernel (`kernels.fleet_step`), which
+  the CPU takes.
+* the ``fleet_step`` CUDA kernel, which runs the fleet program (checked
+  op by op against what `fleet_step_program` builds) in one pass over the
+  clients.
+
+Everything that draws random numbers (the harvest, the SUSTAINABLE slot
+draw) stays outside the program and enters as a per-round buffer
+(``harvest``, ``want``).  Battery fields are bound by field name
+(``bat_capacity``, ``bat_leak``, ``bat_init_charge``) as 0-dim or (N,)
+float32 tensors.  The serving program and the unfused baseline wait for
+the serving slice (``ROADMAP.md`` Queue 1 item 18).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.core.scheduling import Policy
+from repro_torch.dist import collectives
+from repro_torch.energy import battery as battery_lib
+from repro_torch.obs import hist as hist_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class StepOp:
+    """One per-client op: ``fn(env) -> tuple`` of ``writes`` values.
+    ``reads`` declares every buffer ``fn`` touches."""
+
+    name: str
+    reads: tuple[str, ...]
+    writes: tuple[str, ...]
+    fn: Callable[[dict], tuple]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepProgram:
+    """A round step: ops in dataflow order plus the telemetry/output spec.
+
+    ``state_out`` are the per-client buffers carried to the next round,
+    ``emit`` the optionally recorded per-client outputs.  ``totals`` /
+    ``averages`` are ``(stat, buffer)`` pairs reduced with
+    `collectives.masked_total` / `masked_average` over the ``valid``
+    weight; ``group_totals`` / ``group_averages`` with group-indicator
+    weights ``valid * (groups == g)``.  ``hists`` are fixed-bin histograms
+    of exact counts."""
+
+    name: str
+    ops: tuple[StepOp, ...]
+    state_out: tuple[str, ...]
+    emit: tuple[str, ...]
+    totals: tuple[tuple[str, str], ...]
+    averages: tuple[tuple[str, str], ...] = ()
+    group_totals: tuple[tuple[str, str], ...] = ()
+    group_averages: tuple[tuple[str, str], ...] = ()
+    hists: tuple[hist_lib.HistSpec, ...] = ()
+
+    def input_names(self) -> tuple[str, ...]:
+        """Buffers the program consumes but never writes, in first-use
+        order: op reads first, then stat buffers."""
+        written: set[str] = set()
+        needed: list[str] = []
+        for op in self.ops:
+            for nm in op.reads:
+                if nm not in written and nm not in needed:
+                    needed.append(nm)
+            written.update(op.writes)
+        for _, buf in self.totals + self.averages \
+                + self.group_totals + self.group_averages:
+            if buf not in written and buf not in needed:
+                needed.append(buf)
+        for spec in self.hists:
+            if spec.buf not in written and spec.buf not in needed:
+                needed.append(spec.buf)
+        return tuple(needed)
+
+    def signature(self) -> tuple:
+        """Everything but the op closures: what a hand-written kernel of
+        this program must match."""
+        return (self.name, tuple((op.name, op.reads, op.writes)
+                                 for op in self.ops),
+                self.state_out, self.emit, self.totals, self.averages,
+                self.group_totals, self.group_averages, self.hists)
+
+
+def apply_ops(ops: tuple[StepOp, ...], env: dict) -> dict:
+    """Run the ops in order over a copy of ``env``; returns the final env
+    (inputs + every written buffer)."""
+    env = dict(env)
+    for op in ops:
+        env.update(zip(op.writes, op.fn(env)))
+    return env
+
+
+BAT_NAMES = tuple(f"bat_{f}" for f in battery_lib.BatteryConfig.FIELDS)
+
+
+def _bind_battery(bat: battery_lib.BatteryConfig, env: dict, device=None
+                  ) -> tuple[str, ...]:
+    """Put the battery's fields into ``env`` by field name."""
+    env.update({f"bat_{k}": v for k, v in bat.fields(device).items()})
+    return BAT_NAMES
+
+
+def _hist_ops(spend_buf: str) -> list[StepOp]:
+    """The distributional-telemetry ops: state of charge, this round's
+    spend as a fraction of capacity, and the carried consecutive-depleted
+    streak ``(streak + 1) * depleted``."""
+    def soc_fn(e):
+        return (e["charge_out"] / torch.clamp_min(e["bat_capacity"], 1e-20),)
+
+    def spend_fn(e):
+        return (e[spend_buf] / torch.clamp_min(e["bat_capacity"], 1e-20),)
+
+    def streak_fn(e):
+        return ((e["streak"] + 1.0) * e["depleted"],)
+
+    return [
+        StepOp("soc", ("charge_out",) + BAT_NAMES, ("soc",), soc_fn),
+        StepOp("spend_frac", (spend_buf,) + BAT_NAMES, ("spend_frac",),
+               spend_fn),
+        StepOp("streak", ("streak", "depleted"), ("streak_out",), streak_fn),
+    ]
+
+
+def fleet_step_program(bat: battery_lib.BatteryConfig, policy: Policy | str,
+                       num_groups: int | None = None, hist: bool = False,
+                       device=None) -> tuple[StepProgram, dict]:
+    """The training fleet's round step for one policy.
+
+    Returns ``(program, env)`` with the battery fields bound in ``env`` (on
+    ``device``); the caller adds ``round_cost`` / ``threshold`` and the
+    per-round ``charge`` / ``harvest`` (+ ``want`` for SUSTAINABLE, + the
+    carried ``streak`` with ``hist=True``)."""
+    pol = Policy(policy)
+    env: dict = {}
+    bat_names = _bind_battery(bat, env, device)
+    ops = []
+
+    def absorb_fn(e):
+        available, aux = battery_lib.absorb_fields(
+            e["bat_capacity"], e["bat_leak"], e["charge"], e["harvest"])
+        return available, aux["leaked"], aux["overflow"]
+
+    ops.append(StepOp("absorb", ("charge", "harvest") + bat_names,
+                      ("available", "leaked", "overflow"), absorb_fn))
+
+    # every policy is AND-ed with physical feasibility available >= cost
+    if pol == Policy.SUSTAINABLE:
+        def gate_fn(e):
+            feasible = e["available"] >= e["round_cost"]
+            return (e["want"] * feasible.float(),)
+
+        gate_reads = ("want", "available", "round_cost")
+    elif pol == Policy.THRESHOLD:
+        def gate_fn(e):
+            feasible = e["available"] >= e["round_cost"]
+            want = (e["available"] >= e["threshold"] * e["round_cost"]).float()
+            return (want * feasible.float(),)
+
+        gate_reads = ("available", "round_cost", "threshold")
+    elif pol in (Policy.GREEDY, Policy.ALWAYS):
+        def gate_fn(e):
+            feasible = e["available"] >= e["round_cost"]
+            return (torch.ones_like(e["available"]) * feasible.float(),)
+
+        gate_reads = ("available", "round_cost")
+    else:
+        raise ValueError(
+            f"policy {pol.value!r} has no battery-gated fleet variant "
+            f"(supported: {['sustainable', 'greedy', 'threshold', 'always']})")
+    ops.append(StepOp("fleet_gate", gate_reads, ("mask",), gate_fn))
+
+    def drain_fn(e):
+        consumed = e["mask"] * e["round_cost"]
+        return battery_lib.drain(e["available"], consumed), consumed
+
+    ops.append(StepOp("train_drain", ("mask", "round_cost", "available"),
+                      ("charge_out", "consumed"), drain_fn))
+
+    def depleted_fn(e):
+        return ((e["available"] < e["round_cost"]).float(),)
+
+    ops.append(StepOp("depleted", ("available", "round_cost"),
+                      ("depleted",), depleted_fn))
+
+    if hist:
+        ops += _hist_ops("consumed")
+    grouped = num_groups is not None
+    program = StepProgram(
+        name="fleet_step", ops=tuple(ops),
+        state_out=("charge_out", "streak_out") if hist else ("charge_out",),
+        emit=("mask",),
+        totals=(("participants", "mask"), ("harvested", "harvest"),
+                ("consumed", "consumed"), ("leaked", "leaked"),
+                ("overflowed", "overflow")),
+        averages=(("mean_charge", "charge_out"),
+                  ("frac_depleted", "depleted")),
+        group_totals=(("group_participants", "mask"),) if grouped else (),
+        group_averages=(("group_frac_depleted", "depleted"),) if grouped
+        else (),
+        hists=hist_lib.FLEET_HIST_SPECS if hist else ())
+    return program, env
+
+
+def group_weights(valid: torch.Tensor, groups: torch.Tensor,
+                  num_groups: int) -> torch.Tensor:
+    """(G, N) weights ``valid * (groups == g)``."""
+    g = torch.arange(num_groups, dtype=torch.int32, device=groups.device)
+    return valid[None] * (groups[None] == g[:, None]).float()
+
+
+def run_step(program: StepProgram, env: dict, *, valid, groups=None,
+             num_groups: int | None = None) -> tuple[dict, dict]:
+    """Plain executor: the ops as PyTorch on (N,) tensors and the stats
+    through `dist.collectives`.  Returns ``(final env, stats)``; stats are
+    0-dim tensors, (G,) per group, (bins,) per histogram."""
+    env = apply_ops(program.ops, env)
+    stats = {}
+    for stat, buf in program.totals:
+        stats[stat] = collectives.masked_total(env[buf], valid)
+    for stat, buf in program.averages:
+        stats[stat] = collectives.masked_average(env[buf], valid)
+    if groups is not None:
+        gw = group_weights(valid, groups, num_groups)
+        for stat, buf in program.group_totals:
+            stats[stat] = torch.sum(gw * env[buf].float()[None], dim=1)
+        for stat, buf in program.group_averages:
+            num = torch.sum(gw * env[buf].float()[None], dim=1)
+            stats[stat] = num / torch.clamp_min(gw.sum(dim=1), 1.0)
+    for spec in program.hists:
+        stats[spec.name] = hist_lib.masked_bincount(env[spec.buf], valid,
+                                                    spec)
+    return env, stats
+
+
+def bytes_moved(program: StepProgram, env: dict, n: int, *,
+                emit: bool = False, itemsize: int = 4) -> dict:
+    """Model of per-round device-memory traffic, as the reference counts it.
+
+    Unfused: each op reads its per-client operands and writes its
+    per-client outputs; each masked total re-reads (value, valid) and each
+    masked average also re-reads the value for its ones-mask denominator.
+    Fused: one read of every distinct per-client input, one write per
+    carried state (plus the mask when ``emit``) and the partial sums.
+    Broadcast scalars are not counted: a buffer counts as per-client when
+    its leading dim is ``n`` and, for a tensor, its stride there is not 0
+    (a scalar expanded to (n,) is read through a stride of 0)."""
+    def tiled(name: str) -> bool:
+        v = env.get(name)
+        if v is None:          # produced by an earlier op: always per-client
+            return True
+        shape = tuple(getattr(v, "shape", ()))
+        if not (len(shape) >= 1 and shape[0] == n):
+            return False
+        return not (isinstance(v, torch.Tensor) and v.stride(0) == 0
+                    and n > 1)
+
+    per = n * itemsize
+    unfused = 0
+    for op in program.ops:
+        unfused += sum(per for r in op.reads if tiled(r))
+        unfused += per * len(op.writes)
+    unfused += per * 2 * len(program.totals)
+    unfused += per * 4 * len(program.averages)
+    unfused += per * 2 * len(program.hists)
+
+    inputs = [nm for nm in program.input_names() if tiled(nm)] + ["valid"]
+    fused = per * len(set(inputs))
+    fused += per * len(program.state_out)
+    if emit:
+        fused += per * len(program.emit)
+    n_stats = len(program.totals) + len(program.averages) + 1 \
+        + sum(s.bins for s in program.hists)
+    fused += n_stats * itemsize
+    return {"unfused_bytes": unfused, "fused_bytes": fused,
+            "ratio": unfused / max(fused, 1)}

@@ -1,0 +1,304 @@
+"""The energy fleet's round step: the Hopper kernel's wrapper and its plain
+PyTorch version.
+
+Port of ``repro/kernels/fleet_step.py`` (``fused_step``) for the fleet
+program that ``energy.step_ops.fleet_step_program`` builds.  A
+hand-written kernel cannot run the program's op closures, so
+``csrc/fleet_step.cu`` is written for that program: one kernel templated
+on the gate (SUSTAINABLE, THRESHOLD, GREEDY/ALWAYS), histograms, groups
+and mask output.  ``fleet_step_cuda`` checks that the program it is handed
+is that program (ops, reads, writes, state, emits and stat layout) and
+raises for any other.
+
+* ``fleet_step_cuda`` launches the kernel and its one-block reduction on
+  PyTorch's current stream; CUDA tensors only, no fallback.  Per-client
+  outputs are bitwise equal to the plain version on any inputs.  Stats are
+  bitwise equal on dyadic inputs and within ``kernel_tolerance`` of the
+  exact sums otherwise; histogram counts are exact.  ``.launches`` counts
+  its calls (one per round).
+* ``fleet_step_plain`` is ``step_ops.run_step``: what the CPU runs.
+
+Both take ``env`` holding every buffer of ``program.input_names()`` plus
+``valid`` (0. or 1. per client) and, with ``num_groups``, ``groups``
+(int32); each is a 0-dim tensor, a scalar expanded to (n,) (stride 0) or
+an (n,) tensor.  Both return ``(state, emits, stats)``.  The sharded form
+(``fused_step_sharded``) waits for ``ROADMAP.md`` Queue 1 item 25.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.scheduling import Policy
+from repro_torch.energy import battery as battery_lib
+from repro_torch.energy import step_ops
+from repro_torch.kernels import build
+from repro_torch.obs import hist as hist_lib
+
+# csrc/fleet_step.cu's launch shape: the reduction order follows from it
+THREADS = 256
+WARPS = THREADS // 32
+CPT = 16                       # clients per thread
+TILE = THREADS * CPT           # clients per block
+REDUCE_LANES = 32              # lanes that add one column over the blocks
+MAX_GROUPS = 64
+NBINS = sum(s.bins for s in hist_lib.FLEET_HIST_SPECS)
+GATES = {Policy.SUSTAINABLE: 0, Policy.THRESHOLD: 1, Policy.GREEDY: 2}
+U32 = 2.0 ** -24               # float32 unit roundoff
+
+
+def fleet_step_plain(program: step_ops.StepProgram, env: dict, *, n: int,
+                     emit: bool = False, num_groups: int | None = None):
+    """Plain PyTorch: ``step_ops.run_step``.  Returns (state, emits,
+    stats)."""
+    out, stats = step_ops.run_step(program, env, valid=env["valid"],
+                                   groups=env.get("groups") if num_groups
+                                   else None, num_groups=num_groups)
+    state = {nm: out[nm] for nm in program.state_out}
+    emits = {nm: out[nm] for nm in program.emit} if emit else {}
+    return state, emits, stats
+
+
+@functools.cache
+def _signatures() -> dict:
+    """{program signature: (gate, hist)} of every fleet program the kernel
+    runs, with and without groups."""
+    table = {}
+    for policy in (Policy.SUSTAINABLE, Policy.THRESHOLD, Policy.GREEDY):
+        for hist in (False, True):
+            for groups in (None, 1):
+                program, _ = step_ops.fleet_step_program(
+                    battery_lib.BatteryConfig(), policy, groups, hist=hist)
+                table[program.signature()] = (GATES[policy], hist)
+    return table
+
+
+def program_variant(program: step_ops.StepProgram,
+                    num_groups: int | None) -> tuple[int, bool]:
+    """(gate, hist) of the kernel instantiation that runs ``program``;
+    raises if ``program`` is not a fleet program the kernel implements."""
+    found = _signatures().get(program.signature())
+    if found is None:
+        raise ValueError(f"fleet_step kernel: program {program.name!r} "
+                         f"(ops {[op.name for op in program.ops]}) is not "
+                         f"one that energy.step_ops.fleet_step_program "
+                         f"builds; the kernel runs only those")
+    if bool(program.group_totals) != bool(num_groups):
+        raise ValueError("fleet_step kernel: the program's group stats and "
+                         "num_groups must come together")
+    return found
+
+
+def _operand(env: dict, name: str, n: int, dtype, device):
+    """(tensor, stride) for one input buffer: stride 0 for a scalar or a
+    scalar expanded to (n,), 1 for a contiguous (n,) tensor."""
+    t = env[name]
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"fleet_step_cuda: {name} must be a tensor, got "
+                         f"{type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"fleet_step_cuda: {name} is on {t.device}, charge "
+                         f"on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"fleet_step_cuda: {name} must be {dtype}, got "
+                         f"{t.dtype}")
+    if t.dim() == 0 or t.shape == (1,):
+        return t.reshape(1), 0
+    if t.shape != (n,):
+        raise ValueError(f"fleet_step_cuda: {name} has shape "
+                         f"{tuple(t.shape)}; expected a scalar or ({n},)")
+    if t.stride(0) == 0:
+        return t, 0
+    if not t.is_contiguous():
+        raise ValueError(f"fleet_step_cuda: {name} must be contiguous "
+                         f"(stride {t.stride()})")
+    return t, 1
+
+
+@functools.cache
+def _kernel():
+    lib = build.load("fleet_step")
+    fn = lib.fleet_step
+    ptr, s = ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = ([ptr, s] * 10 + [ptr] * 7
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ptr])
+    fn.restype = ctypes.c_int
+    lib.fleet_step_error_string.argtypes = [ctypes.c_int]
+    lib.fleet_step_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def stat_layout(program: step_ops.StepProgram, num_groups: int | None
+                ) -> dict[str, slice | int]:
+    """Where each stat lies in the kernel's ``stats`` output."""
+    G = num_groups or 0
+    out: dict[str, slice | int] = {}
+    for i, (s, _) in enumerate(program.totals + program.averages):
+        out[s] = i
+    off = len(program.totals) + len(program.averages)
+    if G:
+        out[program.group_totals[0][0]] = slice(off, off + G)
+        out[program.group_averages[0][0]] = slice(off + G, off + 2 * G)
+        off += 2 * G
+    for spec in program.hists:
+        out[spec.name] = slice(off, off + spec.bins)
+        off += spec.bins
+    return out
+
+
+def fleet_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
+                    emit: bool = False, num_groups: int | None = None):
+    """Launch the Hopper kernel for one round over ``n`` clients; returns
+    (state, emits, stats) as new tensors on the card.  Raises on a program
+    the kernel does not run, on inputs it does not take and on a launch
+    error."""
+    gate, hist = program_variant(program, num_groups)
+    G = num_groups or 0
+    if n < 1 or not 0 <= G <= MAX_GROUPS:
+        raise ValueError(f"fleet_step_cuda: n={n} must be at least 1 and "
+                         f"num_groups={G} at most {MAX_GROUPS}")
+    charge = env["charge"]
+    device = charge.device
+    if device.type != "cuda":
+        raise ValueError(f"fleet_step_cuda: charge is on {device}; the kernel "
+                         f"takes CUDA tensors")
+    f32 = torch.float32
+    names = ["charge", "harvest", "bat_capacity", "bat_leak", "round_cost"]
+    names += ["threshold"] if gate == GATES[Policy.THRESHOLD] else [None]
+    names += ["want"] if gate == GATES[Policy.SUSTAINABLE] else [None]
+    names += ["valid"]
+    args, keep = [], []
+    for nm in names:
+        if nm is None:
+            args += [None, 0]
+            continue
+        t, s = _operand(env, nm, n, f32, device)
+        keep.append(t)
+        args += [t.data_ptr(), s]
+    for nm, dtype, on in (("groups", torch.int32, G > 0),
+                          ("streak", f32, hist)):
+        if on:
+            t, s = _operand(env, nm, n, dtype, device)
+            keep.append(t)
+            args += [t.data_ptr(), s]
+        else:
+            args += [None, 0]
+
+    blocks = -(-n // TILE)
+    F = 8 + 3 * G
+    H = NBINS if hist else 0
+    charge_out = torch.empty(n, dtype=f32, device=device)
+    streak_out = torch.empty(n if hist else 1, dtype=f32, device=device)
+    mask_out = torch.empty(n if emit else 1, dtype=f32, device=device)
+    partials = torch.empty((F, blocks), dtype=f32, device=device)
+    counts = torch.empty((max(H, 1), blocks), dtype=torch.int32,
+                         device=device)
+    sums = torch.empty(F + H, dtype=f32, device=device)
+    stats_buf = torch.empty(7 + 2 * G + H, dtype=f32, device=device)
+    lib = _kernel()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.fleet_step(*args, charge_out.data_ptr(), streak_out.data_ptr(),
+                         mask_out.data_ptr(), partials.data_ptr(),
+                         counts.data_ptr(), sums.data_ptr(),
+                         stats_buf.data_ptr(), n, gate, int(hist), int(emit),
+                         G, stream)
+    if err != 0:
+        msg = lib.fleet_step_error_string(err).decode()
+        raise RuntimeError(f"fleet_step kernel launch failed ({err}: {msg}) "
+                           f"for n={n}, gate={gate}, hist={hist}, groups={G}")
+    fleet_step_cuda.launches += 1
+    state = {"charge_out": charge_out}
+    if hist:
+        state["streak_out"] = streak_out
+    emits = {"mask": mask_out} if emit else {}
+    stats = {k: stats_buf[v] for k, v in stat_layout(program,
+                                                     num_groups).items()}
+    return state, emits, stats
+
+
+fleet_step_cuda.launches = 0
+
+
+def reduction_depth(n: int) -> int:
+    """The most float32 additions on any client's path to a stat in
+    ``csrc/fleet_step.cu``: CPT per thread, 5 in the warp tree, WARPS - 1
+    over the warps, then ceil(blocks / 32) down a lane of the second pass
+    and 5 in its warp tree."""
+    blocks = -(-n // TILE)
+    return CPT + 5 + (WARPS - 1) + -(-blocks // REDUCE_LANES) + 5
+
+
+def stats_float64(program: step_ops.StepProgram, env: dict, valid,
+                  groups=None, num_groups: int | None = None) -> dict:
+    """The stats in float64 from the per-client buffers of a round (the
+    final env of ``step_ops.run_step``): what the kernel's float32 sums
+    are held against."""
+    v = valid.double()
+    tot = lambda buf, w: (w * env[buf].double()).sum(dim=-1)
+    out = {s: tot(b, v) for s, b in program.totals}
+    den = v.sum()
+    out.update({s: tot(b, v) / torch.clamp_min(den, 1.0)
+                for s, b in program.averages})
+    if num_groups:
+        gw = step_ops.group_weights(valid, groups, num_groups).double()
+        out.update({s: tot(b, gw) for s, b in program.group_totals})
+        gden = torch.clamp_min(gw.sum(dim=1), 1.0)
+        out.update({s: tot(b, gw) / gden for s, b in program.group_averages})
+    for spec in program.hists:
+        out[spec.name] = hist_lib.masked_bincount(env[spec.buf], valid,
+                                                  spec).double()
+    return out
+
+
+def kernel_tolerance(program: step_ops.StepProgram, env: dict, valid, n: int,
+                     groups=None, num_groups: int | None = None) -> dict:
+    """Per-stat bound on |kernel - exact| for one round, given the final
+    env of ``step_ops.run_step`` on the same inputs.
+
+    A float32 sum whose terms each pass through at most d roundings (the
+    product valid * x and ``reduction_depth(n)`` additions) is within
+    gamma_d sum |valid x| of the exact sum, gamma_d = d u / (1 - d u),
+    u = 2^-24, in any order.  An average num / max(den, 1) adds the
+    error of den (exact for 0/1 weights) and one rounding of the
+    division.  Histogram counts are exact: their bound is 0."""
+    d = reduction_depth(n) + 1
+    gam = d * U32 / (1 - d * U32)
+    v = valid.double().abs()
+    absum = lambda buf, w: (w * env[buf].double().abs()).sum(dim=-1)
+    out = {s: gam * absum(b, v) for s, b in program.totals}
+
+    def avg_tol(num, num_tol, den, den_tol):
+        a = (num / torch.clamp_min(den, 1.0)).abs()
+        return ((num_tol + a * den_tol)
+                / torch.clamp_min(den - den_tol, 1.0) + 2 * U32 * a)
+
+    den, den_tol = valid.double().sum(), gam * v.sum()
+    for s, b in program.averages:
+        num = (valid.double() * env[b].double()).sum()
+        out[s] = avg_tol(num, gam * absum(b, v), den, den_tol)
+    if num_groups:
+        gw = step_ops.group_weights(valid, groups, num_groups).double()
+        for s, b in program.group_totals:
+            out[s] = gam * absum(b, gw.abs())
+        gden, gden_tol = gw.sum(dim=1), gam * gw.abs().sum(dim=1)
+        for s, b in program.group_averages:
+            num = (gw * env[b].double()).sum(dim=1)
+            out[s] = avg_tol(num, gam * absum(b, gw.abs()), gden, gden_tol)
+    for spec in program.hists:
+        out[spec.name] = torch.zeros(spec.bins, dtype=torch.float64,
+                                     device=valid.device)
+    return out
+
+
+def stats_error(got: dict, exact: dict, tol: dict) -> dict:
+    """{stat: largest |got - exact| / bound}: at most 1 where the bound
+    holds, inf where a bound of 0 (a histogram count) is broken."""
+    out = {}
+    for k, bound in tol.items():
+        err = (got[k].double().cpu() - exact[k].cpu()).abs()
+        ratio = torch.where(err == 0, torch.zeros_like(err),
+                            err / bound.cpu())
+        out[k] = ratio.max().item()
+    return out

@@ -4,6 +4,7 @@ is no fallback from one to the other."""
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fleet_step as _fleet
 from repro_torch.kernels import fused_agg as _agg
 
 
@@ -37,3 +38,17 @@ def fused_agg_tree(w_global, w_stack, s):
     flat = fused_agg(w_global.reshape(-1),
                      w_stack.reshape(w_stack.shape[0], -1), s)
     return flat.reshape(w_global.shape)
+
+
+def fleet_step(program, env, *, n: int, emit: bool = False,
+               num_groups: int | None = None):
+    """One round of the fleet's step program over ``n`` clients (``env``
+    as ``kernels.fleet_step`` takes it): (state, emits, stats)."""
+    dev = env["charge"].device
+    if dev.type == "cuda":
+        return _fleet.fleet_step_cuda(program, env, n=n, emit=emit,
+                                      num_groups=num_groups)
+    if dev.type == "cpu":
+        return _fleet.fleet_step_plain(program, env, n=n, emit=emit,
+                                       num_groups=num_groups)
+    raise ValueError(f"fleet_step: no kernel for device {dev}")

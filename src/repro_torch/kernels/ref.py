@@ -1,5 +1,5 @@
 """Naive oracles for the kernels (port of the JAX package's ``kernels/ref.py``
-for the kernels ported so far)."""
+for the kernels ported so far: attention, aggregation, the fleet step)."""
 from __future__ import annotations
 
 import torch
@@ -29,3 +29,52 @@ def agg_reference(w, w_stack, s):
     """out = w + sum_c s_c (w_c - w);  w (M,), w_stack (C, M), s (C,)."""
     d = w_stack.float() - w.float()[None]
     return (w.float() + torch.einsum("c,cm->m", s.float(), d)).to(w.dtype)
+
+
+def _masked_total(value, weight):
+    return torch.sum(torch.as_tensor(weight).float()
+                     * torch.as_tensor(value).float())
+
+
+def _masked_average(value, weight):
+    den = _masked_total(torch.ones_like(torch.as_tensor(value).float()),
+                        weight)
+    return _masked_total(value, weight) / torch.clamp_min(den, 1.0)
+
+
+def fleet_step_reference(charge, harvest, round_cost, valid, *, capacity,
+                         leak=0.0, want=None, threshold=None):
+    """One battery-gated fleet round, written out longhand (independent of
+    ``energy.step_ops``).  ``want`` is the policy's pre-gate desire mask
+    (the SUSTAINABLE slot draw; None = greedy/always 1s); ``threshold``
+    switches to the THRESHOLD gate ``available >= threshold * round_cost``.
+    Leak and absorb are ``battery.absorb_fields``: the reference fleet
+    scan's arithmetic, with its fused multiply-add.  Returns
+    ``(charge_out, mask, stats)``."""
+    from repro_torch.energy.battery import absorb_fields
+
+    charge = torch.as_tensor(charge).float()
+    harvest = torch.as_tensor(harvest).float()
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)
+    capacity, leak, round_cost = f32(capacity), f32(leak), f32(round_cost)
+    available, aux = absorb_fields(capacity, leak, charge, harvest)
+    leaked, overflow = aux["leaked"], aux["overflow"]
+    feasible = (available >= round_cost).float()
+    if threshold is not None:
+        want = (available >= f32(threshold) * round_cost).float()
+    elif want is None:
+        want = torch.ones_like(available)
+    mask = torch.as_tensor(want).float() * feasible
+    consumed = mask * round_cost
+    charge_out = available - consumed
+    depleted = (available < round_cost).float()
+    stats = {
+        "participants": _masked_total(mask, valid),
+        "harvested": _masked_total(harvest, valid),
+        "consumed": _masked_total(consumed, valid),
+        "leaked": _masked_total(leaked, valid),
+        "overflowed": _masked_total(overflow, valid),
+        "mean_charge": _masked_average(charge_out, valid),
+        "frac_depleted": _masked_average(depleted, valid),
+    }
+    return charge_out, mask, stats

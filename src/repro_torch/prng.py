@@ -14,7 +14,10 @@ namesakes:
 * ``bits(key, shape)`` = w1 ^ w2 of threefry(key, (hi(j), lo(j))) for the
   flat index j of each element;
 * ``randint`` draws two words per element from ``split(key, 2)`` and folds
-  them with the multiplier ``2^32 mod span``, not a plain modulus.
+  them with the multiplier ``2^32 mod span``, not a plain modulus;
+* ``exponential`` is ``-log1p(-uniform)`` as in JAX, but only ulp-close to
+  it: XLA's CPU ``log1p`` and PyTorch's differ by up to 2 ulp on about a
+  tenth of the inputs.
 
 Torch has no full uint32 arithmetic, so every word is held in int64 and
 every sum, shift and rotation is masked with ``& 0xFFFFFFFF``.  Keys are
@@ -126,3 +129,11 @@ def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0
     hi = torch.as_tensor(maxval, dtype=torch.float32, device=key.device)
     scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, scaled)
+
+
+def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.exponential(key, shape)`` in float32: ``-log1p(-u)``
+    for ``u = uniform(key, shape)``.  The uniforms are bitwise equal to
+    JAX's; the result is not, since ``log1p`` is rounded differently (up to
+    2 ulp apart)."""
+    return -torch.log1p(-uniform(key, shape))

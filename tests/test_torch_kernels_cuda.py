@@ -9,9 +9,12 @@ machine that has only PyTorch:
 (``--noconftest``: the suite's conftest imports JAX.)  Each kernel is held
 against its plain version within its module's ``kernel_tolerance``: flash
 attention's (bf16: twice the largest move of rounding P to bf16, plus the
-output's rounding; fp32: the reference's 2e-5) and fused_agg's (twice the
+output's rounding; fp32: the reference's 2e-5), fused_agg's (twice the
 first-order rounding bound of a float32 evaluation, plus two bf16 ulps in
-bf16); ``chip_smoke.py`` repeats the checks at the main path's shapes.
+bf16) and fleet_step's (per-client outputs bitwise; each stat within
+gamma_d sum |valid x| of its float64 sum, d the kernel's summation depth;
+counts exact); ``chip_smoke.py`` repeats the checks at the main path's
+shapes.
 """
 import numpy as np
 import pytest
@@ -183,3 +186,125 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _fleet_round(n, gate, hist, groups, card, seed=0):
+    """One fleet round's program and inputs on the card (non-dyadic: the
+    stats are held to ``fleet_step.kernel_tolerance``)."""
+    from repro_torch.energy import battery, step_ops
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
+                               device=card)
+    prog, env = step_ops.fleet_step_program(
+        battery.BatteryConfig(capacity=2.5, leak=0.02), gate, groups,
+        hist=hist, device=card)
+    env.update(charge=t(r.uniform(0, 3, n)), harvest=t(r.exponential(0.7, n)),
+               want=t(r.uniform(size=n) < 0.5), streak=t(r.integers(0, 70, n)),
+               valid=t(np.arange(n) % 7 != 6), round_cost=t(1.0),
+               threshold=t(1.5))
+    if groups:
+        env["groups"] = torch.tensor(r.integers(0, groups, n),
+                                     dtype=torch.int32, device=card)
+    return prog, env
+
+
+def _fleet_errors(prog, env, stats, n, groups):
+    from repro_torch.energy import step_ops
+    from repro_torch.kernels import fleet_step as fs
+    out, _ = step_ops.run_step(prog, env, valid=env["valid"],
+                               groups=env.get("groups"), num_groups=groups)
+    exact = fs.stats_float64(prog, out, env["valid"], env.get("groups"),
+                             groups)
+    tol = fs.kernel_tolerance(prog, out, env["valid"], n, env.get("groups"),
+                              groups)
+    return out, fs.stats_error(stats, exact, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", ["sustainable", "threshold", "greedy"])
+@pytest.mark.parametrize("hist,groups", [(False, None), (True, 3)])
+@pytest.mark.parametrize("n", [1000, 70_001])
+def test_fleet_step_matches_plain(card, gate, hist, groups, n):
+    """Per-client outputs bitwise, stats within ``kernel_tolerance`` of
+    their float64 sums (counts exact); one launch per call."""
+    from repro_torch.kernels import fleet_step as fs
+    prog, env = _fleet_round(n, gate, hist, groups, card)
+    before = fs.fleet_step_cuda.launches
+    state, emits, stats = ops.fleet_step(prog, env, n=n, emit=True,
+                                         num_groups=groups)
+    torch.cuda.synchronize()
+    assert fs.fleet_step_cuda.launches == before + 1
+    out, ratios = _fleet_errors(prog, env, stats, n, groups)
+    for k in prog.state_out:
+        assert torch.equal(state[k], out[k]), k
+    assert torch.equal(emits["mask"], out["mask"])
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+@pytest.mark.cuda
+def test_fleet_step_tolerance_catches_faults_on_card(card):
+    """The outcomes of the three planted faults, made with the kernel
+    itself: the last block skipped (the kernel run on the clients before
+    it), the ragged tail dropped (on all but the last client), a stat read
+    from the wrong buffer (leaked reported as overflowed): each breaks the
+    bound of the full round."""
+    from repro_torch.kernels import fleet_step as fs
+    n = 3 * fs.TILE + 1000
+    prog, env = _fleet_round(n, "sustainable", True, None, card)
+    _, _, good = fs.fleet_step_cuda(prog, env, n=n)
+    assert max(_fleet_errors(prog, env, good, n, None)[1].values()) <= 1.0
+    for m in (3 * fs.TILE, n - 1):
+        cut = {k: (v[:m] if v.dim() and v.shape[0] == n else v)
+               for k, v in env.items()}
+        _, _, bad = fs.fleet_step_cuda(prog, cut, n=m)
+        assert max(_fleet_errors(prog, env, bad, n, None)[1].values()) > 1.0
+    swapped = dict(good, leaked=good["overflowed"])
+    assert max(_fleet_errors(prog, env, swapped, n, None)[1].values()) > 1.0
+
+
+@pytest.mark.cuda
+def test_fleet_step_rejects_what_it_does_not_take(card):
+    import dataclasses
+    from repro_torch.kernels import fleet_step as fs
+    prog, env = _fleet_round(64, "sustainable", False, None, card)
+    with pytest.raises(ValueError, match="float32"):
+        fs.fleet_step_cuda(prog, dict(env, charge=env["charge"].double()),
+                           n=64)
+    with pytest.raises(ValueError, match="shape"):
+        fs.fleet_step_cuda(prog, dict(env, harvest=env["harvest"][:10]),
+                           n=64)
+    with pytest.raises(ValueError, match="is on"):
+        fs.fleet_step_cuda(prog, dict(env, want=env["want"].cpu()), n=64)
+    with pytest.raises(ValueError, match="fleet_step_program"):
+        fs.fleet_step_cuda(dataclasses.replace(prog, ops=prog.ops[:2]), env,
+                           n=64)
+
+
+@pytest.mark.cuda
+def test_simulate_fleet_on_card_matches_cpu(card):
+    """A Bernoulli fleet (non-dyadic battery) for 10 rounds with groups
+    and histograms: masks, charge, streak and counts bitwise between the
+    card (one kernel launch a round) and the CPU (plain version)."""
+    from repro_torch.energy import BatteryConfig, Bernoulli, FleetConfig
+    from repro_torch.energy import simulate_fleet
+    from repro_torch.kernels import fleet_step as fs
+    n, R = 50_000, 10
+    cfg = FleetConfig(num_clients=n, policy="sustainable", seed=1)
+    kw = dict(E=np.arange(n) % 4 + 1, groups=np.arange(n) % 3, hist=True,
+              record_masks=True)
+    bat = BatteryConfig(capacity=2.5, leak=0.02, init_charge=0.5)
+    before = fs.fleet_step_cuda.launches
+    a = simulate_fleet(Bernoulli.create(n, 0.35, 1.2), bat, 1.0, cfg, R,
+                       device=card, **kw)
+    assert fs.fleet_step_cuda.launches - before == R
+    b = simulate_fleet(Bernoulli.create(n, 0.35, 1.2), bat, 1.0, cfg, R,
+                       device="cpu", **kw)
+    assert torch.equal(a.masks.cpu(), b.masks)
+    assert torch.equal(a.final_charge.cpu(), b.final_charge)
+    assert torch.equal(a.final_streak.cpu(), b.final_streak)
+    for k in ("participants", "consumed", "hist_soc", "hist_spend",
+              "hist_streak", "group_participants"):
+        np.testing.assert_array_equal(a.stats[k], b.stats[k], err_msg=k)
+    for k in ("harvested", "leaked", "overflowed", "mean_charge"):
+        np.testing.assert_allclose(a.stats[k], b.stats[k], rtol=1e-5,
+                                   err_msg=k)

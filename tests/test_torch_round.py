@@ -404,10 +404,13 @@ def test_simulate_matches_reference(cnn):
              for r in range(R)]
     d, _ = _diff(res_j.params, res_t.params)
     assert d.max() <= adam_bound(masks, "sustainable"), d.max()
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    from repro_torch.energy import BatteryConfig, Bernoulli, EnergyLoop
+    loop = EnergyLoop(Bernoulli.create(C), BatteryConfig(), 1.0,
+                      controller=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
         tcore.simulate(lambda p, x, k: tm.loss_fn(p, x), topt.adam(LR),
                        tcore.FedConfig(num_clients=C, local_steps=T), tp,
-                       tbatch, P, E, 1, prng.PRNGKey(0), energy=object())
+                       tbatch, P, E, 1, prng.PRNGKey(0), energy=loop)
 
 
 def test_theorem1_constants_match():
