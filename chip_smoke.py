@@ -84,6 +84,30 @@ without either.  Phases, each of which raises on a failed check:
    side of a threshold or bin edge; energy stats to 1e-5), and the
    8-client closed loop through ``core.simulate``.  Prints rounds/s,
    client-rounds/s and a profile of one round.
+9. serve_step kernel (run after phase 7): ``fleet_step_cuda`` on the serve
+   program (``csrc/serve_step.cu``) against ``fleet_step_plain`` for every
+   admission rule (agnostic, battery-gated, charge-gated) and training
+   gate (none, sustainable, threshold, greedy), with and without
+   histograms and mode output, at n in {1, 257, 65537}, with per-client
+   battery, prices, token budgets and thresholds, on a dyadic
+   configuration (every stat bitwise), and at n = 10,000,000: charge,
+   streak and mode bitwise, the stats within ``kernel_tolerance``
+   (histogram counts exact).  Times the main path's instantiation at n =
+   10,000,000 (battery-gated, sustainable training, hist) as in phase 7.
+10. Serving fleet: ``repro_torch.launch.serve_fleet``'s path,
+   ``examples/serve_fleet.py``'s scenario at N = 1,000,000 for 192 epochs:
+   the agnostic, gated and controlled runs (the last with histograms);
+   every kernel's count is set to 0 before each run and read after it (one
+   serve-program launch an epoch, no other kernel); every epoch conserves
+   energy and the request ledger (offered == served + shed + missed) and
+   each histogram counts N clients.  Then the card against the chip
+   machine's CPU: a Constant-traffic, Bernoulli-harvest fleet for 10
+   controlled epochs (modes, charge, streak, ledger and counts bitwise),
+   the scenario's first 2 epochs per run (ulp-close draws: up to 1e-5 N
+   mode flips), a 30-round ``energy.control.run_controlled`` fleet (N =
+   20,000, grouped cadence and budget rules) and the 8-client closed loop
+   with a ``ServerController`` through ``core.simulate``.  Prints
+   epochs/s, client-epochs/s and a profile of one epoch.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes a
@@ -1032,6 +1056,504 @@ def fleet_phase(torch, fs, seed: int, card: str) -> dict:
             "profile_fleet_step_ms": step_ms}
 
 
+SERVE_KERNEL_NS = (1, 257, 65537)
+SERVE_KERNEL_BIG = 10_000_000        # serve_scale.py's round-step size
+SERVE_ADMISSIONS = ("agnostic", "battery_gated", "charge_gated")
+SERVE_TRAINS = (None, "sustainable", "threshold", "greedy")
+
+
+def serve_inputs(torch, n, gen, *, admission, train, hist, dyadic=False,
+                 per_client=False):
+    """One serving epoch's program and env on the card.  Non-dyadic: charge
+    U(0, 8), harvest Exp(1.5), 0-6 requests, valid 0 on every seventh lane,
+    twant 0/1, streak in 0..69, admit 1.25, the example's battery (8 J, leak
+    0.01), prices (a 1e8-parameter model; 128 / 256 / 32 tokens) and
+    thresholds (2.0 / 1.5 battery-gated, 3.0 / 1.0 J charge-gated), a 0.2 J
+    training round; ``per_client``: battery, prices, token budgets,
+    thresholds and the training cost drawn per client.  Dyadic: quarters,
+    leak 0.25, prices 2^-8 / 2^-9 / 2^-6 J at 64 / 32 / 8 tokens, training
+    0.25 J, admit 1, so every sum of one epoch is exact in float32."""
+    from repro_torch.energy import step_ops
+    from repro_torch.energy.battery import BatteryConfig
+    from repro_torch.energy.costs import DecodeCostModel
+    from repro_torch.serve import (BatteryGated, ChargeGated, EnergyAgnostic,
+                                   QoSSpec, TrainLoad)
+
+    dev = "cuda"
+    u = lambda: torch.rand(n, generator=gen, device=dev)
+    ri = lambda lo, hi: torch.randint(lo, hi, (n,), generator=gen,
+                                      device=dev).float()
+    scalar = lambda x: torch.tensor(x, device=dev)
+    if dyadic:
+        bat = BatteryConfig(capacity=2.5, leak=0.25)
+        cost = DecodeCostModel(2.0 ** -8, 2.0 ** -9, 2.0 ** -6)
+        qos = QoSSpec(64.0, 32.0, 8.0)
+        hi, lo, rc = scalar(1.0), scalar(0.25), 0.25
+        env = {"charge": ri(0, 11) * 0.25, "harvest": ri(0, 5) * 0.25,
+               "requests": ri(0, 5), "valid": torch.ones(n, device=dev),
+               "admit": scalar(1.0)}
+    else:
+        if per_client:
+            bat = BatteryConfig(capacity=4.0 + 4.0 * u(), leak=0.05 * u())
+            cost = DecodeCostModel(1e-3 + 2e-3 * u(), 1e-3 + 2e-3 * u(),
+                                   1e-5 + 9e-5 * u())
+            qos = QoSSpec(ri(50, 200), ri(100, 300), ri(10, 40))
+            hi, lo, rc = 0.5 + 2.5 * u(), 0.2 + u(), 0.1 + 0.3 * u()
+        else:
+            bat = BatteryConfig(capacity=8.0, leak=0.01)
+            cost = DecodeCostModel.from_params(1e8)
+            qos = QoSSpec(128.0, 256.0, 32.0)
+            hi, lo = scalar(2.0 if admission == "battery_gated" else 3.0), \
+                scalar(1.5 if admission == "battery_gated" else 1.0)
+            rc = 0.2
+        env = {"charge": 8.0 * u(), "harvest": -1.5 * torch.log1p(-u()),
+               "requests": ri(0, 7),
+               "valid": (torch.arange(n, device=dev) % 7 != 6).float(),
+               "admit": scalar(1.25)}
+    policy = {"agnostic": lambda: EnergyAgnostic(),
+              "battery_gated": lambda: BatteryGated(hi.expand(n), lo.expand(n)),
+              "charge_gated": lambda: ChargeGated(hi.expand(n), lo.expand(n))
+              }[admission]()
+    load = None if train is None else TrainLoad.create(
+        torch.full((n,), 4, device=dev), rc, policy=train, threshold=1.5,
+        device=dev)
+    program, penv = step_ops.serve_step_program(bat, cost, qos, policy, load,
+                                                hist=hist, device=dev)
+    penv.update(env, twant=(u() < 0.3).float(), streak=ri(0, 70))
+    return program, penv
+
+
+def serve_step_check(torch, fs, n, gen, *, admission, train, hist, emit,
+                     label, show=False, **kw) -> dict:
+    """``fleet_step_cuda`` on the serve program against
+    ``fleet_step_plain`` on the same inputs: charge, streak and mode
+    bitwise, the stats within ``fleet_step.kernel_tolerance`` of their
+    float64 sums (histogram counts exact); on dyadic inputs every stat
+    bitwise equal to the plain version's.  Raises on a failure."""
+    program, env = serve_inputs(torch, n, gen, admission=admission,
+                                train=train, hist=hist, **kw)
+    from repro_torch.energy import step_ops
+
+    got_state, got_emits, got = fs.fleet_step_cuda(program, env, n=n,
+                                                   emit=emit)
+    torch.cuda.synchronize()
+    out, plain = step_ops.run_step(program, env, valid=env["valid"])
+    same = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
+    per_client = [same(got_state[k], out[k]) for k in program.state_out]
+    if emit:
+        per_client.append(torch.equal(got_emits["mode"], out["mode"]))
+    exact = fs.stats_float64(program, out, env["valid"])
+    ratios = fs.stats_error(got, exact, fs.kernel_tolerance(
+        program, out, env["valid"], n))
+    worst = max(ratios.values())
+    err = max((got[k].double() - plain[k].double()).abs().max().item()
+              for k in got)
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    ok = all(per_client) and finite and worst <= 1.0
+    if kw.get("dyadic"):
+        ok = ok and all(same(got[k], plain[k]) for k in got)
+    if show or not ok:
+        print(f"kernel serve_step {label}: per-client outputs bitwise "
+              f"{all(per_client)}; stats worst err/bound {worst:.3f}, max "
+              f"|kernel - plain| {err:.3e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+    if not ok:
+        raise AssertionError(f"serve_step kernel disagrees with its plain "
+                             f"version at {label}: {ratios}")
+    return {"worst": worst, "err": err}
+
+
+def serve_step_phase(torch, fs, seed: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    worst, err, cases = 0.0, 0.0, 0
+
+    def record(res):
+        nonlocal worst, err, cases
+        worst, err = max(worst, res["worst"]), max(err, res["err"])
+        cases += 1
+
+    for n in SERVE_KERNEL_NS:
+        for adm in SERVE_ADMISSIONS:
+            for train in SERVE_TRAINS:
+                for hist in (False, True):
+                    for emit in (False, True):
+                        record(serve_step_check(
+                            torch, fs, n, gen, admission=adm, train=train,
+                            hist=hist, emit=emit,
+                            label=f"{adm} train={train} n={n} hist={hist} "
+                                  f"emit={emit}"))
+                record(serve_step_check(
+                    torch, fs, n, gen, admission=adm, train=train, hist=True,
+                    emit=True, per_client=True,
+                    show=n == SERVE_KERNEL_NS[-1] and train == "sustainable",
+                    label=f"{adm} train={train} n={n} per-client battery, "
+                          f"prices and thresholds"))
+                if n > 1:
+                    record(serve_step_check(
+                        torch, fs, n, gen, admission=adm, train=train,
+                        hist=True, emit=True, dyadic=True,
+                        show=n == SERVE_KERNEL_NS[-1] and train is None,
+                        label=f"{adm} train={train} n={n} dyadic (stats "
+                              f"bitwise)"))
+    n = SERVE_KERNEL_BIG
+    for adm in SERVE_ADMISSIONS:
+        record(serve_step_check(torch, fs, n, gen, admission=adm,
+                                train="sustainable", hist=True, emit=True,
+                                show=True, label=f"{adm} train=sustainable "
+                                                 f"n={n} hist emit"))
+    print(f"kernel serve_step: {cases} cases, worst stats err/bound "
+          f"{worst:.3f}, max |kernel - plain| {err:.3e}", flush=True)
+
+    # timing: the main path's instantiation (the controlled run: battery-
+    # gated admission, a sustainable training load, hist, no mode output)
+    program, env = serve_inputs(torch, n, gen, admission="battery_gated",
+                                train="sustainable", hist=True)
+    event_ms = cuda_ms(lambda: fs.fleet_step_cuda(program, env, n=n), 20,
+                       torch)
+    plain_ms = cuda_ms(lambda: fs.fleet_step_plain(program, env, n=n), 3,
+                       torch)
+    reps = 10
+    prof = device_profile(torch, lambda: [
+        fs.fleet_step_cuda(program, env, n=n) for _ in range(reps)])
+    parts = {name: ms / reps for name, ms in prof["all"]
+             if "serve_step" in name}
+    kernel_ms = sum(parts.values())
+    nbytes = fs.kernel_bytes(program, env, n)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    print(f"serve_step n={n} battery-gated, sustainable training, hist: "
+          f"kernel {kernel_ms:.4f} ms of device time a call ("
+          + ", ".join(f"{'reduce' if 'reduce' in k else 'step'} {v:.4f}"
+                      for k, v in parts.items())
+          + f"), {event_ms:.4f} ms between CUDA events (host included); "
+          f"plain {plain_ms:.4f} ms, no library call; bound {bound_ms:.4f} "
+          f"ms ({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s)",
+          flush=True)
+    return {
+        "name": "fleet_step (serve program)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/serve_step.cu",
+        "replaces": "src/repro/kernels/fleet_step.py:102",
+        "launches": None,
+        "max_abs_err": err,
+        "worst_err_over_bound": worst,
+        "ms": kernel_ms,
+        "event_ms": event_ms,
+        "kernel_parts_ms": parts,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "timed_at": f"n={n}, battery-gated admission, sustainable training "
+                    f"load, hist, no mode output, scalar battery, prices and "
+                    f"thresholds: {nbytes} bytes; ms is device time from "
+                    f"torch.profiler",
+        "cases": cases,
+    }
+
+
+# the serving-fleet phase: examples/serve_fleet.py's scenario at
+# serve_scale.py's largest host-local size, the example's horizon
+SERVE = dict(clients=1_000_000, epochs=192)
+SERVE_CONSTANT_EPOCHS = 10          # card vs CPU, bitwise
+SERVE_CPU_EPOCHS = 2                # the scenario's first epochs on the CPU
+# card vs CPU on the scenario: its draws (sin, exp, log1p) are ulp-close,
+# not bitwise, so a client within a few ulp of a cdf step, a threshold or a
+# bin edge may land on the other side: modes at most SERVE_FLIP_FRAC of the
+# fleet per epoch, each ledger count within 16 requests of each such
+# client, each histogram within two bins of each; energy stats (sums of
+# nonnegative terms in other orders) to FLEET_STAT_RTOL
+SERVE_FLIP_FRAC = 1e-5
+LEDGER_STATS = ("offered", "served_full", "served_short", "shed",
+                "deadline_missed", "participants")
+
+
+def serve_epoch_checks(stats, n, charge0_sum, depth) -> dict:
+    """Every epoch: energy conservation (as ``conservation_check``), the
+    request ledger offered == served_full + served_short + shed +
+    deadline_missed exactly, and each histogram counting N."""
+    s = stats
+    ledger = bool(np.array_equal(
+        s["offered"], s["served_full"] + s["served_short"] + s["shed"]
+        + s["deadline_missed"]))
+    hists = all(np.array_equal(s[k].sum(axis=1), np.full(len(s[k]), n))
+                for k in ("hist_soc", "hist_spend", "hist_streak")
+                if k in s)
+    return {"conservation": conservation_check(s, n, charge0_sum, depth),
+            "ledger": ledger, "hist_counts": hists}
+
+
+def serve_compare(card, cpu, n) -> dict:
+    """The card's run against the CPU's, worst over the epochs: clients
+    whose mode differs; for each ledger count and histogram the absolute
+    difference; for the energy stats the relative difference."""
+    out = {"mode_flips": int((card.modes.cpu() != cpu.modes).sum(dim=1)
+                             .max())}
+    for k, v in cpu.stats.items():
+        a, b = np.asarray(card.stats[k], np.float64), v.astype(np.float64)
+        d = np.abs(a - b)
+        if k.startswith("hist_"):
+            out[k] = float(d.sum(axis=-1).max())
+        elif k in LEDGER_STATS or k == "tokens_decoded":
+            out[k] = float(d.max())
+        elif k == "frac_depleted":
+            out[k] = float(d.max()) * n
+        else:
+            out[k] = float((d / np.maximum(np.abs(b), 1e-30)).max())
+    return out
+
+
+def serve_within(diff, flips) -> bool:
+    def bound(k):
+        if k.startswith("hist_"):
+            return 2 * flips
+        if k in LEDGER_STATS or k == "frac_depleted":
+            return 16 * flips if k != "participants" else flips
+        if k == "tokens_decoded":
+            return 16 * 256 * flips
+        if k == "mode_flips":
+            return flips
+        return FLEET_STAT_RTOL
+    return all(v <= bound(k) for k, v in diff.items())
+
+
+def serve_rel(diff) -> float:
+    return max(v for k, v in diff.items() if not k.startswith("hist_")
+               and k not in LEDGER_STATS and k not in (
+                   "mode_flips", "frac_depleted", "tokens_decoded"))
+
+
+def serve_fleet_phase(torch, fs, seed: int, card: str) -> dict:
+    from repro_torch import prng
+    from repro_torch.core import FedConfig, Policy, simulate
+    from repro_torch.energy import control
+    from repro_torch.energy.arrivals import Bernoulli, MarkovSolar
+    from repro_torch.energy.battery import BatteryConfig
+    from repro_torch.energy.fleet import EnergyLoop, FleetConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_agg as agg
+    from repro_torch.launch import serve_fleet as launch
+    from repro_torch.optim import sgd
+    from repro_torch.serve import Constant
+
+    counters = (fa.flash_attention_cuda, agg.fused_agg_cuda,
+                fs.fleet_step_cuda, fs.serve_step_cuda)
+
+    def reset():
+        for kernel in counters:
+            kernel.launches = 0
+        torch.cuda.synchronize()
+
+    def others():
+        return (fa.flash_attention_cuda.launches + agg.fused_agg_cuda.launches
+                + fs.fleet_step_cuda.launches)
+
+    n, epochs = SERVE["clients"], SERVE["epochs"]
+    traffic, harvest, cost, train = launch.scenario(n, "cuda")
+    charge0 = float(launch.BATTERY.init(1)[0]) * n
+    depth = fs.reduction_depth(n)
+    launch.run("gated", traffic, harvest, cost, train, n, 2, seed, "cuda")
+    runs, results, trace = [], {}, None
+    for name in launch.RUNS:
+        hist = name == "controlled"
+        reset()
+        res, ctrl, wall, launches = launch.run(name, traffic, harvest, cost,
+                                               train, n, epochs, seed, "cuda",
+                                               hist=hist)
+        s = res.stats
+        chk = serve_epoch_checks(s, n, charge0, depth)
+        finite = all(np.isfinite(v).all() for v in s.values())
+        shapes = (s["offered"].shape == (epochs,)
+                  and (not hist or s["hist_soc"].shape == (epochs, 32)))
+        ok = (launches == epochs == fs.serve_step_cuda.launches
+              and others() == 0 and chk["conservation"] <= 1.0
+              and chk["ledger"] and chk["hist_counts"] and finite and shapes
+              and float(res.final_charge.min()) >= 0.0)
+        off = s["offered"].sum()
+        served = (s["served_full"].sum() + s["served_short"].sum()) / off
+        print(f"serve fleet {name}{' hist' if hist else ''}: N={n:,} x "
+              f"{epochs} epochs in {wall:.3f} s = {epochs / wall:.2f} "
+              f"epochs/s, {n * epochs / wall:.4g} client-epochs/s on {card}; "
+              f"served {100 * served:.2f}%, shed "
+              f"{100 * s['shed'].sum() / off:.2f}%, missed "
+              f"{100 * s['deadline_missed'].sum() / off:.2f}%, depleted "
+              f"{100 * s['frac_depleted'].mean():.2f}%, J/tok "
+              f"{res.joules_per_token:.4f}; serve-program launches "
+              f"{launches} (other kernels {others()}); conservation worst "
+              f"err/bound {chk['conservation']:.3f}, ledger every epoch "
+              f"{chk['ledger']}, hist counts sum to N {chk['hist_counts']} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"serve fleet {name}: a check failed")
+        if ctrl is not None:
+            trace = [t["admit"] for t in ctrl.trace]
+            print(f"serve fleet controlled: admit per day {trace}",
+                  flush=True)
+        runs.append({"run": name, "hist": hist, "wall_s": wall,
+                     "epochs_per_s": epochs / wall,
+                     "client_epochs_per_s": n * epochs / wall,
+                     "launches": launches, "served": float(served),
+                     "joules_per_token": res.joules_per_token,
+                     "conservation": chk["conservation"]})
+        results[name] = res
+
+    # card vs the chip machine's CPU: a Constant-traffic, Bernoulli-harvest
+    # fleet bitwise, the scenario's first epochs within the stated bounds
+    checks = {}
+    rate = torch.randint(0, 7, (n,), generator=torch.Generator().manual_seed(
+        seed)).float()
+    on = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        on[dev] = launch.run(
+            "controlled", Constant.create(n, rate, device=dev),
+            Bernoulli.create(n, prob=0.3, amount=0.8, device=dev), cost,
+            None, n, SERVE_CONSTANT_EPOCHS, seed, dev, hist=True,
+            record_modes=True)[0]
+        checks[f"constant_{dev}_s"] = time.perf_counter() - t0
+    a, b = on["cuda"], on["cpu"]
+    same = lambda x, y: torch.equal(x.cpu().view(torch.int32),
+                                    y.view(torch.int32))
+    diff = serve_compare(a, b, n)
+    bitwise = (torch.equal(a.modes.cpu(), b.modes)
+               and same(a.final_charge, b.final_charge)
+               and same(a.final_streak, b.final_streak))
+    ok = bitwise and serve_within(diff, 0)
+    print(f"serve fleet card vs CPU, Constant traffic + Bernoulli harvest "
+          f"N={n:,}, {SERVE_CONSTANT_EPOCHS} controlled epochs (battery-"
+          f"gated, sustainable training, hist): modes, charge and streak "
+          f"bitwise {bitwise}; ledger, depleted and hist counts equal "
+          f"{serve_within(diff, 0)}; energy stats rel diff max "
+          f"{serve_rel(diff):.3e} (tol {FLEET_STAT_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"serve fleet: the card's Constant run differs "
+                             f"from the CPU's: {diff}")
+    checks["constant"] = diff
+    cpu_traffic, cpu_harvest, _, cpu_train = launch.scenario(n, "cpu")
+    for name in launch.RUNS:
+        kw = dict(record_modes=True, hist=name == "controlled")
+        a = launch.run(name, traffic, harvest, cost, train, n,
+                       SERVE_CPU_EPOCHS, seed, "cuda", **kw)[0]
+        t0 = time.perf_counter()
+        b = launch.run(name, cpu_traffic, cpu_harvest, cost, cpu_train, n,
+                       SERVE_CPU_EPOCHS, seed, "cpu", **kw)[0]
+        cpu_s = time.perf_counter() - t0
+        diff = serve_compare(a, b, n)
+        flips = SERVE_FLIP_FRAC * n
+        ok = serve_within(diff, flips)
+        print(f"serve fleet card vs CPU, scenario {name}, first "
+              f"{SERVE_CPU_EPOCHS} epochs (CPU {cpu_s:.1f} s): mode flips "
+              f"{diff['mode_flips']} (allowed {flips:.0f}), ledger moved "
+              f"{max(diff[k] for k in LEDGER_STATS):.0f} (allowed "
+              f"{16 * flips:.0f}), hist moved "
+              f"{max((v for k, v in diff.items() if k.startswith('hist_')), default=0):.0f}"
+              f"; energy stats rel diff max {serve_rel(diff):.3e} (tol "
+              f"{FLEET_STAT_RTOL}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"serve fleet {name}: the card's epochs "
+                                 f"differ from the CPU's: {diff}")
+        checks[name] = diff
+
+    # the server controller on the training fleet: a short run_controlled
+    # horizon and the closed loop through core.simulate, card vs CPU
+    ctl_n, ctl_rounds = 20_000, 30
+    horizon = {}
+    for dev in ("cuda", "cpu"):
+        reset()
+        ctrl = control.ServerController(
+            T0=6, E0=[1, 5, 10, 20], groups=np.arange(ctl_n) % 4,
+            rules=(control.CadenceRule(depleted_high=0.2),
+                   control.BudgetRule(depleted_high=0.2, slip=0.9)))
+        res, ctrl = control.run_controlled(
+            Bernoulli.create(ctl_n, prob=0.35, amount=1.25, device=dev),
+            BatteryConfig(capacity=2.5, init_charge=0.5), 0.25,
+            FleetConfig(num_clients=ctl_n, policy="sustainable", seed=seed),
+            ctl_rounds, ctrl, control_every=10, record_masks=True, hist=True,
+            device=dev)
+        horizon[dev] = (res, [(t["T"], t["E_mean"]) for t in ctrl.trace],
+                        fs.fleet_step_cuda.launches)
+    (a, ta_, la), (b, tb_, _) = horizon["cuda"], horizon["cpu"]
+    ok = (la == ctl_rounds and ta_ == tb_
+          and torch.equal(a.masks.cpu(), b.masks)
+          and same(a.final_charge, b.final_charge)
+          and all(np.array_equal(a.stats[k], b.stats[k]) for k in
+                  ("participants", "group_participants", "hist_soc")))
+    print(f"run_controlled fleet (N={ctl_n:,}, {ctl_rounds} rounds, chunks "
+          f"of 10, grouped cadence + budget rules): controller trajectory "
+          f"{ta_}, card == CPU (masks, charge, counts) {ok}, fleet_step "
+          f"launches {la} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("run_controlled on the card differs from the "
+                             "CPU's")
+
+    def closed(dev):
+        C = 8
+        loop = EnergyLoop(MarkovSolar.create(C, day_mean=0.6),
+                          BatteryConfig(capacity=3.0, leak=0.01), 1.0,
+                          controller=control.ServerController(
+                              T0=4, E0=2, rules=(
+                                  control.CadenceRule(depleted_high=0.25),
+                                  control.BudgetRule(depleted_high=0.25,
+                                                     slip=0.9))),
+                          device=dev)
+        target = torch.linspace(-1.0, 1.0, C, device=loop.device)
+
+        def loss(params, batch, rng):
+            return 0.5 * torch.sum((params["w"] - target[batch["client"]])
+                                   ** 2)
+
+        def batch_fn(rnd, i, steps):
+            return {"client": torch.full((steps,), i, dtype=torch.long,
+                                         device=loop.device)}
+
+        fed = FedConfig(num_clients=C, local_steps=4,
+                        policy=Policy.THRESHOLD, seed=seed)
+        return simulate(loss, sgd(0.2), fed,
+                        {"w": torch.zeros((), device=loop.device)}, batch_fn,
+                        np.ones(C) / C, np.ones(C, np.int32), 24,
+                        prng.PRNGKey(seed), energy=loop)
+
+    reset()
+    ha = closed("cuda").history
+    loop_launches = fs.fleet_step_cuda.launches
+    hb = closed("cpu").history
+    keys = ("participants", "ctrl_T", "ctrl_E_mean")
+    ok = (loop_launches == len(ha)
+          and [[h[k] for k in keys] for h in ha]
+          == [[h[k] for k in keys] for h in hb]
+          and all(abs(x.get("loss", 0.0) - y.get("loss", 0.0)) <= 1e-5
+                  for x, y in zip(ha, hb)))
+    print(f"closed loop with a server controller (8 clients, threshold, "
+          f"{len(ha)} rounds): T per round {[h['ctrl_T'] for h in ha]}, "
+          f"participants and knobs card == CPU {ok}, fleet_step launches "
+          f"{loop_launches} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the controlled closed loop on the card "
+                             "differs from the CPU's")
+
+    # where an epoch's time goes (the controlled run's configuration)
+    last = results["controlled"]
+    prof = device_profile(torch, lambda: launch.run(
+        "gated", traffic, harvest, cost, train, n, 1, seed, "cuda",
+        state=last.final_state[:1] + last.final_state[2:],
+        epoch_offset=epochs))
+    step_ms = sum(ms for name, ms in prof["all"] if "serve_step" in name)
+    print(f"profile serving epoch (gated, sustainable training, N={n:,}): "
+          f"wall {prof['wall_ms']:.3f} ms, device busy "
+          f"{prof['device_ms']:.3f} ms ({prof['device_share']:.1%}), "
+          f"{prof['kernels']} kernels, serve_step {step_ms:.4f} ms "
+          f"({step_ms / prof['device_ms']:.2%} of busy); top: "
+          + "; ".join(f"{nm} {ms:.3f} ms" for nm, ms in prof["top"][:5]),
+          flush=True)
+    return {"clients": n, "epochs": epochs, "runs": runs,
+            "launches": sum(r["launches"] for r in runs),
+            "admit_trace": trace, "card_vs_cpu": checks,
+            "run_controlled_trace": ta_,
+            "closed_loop_launches": loop_launches,
+            "profile": {k: v for k, v in prof.items() if k != "all"},
+            "profile_serve_step_ms": step_ms}
+
+
 def adam_step_bound(T, b1=0.9, b2=0.999):
     """Largest |m^| / sqrt(v^) of Adam within its first T steps
     (Cauchy-Schwarz on the moment sums; tests/test_torch_round.py)."""
@@ -1292,7 +1814,8 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda},"
           f" {torch.cuda.get_device_name(0)}; allow_tf32=False", flush=True)
     t0 = time.perf_counter()
-    seconds = build.build_all(["flash_attention", "fused_agg", "fleet_step"])
+    seconds = build.build_all(["flash_attention", "fused_agg", "fleet_step",
+                               "serve_step"])
     print(f"kernel library builds (in parallel, {time.perf_counter() - t0:.2f}"
           f" s): " + ", ".join(f"{n} " + (f"{t:.2f} s" if t is not None
                                          else "already built")
@@ -1306,6 +1829,7 @@ def main(argv=None) -> int:
     kernel = kernel_phase(torch, fa, args.seed)
     agg_kernel = fused_agg_phase(torch, agg, args.seed)
     fleet_kernel = fleet_step_phase(torch, fs, args.seed)
+    serve_kernel = serve_step_phase(torch, fs, args.seed)
     serve = serve_phase(torch, fa, args.seed, card)
     kernel["launches"] = serve["flash_launches"]
     train = train_phase(torch, fa, agg, args.seed, card)
@@ -1314,11 +1838,14 @@ def main(argv=None) -> int:
     fig1 = fig1_phase(torch, args.seed)
     fleet = fleet_phase(torch, fs, args.seed, card)
     fleet_kernel["launches"] = fleet["launches"]
+    serve_fleet = serve_fleet_phase(torch, fs, args.seed, card)
+    serve_kernel["launches"] = serve_fleet["launches"]
 
-    kernels = [kernel, agg_kernel, fleet_kernel]
+    kernels = [kernel, agg_kernel, fleet_kernel, serve_kernel]
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels, "serve": serve,
-              "train": train, "fig1": fig1, "fleet": fleet}
+              "train": train, "fig1": fig1, "fleet": fleet,
+              "serve_fleet": serve_fleet}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

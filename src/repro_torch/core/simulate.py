@@ -12,8 +12,12 @@ Algorithm 1 control flow.  Per round r:
 The second scheduling source is the energy closed loop
 (``energy=energy.fleet.EnergyLoop(...)``): each round's mask comes from
 stochastic harvests gated by battery state, and the history gains the
-loop's telemetry as ``energy_*`` keys.  An `EnergyLoop` with a server
-controller raises: the controller waits for ``ROADMAP.md`` Queue 1 item 17.
+loop's telemetry as ``energy_*`` keys.  With a server controller attached
+(``EnergyLoop(..., controller=energy.control.ServerController(...))``)
+each round reads the controller's local-step count ``T`` and per-client
+cycles ``E`` (``ctrl_T`` / ``ctrl_E_mean`` in the history) and feeds the
+round's telemetry back; the learning-rate schedule's offset advances by
+the realised cumulative local steps.
 """
 from __future__ import annotations
 
@@ -31,11 +35,6 @@ from repro_torch.core.round import FedConfig, local_update
 from repro_torch.optim import Optimizer
 
 PyTree = Any
-
-CONTROLLER_NOT_PORTED = ("simulate(..., energy=EnergyLoop(controller=...)): "
-                         "the server controller is not ported yet "
-                         "(ROADMAP.md Queue 1 item 17)")
-
 
 def _accepts_num_steps(batch_fn: Callable) -> bool:
     """True if ``batch_fn`` can take a third (num_steps) positional arg —
@@ -74,35 +73,44 @@ def simulate(loss_fn: Callable, optimizer: Optimizer, cfg: FedConfig,
     provider that accepts a third positional argument is called as
     ``(round, client, num_steps)``.  Client i's key in round r is
     ``fold_in(fold_in(rng, r), i)``.  ``energy`` (an
-    ``energy.fleet.EnergyLoop``) draws the masks from realised harvests.
+    ``energy.fleet.EnergyLoop``) draws the masks from realised harvests;
+    its ``controller``, if any, sets each round's T and E.
     """
-    if energy is not None:
-        if getattr(energy, "controller", None) is not None:
-            raise NotImplementedError(CONTROLLER_NOT_PORTED)
-        energy.reset()
     E = np.asarray(E)
     p = np.asarray(p)
     phase = cfg.phase_array()
+    ctrl = getattr(energy, "controller", None) if energy is not None else None
+    if energy is not None:
+        energy.reset()
     batch_takes_steps = _accepts_num_steps(batch_fn)
-    scale = scheduling.aggregation_scale(cfg.policy,
-                                         torch.as_tensor(E)).numpy()
-    T = cfg.local_steps
+    static_scale = scheduling.aggregation_scale(cfg.policy,
+                                                torch.as_tensor(E)).numpy()
 
     w = w0
     history: list[dict] = []
     t0 = time.time()
+    local_steps_done = 0   # realised cumulative local steps (LR offset)
     for r in range(num_rounds):
+        T = ctrl.T if ctrl is not None else cfg.local_steps
+        E_r = (np.asarray(ctrl.client_E(cfg.num_clients)) if ctrl is not None
+               else E)
+        scale = (scheduling.aggregation_scale(
+            cfg.policy, torch.as_tensor(E_r)).numpy() if ctrl is not None
+            else static_scale)
         if energy is not None:
-            mask, estats = energy.step(cfg.policy, cfg.seed, r, E, T,
+            mask, estats = energy.step(cfg.policy, cfg.seed, r, E_r, T,
                                        phase=phase)
         else:
             mask, estats = scheduling.participation_mask(
-                cfg.policy, cfg.seed, r, torch.as_tensor(E),
+                cfg.policy, cfg.seed, r, torch.as_tensor(E_r),
                 phase=phase).numpy(), None
         parts = np.nonzero(mask)[0]
         rec = {"round": r, "participants": int(len(parts))}
         if estats is not None:
             rec.update({f"energy_{k}": v for k, v in estats.items()})
+        if ctrl is not None:
+            rec["ctrl_T"] = T
+            rec["ctrl_E_mean"] = float(E_r.mean())
         if len(parts):
             acc = aggregation.zeros_like_fp32(w)
             losses = []
@@ -112,12 +120,15 @@ def simulate(loss_fn: Callable, optimizer: Optimizer, cfg: FedConfig,
                          else batch_fn(r, int(i)))
                 w_i, loss = local_update(loss_fn, optimizer, w, batch, key, T,
                                          micro_batches=cfg.micro_batches,
-                                         step_offset=r * T)
+                                         step_offset=local_steps_done)
                 coeff = float(p[i] * scale[i])
                 acc = aggregation.accumulate_client_delta(acc, w_i, w, coeff)
                 losses.append(float(loss))
             w = aggregation.apply_accumulated(w, acc, cfg.server_lr)
             rec["loss"] = float(np.mean(losses))
+        local_steps_done += T
+        if ctrl is not None and estats is not None:
+            ctrl.update(estats, cfg.num_clients)
         if eval_fn is not None and eval_every and \
                 ((r + 1) % eval_every == 0 or r == num_rounds - 1):
             rec.update({k: float(v) for k, v in eval_fn(w).items()})

@@ -1,8 +1,8 @@
 """The energy-harvesting subsystem of the port: stochastic arrivals, battery
 dynamics, device cost models, the fleet round step and the fleet-scale
 battery-gated scheduling simulator with its closed-loop hook for
-``core.simulate``.  The server controller (``energy.control``) waits for
-``ROADMAP.md`` Queue 1 item 17."""
+``core.simulate``, and the battery-aware server controller
+(``energy.control``)."""
 from repro_torch.energy.arrivals import (
     Bernoulli,
     CompoundPoisson,
@@ -17,6 +17,16 @@ from repro_torch.energy.arrivals import (
     truncated_poisson,
 )
 from repro_torch.energy.battery import BatteryConfig, absorb, drain, step
+from repro_torch.energy.control import (
+    AdmissionRule,
+    BudgetRule,
+    CadenceRule,
+    ControlBounds,
+    ControlState,
+    ServerController,
+    Telemetry,
+    run_controlled,
+)
 from repro_torch.energy.costs import (DEVICE_WATTS, JOULES_PER_BYTE_RADIO,
                                       JOULES_PER_FLOP, DecodeCostModel,
                                       DeviceCostModel, from_flops)
@@ -34,6 +44,8 @@ __all__ = [
     "Scaled", "Sum", "client_exponential", "client_keys", "client_randint",
     "client_uniform", "truncated_poisson",
     "BatteryConfig", "absorb", "drain", "step",
+    "AdmissionRule", "BudgetRule", "CadenceRule", "ControlBounds",
+    "ControlState", "ServerController", "Telemetry", "run_controlled",
     "DEVICE_WATTS", "JOULES_PER_BYTE_RADIO", "JOULES_PER_FLOP",
     "DecodeCostModel", "DeviceCostModel", "from_flops",
     "FLEET_POLICIES", "EnergyLoop", "FleetConfig", "FleetResult",

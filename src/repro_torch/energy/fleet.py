@@ -317,9 +317,9 @@ class EnergyLoop:
     `core.simulate`'s energy closed loop: the training driver asks for one
     battery-gated mask per round and the loop carries charge and process
     state between calls.  The same program as `simulate_fleet` (shared
-    round).  A ``controller`` is accepted as in the reference, but
-    `core.simulate` refuses it (the server controller waits for
-    ``ROADMAP.md`` Queue 1 item 17)."""
+    round).  A ``controller`` (`energy.control.ServerController`) closes
+    the loop on the server's side: `core.simulate` reads its T and E each
+    round and feeds the round's telemetry back."""
 
     def __init__(self, process, bat: battery_lib.BatteryConfig, cost,
                  threshold: float = 1.0, controller=None, device="cuda"):

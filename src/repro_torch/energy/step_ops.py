@@ -18,8 +18,11 @@ Everything that draws random numbers (the harvest, the SUSTAINABLE slot
 draw) stays outside the program and enters as a per-round buffer
 (``harvest``, ``want``).  Battery fields are bound by field name
 (``bat_capacity``, ``bat_leak``, ``bat_init_charge``) as 0-dim or (N,)
-float32 tensors.  The serving program and the unfused baseline wait for
-the serving slice (``ROADMAP.md`` Queue 1 item 18).
+float32 tensors; the serving program binds its cost, QoS, admission and
+training-load leaves the same way (``cost_joules_per_decode_step``,
+``qos_prompt_tokens``, ``pol_hi``, ``train_round_cost``, ...).  The
+unfused baseline (``UnfusedRunner``) is a benchmark yardstick that no
+simulator runs; it is not ported.
 """
 from __future__ import annotations
 
@@ -66,6 +69,9 @@ class StepProgram:
     group_totals: tuple[tuple[str, str], ...] = ()
     group_averages: tuple[tuple[str, str], ...] = ()
     hists: tuple[hist_lib.HistSpec, ...] = ()
+    # the choices inside op closures that the reads do not show (the serve
+    # program's admission rule and training gate), as (name, value) pairs
+    params: tuple[tuple[str, str], ...] = ()
 
     def input_names(self) -> tuple[str, ...]:
         """Buffers the program consumes but never writes, in first-use
@@ -92,7 +98,8 @@ class StepProgram:
         return (self.name, tuple((op.name, op.reads, op.writes)
                                  for op in self.ops),
                 self.state_out, self.emit, self.totals, self.averages,
-                self.group_totals, self.group_averages, self.hists)
+                self.group_totals, self.group_averages, self.hists,
+                self.params)
 
 
 def apply_ops(ops: tuple[StepOp, ...], env: dict) -> dict:
@@ -212,6 +219,202 @@ def fleet_step_program(bat: battery_lib.BatteryConfig, policy: Policy | str,
         group_averages=(("group_frac_depleted", "depleted"),) if grouped
         else (),
         hists=hist_lib.FLEET_HIST_SPECS if hist else ())
+    return program, env
+
+
+# admission modes; mirrors `serve.qos` (not imported: the energy package
+# must not pull in the serve package when it loads)
+_SHED, _DEGRADED, _FULL = 0, 1, 2
+COST_FIELDS = ("joules_per_prefill_token", "joules_per_decode_step",
+               "joules_per_response_upload")
+TRAIN_FIELDS = ("E", "round_cost", "threshold")
+
+
+def _bind(prefix: str, obj, fields: tuple[str, ...], env: dict, device=None
+          ) -> tuple[str, ...]:
+    """Put ``obj``'s fields into ``env`` as ``{prefix}_{field}`` tensors
+    (float32 unless already a tensor of another type, as ``TrainLoad.E``)
+    and return the names."""
+    names = tuple(f"{prefix}_{f}" for f in fields)
+    for nm, f in zip(names, fields):
+        v = getattr(obj, f)
+        if not (isinstance(v, torch.Tensor) and not v.is_floating_point()):
+            v = torch.as_tensor(v, dtype=torch.float32)
+        env[nm] = v.to(device) if device is not None else v
+    return names
+
+
+def request_costs(e: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """(full, short) joules per request from the bound QoS and cost leaves:
+    ``prompt * jpp + tokens * jpd + upload`` with the decode term fused,
+    ``fma(tokens, jpd, prompt * jpp) + upload``, as the reference's jitted
+    serving scan computes it where it prices both grades in one pass (the
+    product ``prompt * jpp`` is then shared and stays rounded)."""
+    pre = e["qos_prompt_tokens"] * e["cost_joules_per_prefill_token"]
+    jpd = e["cost_joules_per_decode_step"]
+    up = e["cost_joules_per_response_upload"]
+    full = battery_lib.fma_f32(e["qos_full_decode_tokens"], jpd, pre) + up
+    short = battery_lib.fma_f32(e["qos_short_decode_tokens"], jpd, pre) + up
+    return full, short
+
+
+def serve_step_program(bat: battery_lib.BatteryConfig, cost, qos, policy,
+                       train, hist: bool = False, device=None
+                       ) -> tuple[StepProgram, dict]:
+    """The serving epoch's step: absorb -> price -> admission -> serve-drain
+    -> ledger -> training gate and drain -> token and total accounting.
+
+    Returns ``(program, env)`` with the battery, cost, QoS, admission policy
+    and `TrainLoad` fields bound; the caller adds the ``admit`` scale and
+    the epoch's ``charge`` / ``harvest`` / ``requests`` (+ ``twant`` for a
+    SUSTAINABLE training load, + the carried ``streak`` with
+    ``hist=True``).  ``program.params`` names the admission rule
+    (``agnostic``, ``battery_gated``, ``charge_gated``, or the policy's
+    class name for any other) and the training gate.
+
+    Rounding follows the reference's jitted scan where XLA's CPU backend
+    contracts a product into an add: the absorb (as the fleet program) and
+    ``available - served * per_req``; the prices see `request_costs`.
+    ``consumed_serve + consumed_train`` is not contracted there, nor here.
+    """
+    env: dict = {}
+    bat_names = _bind_battery(bat, env, device)
+    cost_names = _bind("cost", cost, COST_FIELDS, env, device)
+    qos_names = _bind("qos", qos, type(qos).FIELDS, env, device)
+    pol_cls = type(policy)
+    pol_fields = tuple(getattr(pol_cls, "FIELDS", ()))
+    pol_names = _bind("pol", policy, pol_fields, env, device)
+    # a subclass (which may decide otherwise) is named by its own class
+    admission = pol_cls.__dict__.get("KIND", pol_cls.__name__)
+    ops = []
+
+    def absorb_fn(e):
+        available, aux = battery_lib.absorb_fields(
+            e["bat_capacity"], e["bat_leak"], e["charge"], e["harvest"])
+        return available, aux["leaked"], aux["overflow"]
+
+    ops.append(StepOp("absorb", ("charge", "harvest") + bat_names,
+                      ("available", "leaked", "overflow"), absorb_fn))
+
+    def price_fn(e):
+        shape = e["requests"].shape
+        full, short = request_costs(e)
+        return full.expand(shape), short.expand(shape)
+
+    ops.append(StepOp("price", ("requests",) + qos_names + cost_names,
+                      ("full_req", "short_req"), price_fn))
+
+    def admit_fn(e):
+        pol = pol_cls(**{f: e[nm] for f, nm in zip(pol_fields, pol_names)})
+        mode = pol.scaled(e["admit"]).decide(
+            e["available"], e["requests"] * e["full_req"],
+            e["requests"] * e["short_req"])
+        return (mode,)
+
+    ops.append(StepOp("admission",
+                      ("available", "requests", "full_req", "short_req",
+                       "admit") + pol_names, ("mode",), admit_fn))
+
+    def serve_drain_fn(e):
+        per_req = torch.where(e["mode"] == _FULL, e["full_req"],
+                              e["short_req"])
+        admitted = torch.where(e["mode"] > _SHED, e["requests"], 0.0)
+        affordable = torch.floor(e["available"]
+                                 / torch.clamp_min(per_req, 1e-20))
+        served = torch.minimum(admitted, affordable)
+        consumed_serve = served * per_req
+        charge_serve = battery_lib.fma_f32(-served, per_req, e["available"])
+        return per_req, admitted, served, consumed_serve, charge_serve
+
+    ops.append(StepOp("serve_drain",
+                      ("mode", "requests", "available", "full_req",
+                       "short_req"),
+                      ("per_req", "admitted", "served", "consumed_serve",
+                       "charge_serve"), serve_drain_fn))
+
+    def ledger_fn(e):
+        served_full = torch.where(e["mode"] == _FULL, e["served"], 0.0)
+        served_short = torch.where(e["mode"] == _DEGRADED, e["served"], 0.0)
+        shed = torch.where(e["mode"] == _SHED, e["requests"], 0.0)
+        missed = e["admitted"] - e["served"]
+        depleted = (e["available"] < e["short_req"]).float()
+        return served_full, served_short, shed, missed, depleted
+
+    ops.append(StepOp("ledger",
+                      ("mode", "requests", "admitted", "served", "available",
+                       "short_req"),
+                      ("served_full", "served_short", "shed", "missed",
+                       "depleted"), ledger_fn))
+
+    if train is not None:
+        train_names = _bind("train", train, TRAIN_FIELDS, env, device)
+        tpol = Policy(train.policy)
+        if tpol not in (Policy.SUSTAINABLE, Policy.THRESHOLD, Policy.GREEDY,
+                        Policy.ALWAYS):
+            raise ValueError(f"training policy {tpol.value!r} has no "
+                             f"battery-gated variant")
+        twant_reads = ("twant",) if tpol == Policy.SUSTAINABLE else ()
+
+        def train_fn(e):
+            rc = e["train_round_cost"]
+            feasible = e["charge_serve"] >= rc
+            if tpol == Policy.SUSTAINABLE:
+                want = e["twant"]
+            elif tpol == Policy.THRESHOLD:
+                want = (e["charge_serve"] >= e["train_threshold"] * rc).float()
+            else:  # GREEDY / ALWAYS
+                want = torch.ones_like(e["charge_serve"])
+            tmask = want * feasible.float()
+            consumed_train = tmask * rc
+            charge_out = battery_lib.drain(e["charge_serve"], consumed_train)
+            return tmask, consumed_train, charge_out
+
+        ops.append(StepOp("train_gate",
+                          ("charge_serve",) + twant_reads + train_names,
+                          ("tmask", "consumed_train", "charge_out"),
+                          train_fn))
+        gate = ("greedy" if tpol == Policy.ALWAYS else tpol.value)
+    else:
+        def train_fn(e):
+            zero = torch.zeros_like(e["charge_serve"])
+            return zero, zero, e["charge_serve"]
+
+        ops.append(StepOp("train_gate", ("charge_serve",),
+                          ("tmask", "consumed_train", "charge_out"),
+                          train_fn))
+        gate = "none"
+
+    def tokens_fn(e):
+        return (e["served_full"] * e["qos_full_decode_tokens"]
+                + e["served_short"] * e["qos_short_decode_tokens"],)
+
+    ops.append(StepOp("tokens", ("served_full", "served_short") + qos_names,
+                      ("tokens",), tokens_fn))
+
+    def total_fn(e):
+        return (e["consumed_serve"] + e["consumed_train"],)
+
+    ops.append(StepOp("consumed_total", ("consumed_serve", "consumed_train"),
+                      ("consumed_total",), total_fn))
+
+    if hist:
+        ops += _hist_ops("consumed_total")
+    program = StepProgram(
+        name="serve_step", ops=tuple(ops),
+        state_out=("charge_out", "streak_out") if hist else ("charge_out",),
+        emit=("mode",),
+        totals=(("participants", "tmask"), ("harvested", "harvest"),
+                ("consumed", "consumed_total"), ("leaked", "leaked"),
+                ("overflowed", "overflow"), ("offered", "requests"),
+                ("served_full", "served_full"),
+                ("served_short", "served_short"), ("shed", "shed"),
+                ("deadline_missed", "missed"), ("tokens_decoded", "tokens"),
+                ("consumed_serve", "consumed_serve"),
+                ("consumed_train", "consumed_train")),
+        averages=(("mean_charge", "charge_out"),
+                  ("frac_depleted", "depleted")),
+        hists=hist_lib.SERVE_HIST_SPECS if hist else (),
+        params=(("admission", admission), ("train", gate)))
     return program, env
 
 

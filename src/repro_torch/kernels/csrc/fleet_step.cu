@@ -18,8 +18,8 @@
 // spend_frac and streak' (exact integer counts).
 //
 // Replaces the TPU kernel repro/kernels/fleet_step.py::fused_step (body
-// _make_kernel) for the fleet program of repro/energy/step_ops.py; the
-// serving program gets its own instantiation later.  It computes the same
+// _make_kernel) for the fleet program of repro/energy/step_ops.py;
+// csrc/serve_step.cu runs the serve program.  It computes the same
 // function as the port's plain version (repro_torch.energy.step_ops.
 // run_step) and as the reference's jitted run_step_lax:
 // * Every float operation is written as __fmul_rn / __fadd_rn / __fsub_rn /

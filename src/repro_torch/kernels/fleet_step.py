@@ -1,21 +1,27 @@
-"""The energy fleet's round step: the Hopper kernel's wrapper and its plain
-PyTorch version.
+"""The fleet step: the Hopper kernels' wrappers and their plain PyTorch
+version.
 
-Port of ``repro/kernels/fleet_step.py`` (``fused_step``) for the fleet
-program that ``energy.step_ops.fleet_step_program`` builds.  A
-hand-written kernel cannot run the program's op closures, so
-``csrc/fleet_step.cu`` is written for that program: one kernel templated
-on the gate (SUSTAINABLE, THRESHOLD, GREEDY/ALWAYS), histograms, groups
-and mask output.  ``fleet_step_cuda`` checks that the program it is handed
-is that program (ops, reads, writes, state, emits and stat layout) and
-raises for any other.
+Port of ``repro/kernels/fleet_step.py`` (``fused_step``) for the two
+programs of ``energy.step_ops``: the training fleet's round
+(``fleet_step_program``) and the serving epoch (``serve_step_program``).
+A hand-written kernel cannot run the program's op closures, so each
+program has its kernel: ``csrc/fleet_step.cu``, templated on the gate
+(SUSTAINABLE, THRESHOLD, GREEDY/ALWAYS), histograms, groups and mask
+output; and ``csrc/serve_step.cu``, templated on the admission rule
+(agnostic, battery-gated, charge-gated), the training gate (none,
+SUSTAINABLE, THRESHOLD, GREEDY/ALWAYS) and histograms, with the mode
+output a runtime flag.  Each wrapper checks that the program it is handed
+is one of those programs (ops, reads, writes, state, emits, stat layout
+and the closures' choices) and raises for any other.
 
-* ``fleet_step_cuda`` launches the kernel and its one-block reduction on
-  PyTorch's current stream; CUDA tensors only, no fallback.  Per-client
-  outputs are bitwise equal to the plain version on any inputs.  Stats are
-  bitwise equal on dyadic inputs and within ``kernel_tolerance`` of the
-  exact sums otherwise; histogram counts are exact.  ``.launches`` counts
-  its calls (one per round).
+* ``fleet_step_cuda`` launches a kernel and its one-block reduction on
+  PyTorch's current stream; CUDA tensors only, no fallback.  A serve
+  program goes to ``serve_step_cuda``.  Per-client outputs are bitwise
+  equal to the plain version on any inputs.  Stats are bitwise equal on
+  dyadic inputs and within ``kernel_tolerance`` of the exact sums
+  otherwise; histogram counts are exact.  ``fleet_step_cuda.launches`` and
+  ``serve_step_cuda.launches`` count the launches of each kernel (one per
+  round or epoch).
 * ``fleet_step_plain`` is ``step_ops.run_step``: what the CPU runs.
 
 Both take ``env`` holding every buffer of ``program.input_names()`` plus
@@ -46,6 +52,16 @@ REDUCE_LANES = 32              # lanes that add one column over the blocks
 MAX_GROUPS = 64
 NBINS = sum(s.bins for s in hist_lib.FLEET_HIST_SPECS)
 GATES = {Policy.SUSTAINABLE: 0, Policy.THRESHOLD: 1, Policy.GREEDY: 2}
+# csrc/serve_step.cu's template choices and the order of its inputs
+ADMISSIONS = {"agnostic": 0, "battery_gated": 1, "charge_gated": 2}
+TRAINS = {"none": 0, "sustainable": 1, "threshold": 2, "greedy": 3}
+SERVE_INPUTS = ("charge", "harvest", "requests", "valid", "bat_capacity",
+                "bat_leak", "cost_joules_per_prefill_token",
+                "cost_joules_per_decode_step",
+                "cost_joules_per_response_upload", "qos_prompt_tokens",
+                "qos_full_decode_tokens", "qos_short_decode_tokens",
+                "pol_hi", "pol_lo", "admit", "train_round_cost",
+                "train_threshold", "twant", "streak")
 U32 = 2.0 ** -24               # float32 unit roundoff
 
 
@@ -154,6 +170,11 @@ def fleet_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
     (state, emits, stats) as new tensors on the card.  Raises on a program
     the kernel does not run, on inputs it does not take and on a launch
     error."""
+    if program.name == "serve_step":
+        if num_groups:
+            raise ValueError("fleet_step_cuda: the serve program has no "
+                             "group stats")
+        return serve_step_cuda(program, env, n=n, emit=emit)
     gate, hist = program_variant(program, num_groups)
     G = num_groups or 0
     if n < 1 or not 0 <= G <= MAX_GROUPS:
@@ -219,6 +240,138 @@ def fleet_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
 
 
 fleet_step_cuda.launches = 0
+
+
+@functools.cache
+def _serve_signatures() -> dict:
+    """{program signature: (admission, train, hist)} of every serve program
+    csrc/serve_step.cu runs."""
+    from repro_torch.energy.costs import DecodeCostModel
+    from repro_torch.serve import admission
+    from repro_torch.serve.fleet_serve import TrainLoad
+    from repro_torch.serve.qos import QoSSpec
+
+    policies = (admission.EnergyAgnostic(), admission.BatteryGated.create(1),
+                admission.ChargeGated.create(1))
+    trains = [None] + [TrainLoad.create([1], 1.0, policy=p) for p in
+                       (Policy.SUSTAINABLE, Policy.THRESHOLD, Policy.GREEDY,
+                        Policy.ALWAYS)]
+    table = {}
+    for pol in policies:
+        for train in trains:
+            for hist in (False, True):
+                program, _ = step_ops.serve_step_program(
+                    battery_lib.BatteryConfig(), DecodeCostModel(1.0, 1.0),
+                    QoSSpec(), pol, train, hist=hist)
+                p = dict(program.params)
+                table[program.signature()] = (ADMISSIONS[p["admission"]],
+                                              TRAINS[p["train"]], hist)
+    return table
+
+
+def serve_program_variant(program: step_ops.StepProgram
+                          ) -> tuple[int, int, bool]:
+    """(admission, train, hist) of the csrc/serve_step.cu instantiation
+    that runs ``program``; raises if ``program`` is not a serve program the
+    kernel implements."""
+    found = _serve_signatures().get(program.signature())
+    if found is None:
+        raise ValueError(f"serve_step kernel: program {program.name!r} (ops "
+                         f"{[op.name for op in program.ops]}, params "
+                         f"{program.params}) is not one that "
+                         f"energy.step_ops.serve_step_program builds for an "
+                         f"admission rule of serve.admission; the kernel "
+                         f"runs only those")
+    return found
+
+
+@functools.cache
+def _serve_kernel():
+    lib = build.load("serve_step")
+    fn = lib.serve_step
+    ptr = ctypes.c_void_p
+    fn.argtypes = ([ptr] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ptr])
+    fn.restype = ctypes.c_int
+    lib.serve_step_error_string.argtypes = [ctypes.c_int]
+    lib.serve_step_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def serve_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
+                    emit: bool = False):
+    """Launch the serve program's Hopper kernel for one epoch over ``n``
+    clients; returns (state, emits, stats) as new tensors on the card.
+    Raises on a program the kernel does not run, on inputs it does not take
+    and on a launch error."""
+    adm, train, hist = serve_program_variant(program)
+    if n < 1:
+        raise ValueError(f"serve_step_cuda: n={n} must be at least 1")
+    charge = env["charge"]
+    device = charge.device
+    if device.type != "cuda":
+        raise ValueError(f"serve_step_cuda: charge is on {device}; the kernel "
+                         f"takes CUDA tensors")
+    f32 = torch.float32
+    reads = set(program.input_names()) | {"valid"}
+    ptrs, strides, keep = [], [], []
+    for nm in SERVE_INPUTS:
+        if nm in reads:
+            t, s = _operand(env, nm, n, f32, device)
+            keep.append(t)
+            ptrs.append(t.data_ptr())
+            strides.append(s)
+        else:                       # not read by this instantiation
+            ptrs.append(charge.data_ptr())
+            strides.append(0)
+    in_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    stride_arr = (ctypes.c_longlong * len(strides))(*strides)
+
+    blocks = -(-n // TILE)
+    F = len(program.totals) + len(program.averages) + 1
+    H = NBINS if hist else 0
+    charge_out = torch.empty(n, dtype=f32, device=device)
+    streak_out = torch.empty(n if hist else 1, dtype=f32, device=device)
+    mode_out = torch.empty(n if emit else 1, dtype=torch.int32,
+                           device=device)
+    partials = torch.empty((F, blocks), dtype=f32, device=device)
+    counts = torch.empty((max(H, 1), blocks), dtype=torch.int32,
+                         device=device)
+    sums = torch.empty(F + H, dtype=f32, device=device)
+    stats_buf = torch.empty(F - 1 + H, dtype=f32, device=device)
+    lib = _serve_kernel()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.serve_step(in_arr, stride_arr, charge_out.data_ptr(),
+                         streak_out.data_ptr(), mode_out.data_ptr(),
+                         partials.data_ptr(), counts.data_ptr(),
+                         sums.data_ptr(), stats_buf.data_ptr(), n, adm,
+                         train, int(hist), int(emit), stream)
+    if err != 0:
+        msg = lib.serve_step_error_string(err).decode()
+        raise RuntimeError(f"serve_step kernel launch failed ({err}: {msg}) "
+                           f"for n={n}, admission={adm}, train={train}, "
+                           f"hist={hist}")
+    serve_step_cuda.launches += 1
+    state = {"charge_out": charge_out}
+    if hist:
+        state["streak_out"] = streak_out
+    emits = {"mode": mode_out} if emit else {}
+    stats = {k: stats_buf[v] for k, v in stat_layout(program, None).items()}
+    return state, emits, stats
+
+
+serve_step_cuda.launches = 0
+
+
+def kernel_bytes(program: step_ops.StepProgram, env: dict, n: int, *,
+                 emit: bool = False) -> int:
+    """The bytes a kernel of ``program`` must move for one call:
+    ``step_ops.bytes_moved``'s fused count, less the training load's
+    cycles ``train_E``, which the serve program's training gate lists
+    among its reads (as the reference's does) but no op computes with."""
+    if "train_E" in env:
+        env = dict(env, train_E=torch.zeros(()))
+    return step_ops.bytes_moved(program, env, n, emit=emit)["fused_bytes"]
 
 
 def reduction_depth(n: int) -> int:

@@ -1,5 +1,6 @@
 """Naive oracles for the kernels (port of the JAX package's ``kernels/ref.py``
-for the kernels ported so far: attention, aggregation, the fleet step)."""
+for the kernels ported so far: attention, aggregation, the fleet step's
+fleet and serve programs)."""
 from __future__ import annotations
 
 import torch
@@ -78,3 +79,74 @@ def fleet_step_reference(charge, harvest, round_cost, valid, *, capacity,
         "frac_depleted": _masked_average(depleted, valid),
     }
     return charge_out, mask, stats
+
+
+def serve_step_reference(charge, harvest, requests, valid, *, capacity,
+                         leak=0.0, full_req, short_req, full_tokens,
+                         short_tokens, hi=None, lo=None, charge_gated=False,
+                         train_cost=None, train_want=None):
+    """One battery-gated serving epoch, written out longhand (independent of
+    ``energy.step_ops``).  ``hi`` / ``lo`` are the admission thresholds
+    (None: energy-agnostic, everything FULL); ``charge_gated`` compares them
+    with the charge instead of the epoch's offered cost.  ``train_cost``
+    adds the competing training drain on the charge left after serving,
+    with desire mask ``train_want`` (None: 1s).  The absorb and the serve
+    drain are fused multiply-adds, as in the reference's jitted serving
+    scan.  Returns ``(charge_out, mode, stats)``."""
+    from repro_torch.energy.battery import absorb_fields, fma_f32
+
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)
+    charge, harvest, requests = f32(charge), f32(harvest), f32(requests)
+    capacity, leak = f32(capacity), f32(leak)
+    full_req, short_req = f32(full_req), f32(short_req)
+    available, aux = absorb_fields(capacity, leak, charge, harvest)
+    leaked, overflow = aux["leaked"], aux["overflow"]
+    if hi is None:
+        mode = torch.full(available.shape, 2, dtype=torch.int32)
+    elif charge_gated:
+        mode = torch.where(available >= f32(hi), 2,
+                           torch.where(available >= f32(lo), 1, 0))
+    else:
+        mode = torch.where(available >= f32(hi) * (requests * full_req), 2,
+                           torch.where(available >= f32(lo)
+                                       * (requests * short_req), 1, 0))
+    mode = mode.to(torch.int32)
+    per_req = torch.where(mode == 2, full_req, short_req)
+    admitted = torch.where(mode > 0, requests, 0.0)
+    served = torch.minimum(admitted, torch.floor(
+        available / torch.clamp_min(per_req, 1e-20)))
+    consumed_serve = served * per_req
+    charge_out = fma_f32(-served, per_req, available)
+    served_full = torch.where(mode == 2, served, 0.0)
+    served_short = torch.where(mode == 1, served, 0.0)
+    shed = torch.where(mode == 0, requests, 0.0)
+    missed = admitted - served
+    depleted = (available < short_req).float()
+    if train_cost is not None:
+        want = (torch.ones_like(charge_out) if train_want is None
+                else f32(train_want))
+        tmask = want * (charge_out >= f32(train_cost)).float()
+        consumed_train = tmask * f32(train_cost)
+        charge_out = charge_out - consumed_train
+    else:
+        tmask = torch.zeros_like(charge_out)
+        consumed_train = torch.zeros_like(charge_out)
+    tokens = served_full * f32(full_tokens) + served_short * f32(short_tokens)
+    stats = {
+        "participants": _masked_total(tmask, valid),
+        "harvested": _masked_total(harvest, valid),
+        "consumed": _masked_total(consumed_serve + consumed_train, valid),
+        "leaked": _masked_total(leaked, valid),
+        "overflowed": _masked_total(overflow, valid),
+        "mean_charge": _masked_average(charge_out, valid),
+        "frac_depleted": _masked_average(depleted, valid),
+        "offered": _masked_total(requests, valid),
+        "served_full": _masked_total(served_full, valid),
+        "served_short": _masked_total(served_short, valid),
+        "shed": _masked_total(shed, valid),
+        "deadline_missed": _masked_total(missed, valid),
+        "tokens_decoded": _masked_total(tokens, valid),
+        "consumed_serve": _masked_total(consumed_serve, valid),
+        "consumed_train": _masked_total(consumed_train, valid),
+    }
+    return charge_out, mode, stats

@@ -1,0 +1,366 @@
+"""Fleet-scale battery-gated *serving* simulator (port of the JAX package's
+``serve/fleet_serve.py``).
+
+The training-side dual of `energy.fleet.simulate_fleet`: the whole fleet's
+state — battery charge (N,), traffic-process state, harvest-process state
+— lives on one device, and an epoch is a few whole-fleet tensor operations
+and one step-program launch.  Per epoch t:
+
+    ekey             = fold_in(key, t)
+    harvest, hstate  = harvest.sample(fold_in(ekey, 0), t, hstate)
+    requests, tstate = traffic.sample(fold_in(ekey, 1), t, tstate)
+    twant            = sustainable_schedule(seed, t, train.E)  # SUSTAINABLE
+    charge, mode, stats = fleet_step(serve program, env)      # one launch
+
+The serve program (`energy.step_ops.serve_step_program`) absorbs the
+harvest, prices the grades, decides each client's admission mode, serves
+``min(admitted, floor(available / per_request_cost))`` requests, books the
+ledger and then lets an optional `TrainLoad` drain what serving left.  It
+runs on the card as the serve program of the ``fleet_step`` kernel and on
+the CPU as its plain version (``kernels.ops.fleet_step``: the device
+picks, there is no ``backend=``).  Request conservation holds by
+construction::
+
+    offered == served_full + served_short + shed + deadline_missed
+
+Telemetry per epoch (each an (E,) array in ``ServeResult.stats``): the
+energy seven of the fleet simulator plus offered, served_full,
+served_short, shed, deadline_missed, tokens_decoded, consumed_serve and
+consumed_train; with ``hist=True`` the (E, bins) histogram counts.
+
+Differences from the reference: epochs are a Python loop (no ``jit``, no
+``use_jit``); ``mesh=`` raises, naming ``ROADMAP.md`` Queue 1 item 25,
+``obs=`` item 22, and `run_serve_controlled`'s ``checkpoint=`` /
+``resume=`` items 23-24; ``device`` picks the card (default) or the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.core import scheduling
+from repro_torch.core.scheduling import Policy
+from repro_torch.device import resolve_device
+from repro_torch.energy import battery as battery_lib
+from repro_torch.energy import step_ops
+from repro_torch.energy.arrivals import map_tensors
+from repro_torch.energy.costs import DecodeCostModel, DeviceCostModel
+from repro_torch.energy.fleet import _pad_clients, _slice_clients
+from repro_torch.kernels import ops
+from repro_torch.serve.qos import QoSSpec
+
+
+MESH_NOT_PORTED = ("simulate_serve(mesh=...): the multi-GPU fleet is not "
+                   "ported yet (ROADMAP.md Queue 1 item 25)")
+OBS_NOT_PORTED = ("obs=: observability is not ported yet (ROADMAP.md "
+                  "Queue 1 item 22)")
+CHECKPOINT_NOT_PORTED = ("checkpoint= / resume=: run checkpoints are not "
+                         "ported yet (ROADMAP.md Queue 1 items 23-24)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Serving-simulation hyperparameters."""
+
+    num_clients: int
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TrainLoad:
+    """A federated-training load sharing the serving fleet's batteries: the
+    battery-gated training mask (``policy`` over ``E``) is evaluated on the
+    charge left after serving and drains ``round_cost`` joules per
+    participant per epoch (one epoch doubles as one global round)."""
+
+    E: torch.Tensor            # (N,) int32 renewal cycles
+    round_cost: torch.Tensor   # (N,) float32 joules per participated round
+    threshold: torch.Tensor = 1.0   # THRESHOLD policy margin
+    policy: Policy = Policy.SUSTAINABLE
+
+    @classmethod
+    def create(cls, E, cost, local_steps: int = 5, threshold: float = 1.0,
+               policy: Policy = Policy.SUSTAINABLE, device=None
+               ) -> "TrainLoad":
+        """Price a `DeviceCostModel` (or joules, scalar or (N,)) at
+        ``local_steps``; a scalar cost is expanded to (N,) (stride 0)."""
+        E = torch.as_tensor(np.asarray(E) if not isinstance(E, torch.Tensor)
+                            else E, device=device).to(torch.int32)
+        if isinstance(cost, DeviceCostModel):
+            cost = cost.round_cost(local_steps)
+        round_cost = torch.as_tensor(cost, dtype=torch.float32,
+                                     device=E.device).expand(E.shape)
+        return cls(E=E, round_cost=round_cost,
+                   threshold=torch.tensor(threshold, dtype=torch.float32,
+                                          device=E.device),
+                   policy=Policy(policy))
+
+
+@dataclasses.dataclass
+class ServeResult:
+    stats: dict[str, np.ndarray]               # each (E,) (or (E, bins))
+    final_charge: torch.Tensor                 # (N,)
+    modes: torch.Tensor | None = None          # (E, N) int32 when recorded
+    final_tstate: Any = None                   # traffic state after E epochs
+    final_hstate: Any = None                   # harvest state after E epochs
+    final_streak: torch.Tensor | None = None   # (N,) with hist telemetry
+
+    @property
+    def final_state(self):
+        """(charge, traffic state, harvest state) — or (charge, streak,
+        traffic state, harvest state) after a hist run — to continue the
+        horizon through ``simulate_serve(state=, epoch_offset=)``."""
+        if self.final_streak is not None:
+            return (self.final_charge, self.final_streak, self.final_tstate,
+                    self.final_hstate)
+        return self.final_charge, self.final_tstate, self.final_hstate
+
+    def _rate(self, key):
+        offered = np.maximum(np.asarray(self.stats["offered"], np.float64),
+                             1e-12)
+        return np.asarray(self.stats[key], np.float64) / offered
+
+    @property
+    def shed_rate(self):
+        """(E,) fraction of offered requests refused up front."""
+        return self._rate("shed")
+
+    @property
+    def deadline_miss_rate(self):
+        """(E,) fraction of offered requests admitted but unaffordable."""
+        return self._rate("deadline_missed")
+
+    @property
+    def served_rate(self):
+        """(E,) fraction of offered requests answered (either grade)."""
+        return self._rate("served_full") + self._rate("served_short")
+
+    @property
+    def joules_per_token(self):
+        """Serving joules per generated token over the horizon."""
+        toks = float(np.asarray(self.stats["tokens_decoded"]).sum())
+        return float(np.asarray(self.stats["consumed_serve"]).sum()) \
+            / max(toks, 1e-12)
+
+
+def _fields_on(obj, fields, device):
+    """A copy of a cost model or QoS spec with every field a float32 tensor
+    on ``device`` (0-dim or (N,)), so padding and the kernel see tensors."""
+    return dataclasses.replace(obj, **{
+        f: battery_lib.as_field(getattr(obj, f), device) for f in fields})
+
+
+class _Epoch:
+    """One serving epoch: the per-client draws, then one ``fleet_step`` on
+    the serve program (kernel on the card, plain version on the CPU)."""
+
+    def __init__(self, traffic, harvest, bat, cost, qos, policy, train,
+                 valid, seed: int, admit: float, hist: bool, emit: bool,
+                 device):
+        self.traffic, self.harvest, self.train = traffic, harvest, train
+        self.seed, self.hist, self.emit = seed, hist, emit
+        self.base_key = prng.PRNGKey(seed, device)
+        self.program, self.env = step_ops.serve_step_program(
+            bat, cost, qos, policy, train, hist=hist, device=device)
+        self.env.update(valid=valid, admit=torch.tensor(
+            float(admit), dtype=torch.float32, device=device))
+        self.sustainable = (train is not None
+                            and Policy(train.policy) == Policy.SUSTAINABLE)
+        self.n = valid.shape[0]
+
+    def __call__(self, carry, t: int):
+        if self.hist:
+            charge, streak, tstate, hstate = carry
+        else:
+            charge, tstate, hstate = carry
+        ekey = prng.fold_in(self.base_key, t)
+        harvest, hstate = self.harvest.sample(prng.fold_in(ekey, 0), t,
+                                              hstate)
+        requests, tstate = self.traffic.sample(prng.fold_in(ekey, 1), t,
+                                               tstate)
+        env = dict(self.env, charge=charge, harvest=harvest,
+                   requests=requests.to(torch.float32))
+        if self.hist:
+            env["streak"] = streak
+        if self.sustainable:
+            env["twant"] = scheduling.sustainable_schedule(
+                self.seed, t, self.train.E, None)
+        state, emits, stats = ops.fleet_step(self.program, env, n=self.n,
+                                             emit=self.emit)
+        carry = ((state["charge_out"], state["streak_out"], tstate, hstate)
+                 if self.hist else (state["charge_out"], tstate, hstate))
+        return carry, emits.get("mode"), stats
+
+
+def simulate_serve(traffic, harvest, bat: battery_lib.BatteryConfig,
+                   cost: DecodeCostModel, qos: QoSSpec, policy,
+                   cfg: ServeConfig, num_epochs: int, *,
+                   train: TrainLoad | None = None, admit: float = 1.0,
+                   record_modes: bool = False, mesh=None,
+                   pad_to: int | None = None, state=None,
+                   epoch_offset: int = 0, obs=None, hist: bool = False,
+                   device="cuda") -> ServeResult:
+    """Simulate ``num_epochs`` serving epochs of battery-gated admission for
+    the whole fleet on ``device``.
+
+    Args:
+      traffic: request process (`serve.traffic`) sized to the fleet.
+      harvest: energy-arrival process (`energy.arrivals`).
+      bat: `BatteryConfig` (scalar or per-client fields).
+      cost: `DecodeCostModel` pricing requests.
+      qos: `QoSSpec` token budgets of the full and degraded grades.
+      policy: admission policy (`serve.admission`).
+      cfg: `ServeConfig`.
+      num_epochs: E.
+      train: optional `TrainLoad` competing for the same batteries
+        (drained after serving each epoch).
+      admit: the admission-threshold scale (the server controller's knob).
+      record_modes: also return the (E, N) admission modes (O(E N)
+        memory).
+      pad_to: pad the fleet to this width (>= N) with copies of the last
+        client, excluded from the telemetry by ``valid``; results are those
+        of the unpadded fleet.
+      state: ``(charge, traffic_state, harvest_state)`` (or ``(charge,
+        streak, traffic_state, harvest_state)`` with ``hist``) to resume
+        from, e.g. a previous chunk's ``ServeResult.final_state``.
+      epoch_offset: global index of the first epoch, so chunked runs keep
+        the RNG stream and the diurnal phase of an unchunked horizon.
+      hist: the fixed-bin histograms ``hist_soc``, ``hist_spend`` (over the
+        combined serve + train drain), ``hist_streak`` (exact counts),
+        carrying the per-client consecutive-depleted streak.
+      device: where the fleet lives; "cuda" (default) runs each epoch's
+        step on the ``fleet_step`` kernel's serve program, "cpu" on its
+        plain version.
+
+    Returns:
+      `ServeResult` with per-epoch telemetry as host numpy arrays.
+    """
+    if mesh is not None:
+        raise NotImplementedError(MESH_NOT_PORTED)
+    if obs is not None:
+        raise NotImplementedError(OBS_NOT_PORTED)
+    dev = resolve_device(device)
+    n = cfg.num_clients
+    for name, proc in (("traffic", traffic), ("harvest", harvest)):
+        if proc.num_clients != n:
+            raise ValueError(
+                f"{name} process is sized for {proc.num_clients} clients, "
+                f"ServeConfig.num_clients={n}")
+    to_dev = lambda tree: map_tensors(tree, lambda t: t.to(dev))
+    traffic, harvest, policy, train = (to_dev(traffic), to_dev(harvest),
+                                       to_dev(policy), to_dev(train))
+    bat = battery_lib.BatteryConfig(**bat.fields(dev))
+    cost = _fields_on(cost, step_ops.COST_FIELDS, dev)
+    qos = _fields_on(qos, QoSSpec.FIELDS, dev)
+    streak0 = torch.zeros((n,), dtype=torch.float32, device=dev) if hist \
+        else None
+    if state is None:
+        charge0, tstate0, hstate0 = bat.init(n, dev), traffic.init(), \
+            harvest.init()
+    elif hist:
+        if len(state) != 4:
+            raise ValueError(
+                "hist=True carries the depletion streak: pass the 4-tuple "
+                "state (charge, streak, traffic_state, harvest_state) from "
+                "a hist run's final_state, not the 3-tuple")
+        charge0, streak0, tstate0, hstate0 = state
+        streak0 = torch.as_tensor(streak0, dtype=torch.float32, device=dev)
+    else:
+        charge0, tstate0, hstate0 = state
+    charge0 = torch.as_tensor(charge0, dtype=torch.float32,
+                              device=dev).contiguous()
+    tstate0, hstate0 = to_dev(tstate0), to_dev(hstate0)
+
+    n_pad = n
+    if pad_to is not None:
+        if pad_to < n:
+            raise ValueError(f"pad_to={pad_to} is below the fleet width {n}")
+        n_pad = pad_to
+    valid = (torch.arange(n_pad, device=dev) < n).float()
+    (traffic, harvest, bat, cost, qos, policy, train, charge0, streak0,
+     tstate0, hstate0) = _pad_clients(
+        (traffic, harvest, bat, cost, qos, policy, train, charge0, streak0,
+         tstate0, hstate0), n, n_pad)
+
+    step = _Epoch(traffic, harvest, bat, cost, qos, policy, train, valid,
+                  cfg.seed, admit, hist, record_modes, dev)
+    carry = (charge0, streak0, tstate0, hstate0) if hist \
+        else (charge0, tstate0, hstate0)
+    outs, modes = [], []
+    for t in range(num_epochs):
+        carry, mode, s = step(carry, epoch_offset + t)
+        outs.append(s)
+        if record_modes:
+            modes.append(mode[:n])
+    if hist:
+        charge, streak, tstate, hstate = carry
+        streak = streak[:n]
+    else:
+        (charge, tstate, hstate), streak = carry, None
+    stats = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+             for k in outs[0]} if outs else {}
+    return ServeResult(stats=stats, final_charge=charge[:n],
+                       modes=torch.stack(modes) if record_modes and modes
+                       else None,
+                       final_tstate=_slice_clients(tstate, n, n_pad),
+                       final_hstate=_slice_clients(hstate, n, n_pad),
+                       final_streak=streak)
+
+
+def run_serve_controlled(traffic, harvest, bat, cost: DecodeCostModel,
+                         qos: QoSSpec, policy, cfg: ServeConfig,
+                         num_epochs: int, controller, *, train_cost=None,
+                         control_every: int = 24, mesh=None,
+                         record_modes: bool = False, obs=None,
+                         pad_to: int | None = None, checkpoint=None,
+                         resume: bool = False, hist: bool = False,
+                         device="cuda"):
+    """Closed-loop serving horizon: `simulate_serve` in chunks of
+    ``control_every`` epochs, with an `energy.control.ServerController`
+    adapting its knobs between chunks — the admission-threshold scale
+    (``admit``), and under a ``train_cost`` (`DeviceCostModel` or joules)
+    the competing training load's cadence ``T`` and cycles ``E``.  Battery,
+    traffic and harvest state flow across chunks through
+    ``ServeResult.final_state`` and the absolute epoch index through
+    ``epoch_offset``.  Each chunk's stats reach the host once, for the
+    controller.
+
+    Returns ``(ServeResult over the full horizon, controller)``.
+    """
+    if checkpoint is not None or resume:
+        raise NotImplementedError(CHECKPOINT_NOT_PORTED)
+    if obs is not None:
+        raise NotImplementedError(OBS_NOT_PORTED)
+    n = cfg.num_clients
+    chunks: list[ServeResult] = []
+    state, offset = None, 0
+    while offset < num_epochs:
+        chunk = min(control_every, num_epochs - offset)
+        train = None if train_cost is None else TrainLoad.create(
+            controller.client_E(n), train_cost, local_steps=controller.T,
+            device=device)
+        res = simulate_serve(
+            traffic, harvest, bat, cost, qos, policy, cfg, chunk,
+            train=train, admit=controller.state.admit, mesh=mesh,
+            pad_to=pad_to, record_modes=record_modes, state=state,
+            epoch_offset=offset, hist=hist, device=device)
+        state = res.final_state
+        chunks.append(res)
+        controller.update(res.stats, n)
+        offset += chunk
+    stats = ({k: np.concatenate([c.stats[k] for c in chunks])
+              for k in chunks[0].stats} if chunks else {})
+    modes = (torch.cat([c.modes for c in chunks])
+             if record_modes and chunks else None)
+    last = chunks[-1] if chunks else None
+    out = ServeResult(stats=stats,
+                      final_charge=last.final_charge if last else None,
+                      modes=modes,
+                      final_tstate=last.final_tstate if last else None,
+                      final_hstate=last.final_hstate if last else None,
+                      final_streak=last.final_streak if last else None)
+    return out, controller

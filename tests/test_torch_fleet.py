@@ -275,14 +275,56 @@ def test_closed_loop_matches_reference():
 
 
 def test_energy_loop_with_a_controller_raises():
-    C = 4
-    loop = tf.EnergyLoop(ta.Bernoulli.create(C), tb.BatteryConfig(), 1.0,
-                         controller=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        simulate(lambda p, x, k: (p["w"] ** 2).sum(), sgd(0.1),
-                 FedConfig(num_clients=C, local_steps=1), {"w": torch.ones(())},
-                 lambda r, i: {}, np.ones(C) / C, np.ones(C, np.int32), 1,
-                 prng.PRNGKey(0), energy=loop)
+    """The closed loop with a server controller attached (cadence and
+    budget rules): each round reads the controller's T and E and feeds the
+    round's telemetry back.  The history (participants, ctrl_T,
+    ctrl_E_mean, energy telemetry, loss) equals the reference's, and T and
+    E move.  An EnergyLoop sized for another fleet still raises."""
+    from repro.energy import control as jctl
+    from repro_torch.energy import control as tctl
+
+    C, R = 8, 24
+
+    def ctrl(m):
+        return m.ServerController(
+            T0=4, E0=2, rules=(m.CadenceRule(depleted_high=0.25),
+                               m.BudgetRule(depleted_high=0.25, slip=0.9)))
+
+    b = np.linspace(-1.0, 1.0, C).astype(np.float32)
+    loop = tf.EnergyLoop(ta.MarkovSolar.create(C, day_mean=0.6),
+                         tb.BatteryConfig(capacity=3.0, leak=0.01), 1.0,
+                         controller=ctrl(tctl), device="cpu")
+    res = simulate(
+        lambda p, x, k: 0.5 * torch.sum((p["w"] - torch.tensor(b)[
+            x["client"]]) ** 2), sgd(0.2),
+        FedConfig(num_clients=C, local_steps=4, policy="threshold", seed=0),
+        {"w": torch.zeros(())},
+        lambda r, i, steps: {"client": torch.full((steps,), i,
+                                                  dtype=torch.long)},
+        np.ones(C) / C, np.ones(C, np.int32), R, prng.PRNGKey(0),
+        energy=loop)
+    jloop = jf.EnergyLoop(ja.MarkovSolar.create(C, day_mean=0.6),
+                          jb.BatteryConfig(capacity=3.0, leak=0.01), 1.0,
+                          controller=ctrl(jctl))
+    jb_ = jnp.asarray(b)
+    jres = jsimulate(
+        lambda p, x, k: 0.5 * jnp.sum((p["w"] - jb_[x["client"]]) ** 2),
+        jsgd(0.2), JFed(num_clients=C, local_steps=4, policy="threshold",
+                        seed=0), {"w": jnp.zeros(())},
+        lambda r, i, steps: {"client": jnp.full((steps,), i, jnp.int32)},
+        np.ones(C) / C, np.ones(C, np.int32), R, jax.random.PRNGKey(0),
+        energy=jloop)
+    assert len(res.history) == len(jres.history) == R
+    for h, g in zip(res.history, jres.history):
+        assert set(h) == set(g)
+        for k in ("participants", "ctrl_T", "ctrl_E_mean"):
+            assert h[k] == g[k], k
+        for k in g:
+            if k.startswith("energy_") or k == "loss":
+                np.testing.assert_allclose(h[k], g[k], rtol=1e-5, atol=1e-6,
+                                           err_msg=k)
+    assert len({h["ctrl_T"] for h in res.history}) > 1
+    assert len({h["ctrl_E_mean"] for h in res.history}) > 1
     with pytest.raises(ValueError, match="sized for"):
         tf.EnergyLoop(ta.Bernoulli.create(C), tb.BatteryConfig(), 1.0,
                       device="cpu").step("greedy", 0, 0, np.ones(5), 1)

@@ -11,10 +11,10 @@ PKG = os.path.join(REPO, "src", "repro_torch")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
-def _port_files():
+def _port_files(ext=(".py",)):
     out = []
     for root, _, files in os.walk(PKG):
-        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+        out += [os.path.join(root, f) for f in files if f.endswith(ext)]
     return sorted(out)
 
 
@@ -35,7 +35,7 @@ def _imported_roots(path):
 
 
 def test_package_has_modules():
-    names = {os.path.relpath(p, PKG) for p in _port_files()}
+    names = {os.path.relpath(p, PKG) for p in _port_files((".py", ".cu"))}
     for need in ("device.py", "convert.py", "kernels/flash_attention.py",
                  "kernels/build.py", "models/transformer.py",
                  "serve/engine.py", "launch/serve.py", "prng.py",
@@ -46,7 +46,10 @@ def test_package_has_modules():
                  "obs/hist.py", "dist/collectives.py", "energy/battery.py",
                  "energy/arrivals.py", "energy/costs.py",
                  "energy/step_ops.py", "energy/fleet.py",
-                 "kernels/fleet_step.py", "launch/fleet.py"):
+                 "kernels/fleet_step.py", "launch/fleet.py",
+                 "serve/qos.py", "serve/admission.py", "serve/traffic.py",
+                 "serve/fleet_serve.py", "energy/control.py",
+                 "kernels/csrc/serve_step.cu", "launch/serve_fleet.py"):
         assert need in names
 
 

@@ -11,10 +11,10 @@ against its plain version within its module's ``kernel_tolerance``: flash
 attention's (bf16: twice the largest move of rounding P to bf16, plus the
 output's rounding; fp32: the reference's 2e-5), fused_agg's (twice the
 first-order rounding bound of a float32 evaluation, plus two bf16 ulps in
-bf16) and fleet_step's (per-client outputs bitwise; each stat within
-gamma_d sum |valid x| of its float64 sum, d the kernel's summation depth;
-counts exact); ``chip_smoke.py`` repeats the checks at the main path's
-shapes.
+bf16) and fleet_step's, for its fleet and serve programs (per-client
+outputs bitwise; each stat within gamma_d sum |valid x| of its float64
+sum, d the kernel's summation depth; counts exact); ``chip_smoke.py``
+repeats the checks at the main path's shapes.
 """
 import numpy as np
 import pytest
@@ -306,5 +306,119 @@ def test_simulate_fleet_on_card_matches_cpu(card):
               "hist_streak", "group_participants"):
         np.testing.assert_array_equal(a.stats[k], b.stats[k], err_msg=k)
     for k in ("harvested", "leaked", "overflowed", "mean_charge"):
+        np.testing.assert_allclose(a.stats[k], b.stats[k], rtol=1e-5,
+                                   err_msg=k)
+
+
+def _serve_epoch(n, admission, train, hist, device, seed=0):
+    """One serving epoch's program and env on ``device``: non-dyadic
+    charge, harvest and requests, a padding lane in seven, the example's
+    prices, per-client battery and thresholds."""
+    from repro_torch.energy import BatteryConfig, DecodeCostModel, step_ops
+    from repro_torch.serve import (BatteryGated, ChargeGated, EnergyAgnostic,
+                                   QoSSpec, TrainLoad)
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    policy = {"agnostic": EnergyAgnostic(),
+              "battery": BatteryGated(t(r.uniform(0.5, 2.5, n)),
+                                      t(r.uniform(0.5, 2.0, n))),
+              "charge": ChargeGated(t(r.uniform(1, 4, n)),
+                                    t(r.uniform(0.2, 1, n)))}[admission]
+    load = None if train is None else TrainLoad.create(
+        np.full(n, 4), 0.2, policy=train, threshold=1.5, device=device)
+    prog, env = step_ops.serve_step_program(
+        BatteryConfig(capacity=t(r.uniform(4, 8, n)), leak=0.01),
+        DecodeCostModel.from_params(1e8), QoSSpec(), policy, load,
+        hist=hist, device=device)
+    env.update(charge=t(r.uniform(0, 8, n)), harvest=t(r.exponential(1.5, n)),
+               requests=t(r.poisson(1.0, n)), twant=t(r.uniform(size=n) < .3),
+               streak=t(r.integers(0, 70, n)), valid=t(np.arange(n) % 7 != 6),
+               admit=t(1.25))
+    return prog, env
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admission", ["agnostic", "battery", "charge"])
+@pytest.mark.parametrize("train", [None, "sustainable", "threshold",
+                                   "greedy"])
+@pytest.mark.parametrize("hist", [False, True])
+def test_serve_step_matches_plain(card, admission, train, hist):
+    """The serve program's kernel: charge, streak and mode bitwise, stats
+    within ``kernel_tolerance`` (counts exact); one launch per call,
+    through ``ops.fleet_step``."""
+    from repro_torch.energy import step_ops
+    from repro_torch.kernels import fleet_step as fs
+    n = 70_001
+    prog, env = _serve_epoch(n, admission, train, hist, card)
+    before = (fs.fleet_step_cuda.launches, fs.serve_step_cuda.launches)
+    state, emits, stats = ops.fleet_step(prog, env, n=n, emit=True)
+    torch.cuda.synchronize()
+    assert (fs.fleet_step_cuda.launches,
+            fs.serve_step_cuda.launches) == (before[0], before[1] + 1)
+    out, _ = step_ops.run_step(prog, env, valid=env["valid"])
+    for k in prog.state_out:
+        assert torch.equal(state[k], out[k]), k
+    assert torch.equal(emits["mode"], out["mode"])
+    exact = fs.stats_float64(prog, out, env["valid"])
+    ratios = fs.stats_error(stats, exact, fs.kernel_tolerance(
+        prog, out, env["valid"], n))
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+@pytest.mark.cuda
+def test_serve_step_rejects_what_it_does_not_take(card):
+    import dataclasses
+    from repro_torch.kernels import fleet_step as fs
+    prog, env = _serve_epoch(64, "battery", "sustainable", False, card)
+    with pytest.raises(ValueError, match="float32"):
+        fs.serve_step_cuda(prog, dict(env, requests=env["requests"].double()),
+                           n=64)
+    with pytest.raises(ValueError, match="shape"):
+        fs.serve_step_cuda(prog, dict(env, twant=env["twant"][:10]), n=64)
+    with pytest.raises(ValueError, match="is on"):
+        fs.serve_step_cuda(prog, dict(env, harvest=env["harvest"].cpu()),
+                           n=64)
+    with pytest.raises(ValueError, match="serve_step_program"):
+        fs.serve_step_cuda(dataclasses.replace(prog, ops=prog.ops[:3]), env,
+                           n=64)
+
+
+@pytest.mark.cuda
+def test_simulate_serve_on_card_matches_cpu(card):
+    """A Constant-traffic, Bernoulli-harvest fleet under battery-gated
+    admission and a sustainable training load, 10 epochs with histograms:
+    modes, charge, streak, the ledger and the counts bitwise between the
+    card (one serve-program launch an epoch) and the CPU."""
+    from repro_torch.energy import BatteryConfig, Bernoulli, DecodeCostModel
+    from repro_torch.kernels import fleet_step as fs
+    from repro_torch.serve import (BatteryGated, Constant, QoSSpec,
+                                   ServeConfig, TrainLoad, simulate_serve)
+    n, E = 50_000, 10
+    rate = np.random.default_rng(0).integers(0, 7, n).astype(np.float32)
+
+    def go(dev):
+        return simulate_serve(
+            Constant.create(n, rate, device=dev),
+            Bernoulli.create(n, 0.4, 1.5, device=dev),
+            BatteryConfig(capacity=8.0, leak=0.01, init_charge=2.0),
+            DecodeCostModel.from_params(1e8), QoSSpec(),
+            BatteryGated.create(n, 2.0, 1.5, device=dev),
+            ServeConfig(n, seed=1), E,
+            train=TrainLoad.create(np.full(n, 4), 0.2, device=dev),
+            hist=True, record_modes=True, device=dev)
+
+    before = fs.serve_step_cuda.launches
+    a = go(card)
+    assert fs.serve_step_cuda.launches - before == E
+    b = go("cpu")
+    assert torch.equal(a.modes.cpu(), b.modes)
+    assert torch.equal(a.final_charge.cpu(), b.final_charge)
+    assert torch.equal(a.final_streak.cpu(), b.final_streak)
+    for k in ("offered", "served_full", "served_short", "shed",
+              "deadline_missed", "tokens_decoded", "participants",
+              "frac_depleted", "hist_soc", "hist_spend", "hist_streak"):
+        np.testing.assert_array_equal(a.stats[k], b.stats[k], err_msg=k)
+    for k in ("harvested", "consumed", "leaked", "overflowed",
+              "mean_charge", "consumed_serve", "consumed_train"):
         np.testing.assert_allclose(a.stats[k], b.stats[k], rtol=1e-5,
                                    err_msg=k)

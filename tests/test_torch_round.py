@@ -404,13 +404,42 @@ def test_simulate_matches_reference(cnn):
              for r in range(R)]
     d, _ = _diff(res_j.params, res_t.params)
     assert d.max() <= adam_bound(masks, "sustainable"), d.max()
+
+    # the controlled closed loop: masks from a lean Bernoulli harvest, the
+    # server's budget rule re-planning the cycles E each round; the same
+    # participants, cycles and losses as the reference's
+    from repro.energy import arrivals as ja
+    from repro.energy import battery as jb
+    from repro.energy import control as jctl
+    from repro.energy import fleet as jf
     from repro_torch.energy import BatteryConfig, Bernoulli, EnergyLoop
-    loop = EnergyLoop(Bernoulli.create(C), BatteryConfig(), 1.0,
-                      controller=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        tcore.simulate(lambda p, x, k: tm.loss_fn(p, x), topt.adam(LR),
-                       tcore.FedConfig(num_clients=C, local_steps=T), tp,
-                       tbatch, P, E, 1, prng.PRNGKey(0), energy=loop)
+    from repro_torch.energy import control as tctl
+
+    def ctrl(m):
+        return m.ServerController(T0=T, E0=E, rules=(
+            m.BudgetRule(depleted_high=0.2, slip=0.9),))
+
+    Rc = 3
+    loop = EnergyLoop(Bernoulli.create(C, prob=0.3, amount=0.6),
+                      BatteryConfig(capacity=2.0), 0.5, controller=ctrl(tctl),
+                      device="cpu")
+    res_t = tcore.simulate(lambda p, x, k: tm.loss_fn(p, x), topt.adam(LR),
+                           tcore.FedConfig(num_clients=C, local_steps=T), tp,
+                           tbatch, P, E, Rc, prng.PRNGKey(0), energy=loop)
+    jloop = jf.EnergyLoop(ja.Bernoulli.create(C, prob=0.3, amount=0.6),
+                          jb.BatteryConfig(capacity=2.0), 0.5,
+                          controller=ctrl(jctl))
+    res_j = jcore.simulate(lambda p, x, k: jm.loss_fn(p, x), jopt.adam(LR),
+                           jcore.FedConfig(num_clients=C, local_steps=T), jp,
+                           jbatch, P, E, Rc, jax.random.PRNGKey(0),
+                           energy=jloop)
+    for h, g in zip(res_t.history, res_j.history):
+        for k in ("participants", "ctrl_T", "ctrl_E_mean"):
+            assert h[k] == g[k], k
+        if "loss" in g:
+            np.testing.assert_allclose(h["loss"], g["loss"], rtol=1e-4)
+    assert len({h["ctrl_E_mean"] for h in res_t.history}) > 1
+    assert any("loss" in h for h in res_t.history)
 
 
 def test_theorem1_constants_match():
