@@ -108,6 +108,28 @@ without either.  Phases, each of which raises on a failed check:
    20,000, grouped cadence and budget rules) and the 8-client closed loop
    with a ``ServerController`` through ``core.simulate``.  Prints
    epochs/s, client-epochs/s and a profile of one epoch.
+11. ssd_scan kernel (run after phase 9): ``ssd_scan_cuda`` against
+   ``ssd_scan_plain`` on the same inputs, y and the final state within
+   ``ssd_scan.kernel_tolerance``, at the mamba2-1.3b prefill shape (B=1,
+   H=64, P=64, N=128, one group, chunk 256; S in {256, 512, 2048}), at B=2
+   with groups pre-repeated to heads and chunk 16, each in bf16 and fp32,
+   and the reference's state-carry case (dt 0.05, A -0.01, a unit impulse
+   at t=0, S=1024: the last chunk must still see token 0).  Times the
+   kernel (device time from ``torch.profiler``, and CUDA events) and its
+   plain version at S=2048, bf16, beside the card's bound; no single
+   PyTorch call computes the scan.
+12. Serve Mamba2 (run after phase 4): mamba2-1.3b at full width and depth
+   (48 layers, bf16, random weights from ``--seed``) through
+   ``DecodeEngine.run``: 4 slots, 6 greedy requests of 32 new tokens,
+   arrivals 2 steps apart, prompt lengths {2048, 1536, 768, 1024, 129,
+   2048}; five are multiples of the chunk (256) and take the kernel, 129
+   the per-step recurrence, as in the reference.  Every kernel's launch
+   count is set to 0 just before the run and read just after (5 x 48 =
+   240 ssd_scan launches, no other kernel).  Each request's last-position
+   prefill logits and prefilled SSM states through the kernel are held
+   against the plain chunked path (``impl="ref"``), in bf16 and with the
+   weights upcast to fp32; then tok/s, the engine's per-stage
+   microbenchmark and a profile of one S=2048 prefill and one decode step.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes a
@@ -179,6 +201,36 @@ PROMPT_LENS = (2048, 1537, 777, 1024, 129, 1999)
 GEN = 32
 SLOTS = 4
 STAGGER = 2
+
+# the Mamba2 serve phase: five prompt lengths are multiples of the chunk
+# (256) and take the ssd_scan kernel; 129 takes the per-step recurrence
+MAMBA_PROMPT_LENS = (2048, 1536, 768, 1024, 129, 2048)
+# Prefill of mamba2-1.3b (48 layers, random init), kernel path vs the plain
+# chunked path on the same weights.  The kernel and the plain scan are both
+# float32 and differ by summation order only (``ssd_scan.kernel_tolerance``,
+# held in phase 11, and layer by layer on the served prompts' own inputs,
+# ``served_ssd_check``), ~1e-6 of a layer's output.  bf16, the served
+# dtype: such a difference moves a bf16 rounding of the scan's consumers now
+# and then, by one bf16 ulp (2^-8 relative), and the moved roundings travel
+# through every later layer, as rounding P did for granite's flash path
+# (LOGIT_ATOL): the two paths then differ by a second draw of the bf16
+# rounding noise through depth.  So logits within 0.5, and the prefilled
+# SSM states (the largest |difference| of a layer over that layer's largest
+# |h|, the worst layer) within twice the plain path's own distance from its
+# fp32 twin, measured the same way.  These two bf16 checks are sanity
+# checks only (finite, of the noise's scale): the state bound scales with
+# the bf16 noise of the same run, so it cannot tell a wrong kernel from
+# bf16 chaos.  The checks that decide are the fp32 ones (the weights
+# upcast, TF32 off: summation order only, through 48 layers: logits within
+# 1e-3, states within 1e-3 of the layer's largest |h|) and the bf16 kernel
+# layer by layer on the served inputs within ``kernel_tolerance``.
+SSM_LOGIT_ATOL = {"bfloat16": 0.5, "float32": 1e-3}
+SSM_STATE_RTOL_FP32 = 1e-3
+SSM_STATE_NOISE_FACTOR = 2.0
+# the ssd_scan phase: mamba2-1.3b's prefill layout
+SSD_WIDTHS = dict(H=64, P=64, N=128)
+SSD_CHUNK = 256
+SSD_SEQS = (256, 512, 2048)
 
 
 def nvidia_smi() -> str:
@@ -376,6 +428,7 @@ def served_kernel_check(torch, fa, model, params, prompts, cache_len,
 
 def serve_phase(torch, fa, seed: int, card: str) -> dict:
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import seeded_generators
     from repro_torch.models import get_model
     from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
@@ -404,21 +457,24 @@ def serve_phase(torch, fa, seed: int, card: str) -> dict:
     reqs = [Request(rid=i, tokens=p, max_new=GEN)
             for i, p in enumerate(prompts)]
     arrivals = [i * STAGGER for i in range(len(reqs))]
-    fa.flash_attention_cuda.launches = 0
+    ops.zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = engine.run(reqs, arrivals=arrivals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.flash_attention_cuda.launches
+    counts = ops.launch_counts()
+    launches = counts["flash_attention"]
     want_launches = len(reqs) * cfg.num_layers
     print(f"serve: DecodeEngine.run {len(reqs)} requests x {GEN} tokens in "
           f"{wall:.3f} s = {len(reqs) * GEN / wall:.1f} tok/s "
           f"({engine.stats['steps']} decode steps, {engine.stats['inserts']} "
-          f"inserts); flash_attention launches {launches}", flush=True)
-    if launches != want_launches:
-        raise AssertionError(f"flash_attention launched {launches} times on "
-                             f"the serve path, expected {want_launches}")
+          f"inserts); launches {counts}", flush=True)
+    if counts != {**dict.fromkeys(counts, 0),
+                  "flash_attention": want_launches}:
+        raise AssertionError(f"kernel launches on the serve path {counts}, "
+                             f"expected {want_launches} of flash_attention "
+                             f"and no other")
     for i, S in enumerate(PROMPT_LENS):
         toks = done[i].tokens
         if toks.shape != (GEN,) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
@@ -522,6 +578,217 @@ def serve_phase(torch, fa, seed: int, card: str) -> dict:
             "prefill_logit_checks": checks, "profiles": profiles,
             "served_kernel_worst_err_over_bound": served_ratio,
             "microbench": rec,
+            "joules_per_decode_token_at_power_limit":
+                at_limit.joules_per_decode_step}
+
+
+def served_ssd_check(torch, ssd, model, params, prompts):
+    """The bf16 kernel on the served path's own inputs: record the x, dt,
+    A, B, C that every layer's chunked prefill hands ``ops.ssd_scan``, for
+    every prompt that takes the kernel, and hold the kernel against its
+    plain version on each within ``kernel_tolerance``.  Returns the largest
+    error / bound per such prompt."""
+    from repro_torch.kernels import ops
+
+    real = ops.ssd_scan
+    worst = []
+    for i, p in enumerate(prompts):
+        if len(p) % model.cfg.ssm_chunk:
+            continue
+        calls = []
+
+        def record(*args, **kw):
+            calls.append((args, kw["chunk"]))
+            return real(*args, **kw)
+
+        batch = {"tokens": torch.tensor(p, dtype=torch.long,
+                                        device="cuda")[None]}
+        ops.ssd_scan = record
+        try:
+            model.prefill(params, batch)
+        finally:
+            ops.ssd_scan = real
+        if len(calls) != model.cfg.num_layers:
+            raise AssertionError(f"request {i}: recorded {len(calls)} "
+                                 f"kernel calls, expected one per layer")
+        res = [ssd_check(torch, ssd, args, chunk,
+                         f"served request {i} S={len(p)} layer {layer} "
+                         f"{args[0].dtype}", show=False)
+               for layer, (args, chunk) in enumerate(calls)]
+        worst.append(max(r for _, _, r in res))
+        print(f"serve mamba2: request {i} S={len(p)}: bf16 kernel vs plain on "
+              f"the served x, dt, A, B, C of all {len(res)} layers: "
+              f"max_abs_err {max(e for _, e, _ in res):.3e}, worst err/bound "
+              f"{worst[-1]:.4f} ok", flush=True)
+    return worst
+
+
+def mamba2_serve_phase(torch, ssd, seed: int, card: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import seeded_generators
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
+    from repro_torch.serve.microbench import engine_microbench, measured_cost
+
+    cfg = get_config("mamba2-1.3b")
+    model = get_model(cfg)
+    g_params, g_prompt, _ = seeded_generators(seed, torch.device("cuda"))
+    t0 = time.perf_counter()
+    params = model.init_params(g_params)
+    torch.cuda.synchronize()
+    print(f"serve mamba2: {cfg.name} {cfg.num_layers} layers d_model="
+          f"{cfg.d_model} {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, {cfg.dtype}, "
+          f"{model.num_params(params):,} params made on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = [torch.randint(0, cfg.vocab_size, (S,), generator=g_prompt,
+                             device="cuda").cpu().numpy()
+               for S in MAMBA_PROMPT_LENS]
+    cache_len = max(MAMBA_PROMPT_LENS) + GEN + 1
+    config = EngineConfig(slots=SLOTS, cache_len=cache_len, max_new=GEN)
+
+    # warm-up (cuBLAS handles, allocator, the kernel library): one short
+    # chunked request, not counted
+    DecodeEngine(model, params, config).run(
+        [Request(rid="warm", tokens=prompts[2][:cfg.ssm_chunk], max_new=2)])
+
+    engine = DecodeEngine(model, params, config)
+    reqs = [Request(rid=i, tokens=p, max_new=GEN)
+            for i, p in enumerate(prompts)]
+    arrivals = [i * STAGGER for i in range(len(reqs))]
+    ops.zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run(reqs, arrivals=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    chunked = sum(S % cfg.ssm_chunk == 0 for S in MAMBA_PROMPT_LENS)
+    want = {**dict.fromkeys(counts, 0),
+            "ssd_scan": chunked * cfg.num_layers}
+    print(f"serve mamba2: DecodeEngine.run {len(reqs)} requests x {GEN} "
+          f"tokens in {wall:.3f} s = {len(reqs) * GEN / wall:.1f} tok/s "
+          f"({engine.stats['steps']} decode steps, {engine.stats['inserts']} "
+          f"inserts); launches {counts}", flush=True)
+    if counts != want:
+        raise AssertionError(f"kernel launches on the Mamba2 serve path "
+                             f"{counts}, expected {want}")
+    for i, S in enumerate(MAMBA_PROMPT_LENS):
+        toks = done[i].tokens
+        if toks.shape != (GEN,) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {i}: bad tokens {toks}")
+        if done[i].prompt_len != S:
+            raise AssertionError(f"request {i}: prompt_len {done[i].prompt_len}")
+
+    # prefill logits and states through the kernel vs the plain chunked
+    # path, in bf16 and with the same weights in fp32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = get_model(cfg32)
+    params32 = _tree_map(params, lambda t: t.float())
+
+    def state_err(a, b):
+        """Largest |a - b| of each layer over that layer's largest |b|."""
+        scale = b.flatten(1).abs().amax(1).clamp_min(1e-30)
+        return ((a - b).flatten(1).abs().amax(1) / scale).max().item()
+
+    prefill_ms, checks = [], []
+    for i, p in enumerate(prompts):
+        batch = {"tokens": torch.tensor(p, dtype=torch.long,
+                                        device="cuda")[None]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lk, ck = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        lp, cp = model.prefill(params, batch, impl="ref")
+        lk32, ck32 = model32.prefill(params32, batch)
+        lp32, cp32 = model32.prefill(params32, batch, impl="ref")
+        lk, lp, lk32, lp32 = (t[0, -1] for t in (lk, lp, lk32, lp32))
+        for name, t in (("bf16", lk), ("fp32", lk32)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"request {i}: non-finite {name} logits")
+        err = (lk - lp).abs().max().item()
+        err32 = (lk32 - lp32).abs().max().item()
+        serr = state_err(ck["ssm"], cp["ssm"])
+        serr32 = state_err(ck32["ssm"], cp32["ssm"])
+        snoise = state_err(cp["ssm"], cp32["ssm"])
+        noise = (lp - lp32).abs().max().item()
+        top2 = lp.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        agree = int(lk.argmax()) == int(lp.argmax())
+        tol, tol32 = SSM_LOGIT_ATOL["bfloat16"], SSM_LOGIT_ATOL["float32"]
+        stol, stol32 = SSM_STATE_NOISE_FACTOR * snoise, SSM_STATE_RTOL_FP32
+        print(f"serve mamba2: request {i} S={MAMBA_PROMPT_LENS[i]} prefill "
+              f"{prefill_ms[-1]:.2f} ms; kernel vs plain: logits bf16 "
+              f"max_abs_err {err:.4f} (tol {tol}; noise: plain bf16 vs fp32 "
+              f"{noise:.4f}), fp32 {err32:.3e} (tol {tol32}); states bf16 "
+              f"{serr:.3e} (tol {stol:.3e}: twice the plain bf16 vs fp32 "
+              f"{snoise:.3e}), fp32 {serr32:.3e} (tol {stol32}) of the "
+              f"layer's max |h|; top-2 margin {margin:.4f}, argmax "
+              f"{'agrees' if agree else 'differs'}", flush=True)
+        if err > tol or err32 > tol32 or serr > stol or serr32 > stol32:
+            raise AssertionError(f"request {i}: the prefill through the "
+                                 f"kernel differs from the plain path: "
+                                 f"logits {err} / {err32}, states {serr} / "
+                                 f"{serr32} (bf16 / fp32)")
+        if margin > tol and not agree:
+            raise AssertionError(f"request {i}: argmax differs with top-2 "
+                                 f"margin {margin} > {tol}")
+        if int(done[i].tokens[0]) != int(lk.argmax()):
+            raise AssertionError(f"request {i}: the engine's first token is "
+                                 f"not the kernel prefill's argmax")
+        checks.append({"S": MAMBA_PROMPT_LENS[i], "bf16_max_abs_err": err,
+                       "fp32_max_abs_err": err32, "bf16_state_err": serr,
+                       "fp32_state_err": serr32,
+                       "bf16_state_plain_vs_fp32": snoise,
+                       "bf16_plain_vs_fp32": noise, "top2_margin": margin,
+                       "argmax_agrees": agree})
+    del params32
+    served_ratio = served_ssd_check(torch, ssd, model, params, prompts)
+
+    rec = engine_microbench(model, params, slots=SLOTS,
+                            prompt_len=max(MAMBA_PROMPT_LENS), gen=GEN,
+                            reps=3, seed=seed)
+    watts = power_limit_watts(card)
+    at_limit = measured_cost(rec, watts=watts)
+    print(f"serve mamba2 microbench on {card}: prefill (S="
+          f"{rec['prompt_len']}) {rec['prefill_ms']:.3f} ms = "
+          f"{rec['prefill_tok_s']:.0f} tok/s; decode step ({SLOTS} slots) "
+          f"{rec['decode_step_ms']:.3f} ms = {rec['decode_tok_s']:.1f} tok/s;"
+          f" insert {rec['insert_ms']:.3f} ms; J/token decode "
+          f"{rec['joules_per_decode_token_measured']:.3e} at the nominal "
+          f"{rec['device_watts']} W, {at_limit.joules_per_decode_step:.3e} at "
+          f"the card's {watts} W limit (an upper bound: draw not measured)",
+          flush=True)
+    busy = DecodeEngine(model, params, config)
+    for i in range(SLOTS):
+        busy.prefill_request(Request(rid=i, tokens=prompts[i], max_new=GEN))
+    pos, active, gen_idx = (busy._host_vector(a) for a in
+                            (busy._pos, busy._active, busy._gen))
+    batch = {"tokens": torch.tensor(prompts[0], dtype=torch.long,
+                                    device="cuda")[None]}
+    profiles = {
+        "prefill_2048": device_profile(
+            torch, lambda: model.prefill(params, batch)),
+        "decode_step_4_slots": device_profile(
+            torch, lambda: busy._step(pos, active, gen_idx)),
+    }
+    for name, prof in profiles.items():
+        print(f"profile mamba2 {name}: wall {prof['wall_ms']:.3f} ms, device "
+              f"busy {prof['device_ms']:.3f} ms ({prof['device_share']:.1%}),"
+              f" {prof['kernels']} kernels; top: "
+              + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"][:5]),
+              flush=True)
+    return {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+            "params": model.num_params(params),
+            "prompt_lens": list(MAMBA_PROMPT_LENS), "gen": GEN,
+            "slots": SLOTS, "stagger": STAGGER, "wall_s": wall,
+            "tok_s": len(reqs) * GEN / wall, "stats": engine.stats,
+            "launches": counts, "ssd_launches": counts["ssd_scan"],
+            "prefill_ms": prefill_ms, "prefill_checks": checks,
+            "served_kernel_worst_err_over_bound": served_ratio,
+            "profiles": profiles, "microbench": rec,
             "joules_per_decode_token_at_power_limit":
                 at_limit.joules_per_decode_step}
 
@@ -907,12 +1174,8 @@ def fleet_rel(diff) -> float:
 
 def fleet_phase(torch, fs, seed: int, card: str) -> dict:
     from repro_torch.energy.arrivals import Bernoulli
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_agg as agg
+    from repro_torch.kernels import ops
     from repro_torch.launch import fleet as launch
-
-    counters = (fa.flash_attention_cuda, agg.fused_agg_cuda,
-                fs.fleet_step_cuda)
 
     n, rounds = FLEET["clients"], FLEET["rounds"]
     process, battery, E = launch.scenario(n, seed, "cuda")
@@ -926,13 +1189,13 @@ def fleet_phase(torch, fs, seed: int, card: str) -> dict:
                       "cuda")                        # warm-up, not counted
     last = None
     for policy, thr, extra in kw_runs:
-        for kernel in counters:
-            kernel.launches = 0
+        ops.zero_launches()
         torch.cuda.synchronize()
         res, wall, launches = launch.run_policy(process, E, n, rounds, policy,
                                                 thr, seed, True, "cuda",
                                                 **extra)
-        others = fa.flash_attention_cuda.launches + agg.fused_agg_cuda.launches
+        others = sum(count for name, count in ops.launch_counts().items()
+                     if name != "fleet_step")
         label = policy.value + (" groups" if extra else "")
         s = res.stats
         cons = conservation_check(s, n, charge0, depth)
@@ -1019,8 +1282,7 @@ def fleet_phase(torch, fs, seed: int, card: str) -> dict:
         checks[policy.value] = diff
 
     # the closed loop (core.simulate with an EnergyLoop), card vs CPU
-    for kernel in counters:
-        kernel.launches = 0
+    ops.zero_launches()
     loop = {"cuda": launch.closed_loop(seed, "cuda")}
     loop_launches = fs.fleet_step_cuda.launches
     loop["cpu"] = launch.closed_loop(seed, "cpu")
@@ -1251,6 +1513,140 @@ def serve_step_phase(torch, fs, seed: int) -> dict:
     }
 
 
+def ssd_work(B, S, H, P, G, N, chunk, elsize) -> tuple:
+    """(FLOPs on bf16 operands, FLOPs on fp32 operands, bytes) the chunked
+    scan needs: per (b, h) and chunk, C.B over the causal pairs (Q(Q+1)/2 N
+    FMAs; bf16 operands when x, B and C are bf16, whose products are exact
+    in fp32), the weighted sum of x over them (Q(Q+1)/2 P, weights in
+    fp32), C.h and the state update (2 Q P N, fp32), two FLOPs an FMA; x,
+    B, C, dt and A read once, y and the final state (fp32) written once."""
+    Q, nC = chunk, S // chunk
+    cb = B * H * nC * Q * (Q + 1) // 2 * N
+    rest = B * H * nC * (Q * (Q + 1) // 2 * P + 2 * Q * P * N)
+    nbytes = (elsize * (B * S * H * P + 2 * B * S * G * N)
+              + 4 * (B * S * H + H) + 4 * (B * S * H * P + B * H * P * N))
+    if elsize == 2:
+        return 2 * cb, 2 * rest, nbytes
+    return 0, 2 * (cb + rest), nbytes
+
+
+def ssd_inputs(torch, gen, B, S, H, P, G, N, dtype):
+    """The reference sweep's draws (``tests/test_kernels.py``): x ~ 0.5 N,
+    dt = softplus(N), A = -exp(0.3 N), B and C ~ 0.3 N."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return ((randn(B, S, H, P) * 0.5).to(dtype),
+            torch.nn.functional.softplus(randn(B, S, H)),
+            -torch.exp(randn(H) * 0.3),
+            (randn(B, S, G, N) * 0.3).to(dtype),
+            (randn(B, S, G, N) * 0.3).to(dtype))
+
+
+def ssd_check(torch, ssd, inputs, chunk, label, show=True) -> tuple:
+    """Hold ``ssd_scan_cuda`` against ``ssd_scan_plain`` on the same inputs:
+    y and the final state within ``kernel_tolerance``; raises on a
+    non-finite output or any element past its bound.  Returns (y, max abs
+    error, largest error / bound)."""
+    y, h = ssd.ssd_scan_cuda(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    wy, wh = ssd.ssd_scan_plain(*inputs, chunk=chunk)
+    ty, th = ssd.kernel_tolerance(*inputs, chunk=chunk)
+    err, ratio, ok = 0.0, 0.0, True
+    for got, want, tol in ((y, wy, ty), (h, wh, th)):
+        e = (got - want).abs()
+        err = max(err, e.max().item())
+        ratio = max(ratio, (e / tol.clamp_min(1e-30)).max().item())
+        ok = ok and bool(torch.isfinite(got).all()) and bool((e <= tol).all())
+    if show or not ok:
+        print(f"kernel ssd_scan {label}: max_abs_err (y, state) {err:.3e}, "
+              f"worst err/bound {ratio:.4f} {'ok' if ok else 'FAIL'}",
+              flush=True)
+    if not ok:
+        raise AssertionError(f"ssd_scan kernel disagrees with its plain "
+                             f"version at {label}")
+    return y, err, ratio
+
+
+def ssd_scan_phase(torch, ssd, seed: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    H, P, N = SSD_WIDTHS["H"], SSD_WIDTHS["P"], SSD_WIDTHS["N"]
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    worst_ratio = 0.0
+    cases = [(1, S, 1, SSD_CHUNK) for S in SSD_SEQS] + [(2, 512, H, 16)]
+    for B, S, G, chunk in cases:
+        for dname in ("bfloat16", "float32"):
+            inputs = ssd_inputs(torch, gen, B, S, H, P, G, N,
+                                getattr(torch, dname))
+            _, err, ratio = ssd_check(
+                torch, ssd, inputs, chunk,
+                f"B={B} S={S} H={H} P={P} N={N} G={G} chunk={chunk} {dname}")
+            worst[dname] = max(worst[dname], err)
+            worst_ratio = max(worst_ratio, ratio)
+
+    # the reference's state-carry case at full width: a decay near 1, so
+    # token 0 must reach the last chunk
+    S = 1024
+    x = torch.zeros((1, S, H, P), device="cuda")
+    x[:, 0] = 1.0
+    ones = torch.ones((1, S, 1, N), device="cuda")
+    carry = (x, torch.full((1, S, H), 0.05, device="cuda"),
+             torch.full((H,), -0.01, device="cuda"), ones, ones)
+    y, err, ratio = ssd_check(torch, ssd, carry, SSD_CHUNK,
+                              f"state carry S={S} (dt 0.05, A -0.01, impulse "
+                              f"at t=0)")
+    last = y[0, -1, 0, 0].item()
+    print(f"kernel ssd_scan state carry: y at t={S - 1} = {last:.4f}",
+          flush=True)
+    if not abs(last) > 1e-3:
+        raise AssertionError(f"ssd_scan: the last chunk does not see token "
+                             f"0 (y = {last})")
+    worst["float32"] = max(worst["float32"], err)
+    worst_ratio = max(worst_ratio, ratio)
+
+    # timing at the longest main-path prompt: S=2048, bf16, one group
+    B, S, dname = 1, 2048, "bfloat16"
+    inputs = ssd_inputs(torch, gen, B, S, H, P, 1, N, torch.bfloat16)
+    event_ms = cuda_ms(lambda: ssd.ssd_scan_cuda(*inputs, chunk=SSD_CHUNK),
+                       20, torch)
+    plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(*inputs, chunk=SSD_CHUNK),
+                       3, torch)
+    reps = 10
+    prof = device_profile(torch, lambda: [
+        ssd.ssd_scan_cuda(*inputs, chunk=SSD_CHUNK) for _ in range(reps)])
+    kernel_ms = sum(ms for name, ms in prof["all"]
+                    if "ssd_scan" in name) / reps
+    f16, f32, nbytes = ssd_work(B, S, H, P, 1, N, SSD_CHUNK, 2)
+    t_ops = (f16 / PEAK_FLOPS["bfloat16"] + f32 / PEAK_FLOPS["float32"]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    print(f"ssd_scan S={S} bf16 H={H} P={P} N={N} G=1 chunk={SSD_CHUNK}: "
+          f"kernel {kernel_ms:.4f} ms of device time, {event_ms:.4f} ms "
+          f"between CUDA events; plain {plain_ms:.4f} ms; no library call; "
+          f"bound {max(t_ops, t_bytes):.4f} ms ({f16:.4g} FLOP at the bf16 "
+          f"rate + {f32:.4g} at the fp32 rate, {nbytes:.4g} B)", flush=True)
+    return {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:23",
+        "launches": None,
+        "max_abs_err": max(worst.values()),
+        "max_abs_err_bf16": worst["bfloat16"],
+        "max_abs_err_fp32": worst["float32"],
+        "worst_err_over_bound": worst_ratio,
+        "ms": kernel_ms,
+        "event_ms": event_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "timed_at": {"B": B, "S": S, "H": H, "P": P, "N": N, "G": 1,
+                     "chunk": SSD_CHUNK, "dtype": dname,
+                     "flops_bf16": f16, "flops_fp32": f32,
+                     "bytes": nbytes,
+                     "ms": "device time from torch.profiler"},
+    }
+
+
 # the serving-fleet phase: examples/serve_fleet.py's scenario at
 # serve_scale.py's largest host-local size, the example's horizon
 SERVE = dict(clients=1_000_000, epochs=192)
@@ -1329,23 +1725,18 @@ def serve_fleet_phase(torch, fs, seed: int, card: str) -> dict:
     from repro_torch.energy.arrivals import Bernoulli, MarkovSolar
     from repro_torch.energy.battery import BatteryConfig
     from repro_torch.energy.fleet import EnergyLoop, FleetConfig
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_agg as agg
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve_fleet as launch
     from repro_torch.optim import sgd
     from repro_torch.serve import Constant
 
-    counters = (fa.flash_attention_cuda, agg.fused_agg_cuda,
-                fs.fleet_step_cuda, fs.serve_step_cuda)
-
     def reset():
-        for kernel in counters:
-            kernel.launches = 0
+        ops.zero_launches()
         torch.cuda.synchronize()
 
     def others():
-        return (fa.flash_attention_cuda.launches + agg.fused_agg_cuda.launches
-                + fs.fleet_step_cuda.launches)
+        return sum(count for name, count in ops.launch_counts().items()
+                   if name != "serve_step")
 
     n, epochs = SERVE["clients"], SERVE["epochs"]
     traffic, harvest, cost, train = launch.scenario(n, "cuda")
@@ -1805,6 +2196,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fleet_step as fs
     from repro_torch.kernels import fused_agg as agg
+    from repro_torch.kernels import ssd_scan as ssd
 
     # the port is held to float32 where it computes in float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1815,7 +2207,7 @@ def main(argv=None) -> int:
           f" {torch.cuda.get_device_name(0)}; allow_tf32=False", flush=True)
     t0 = time.perf_counter()
     seconds = build.build_all(["flash_attention", "fused_agg", "fleet_step",
-                               "serve_step"])
+                               "serve_step", "ssd_scan"])
     print(f"kernel library builds (in parallel, {time.perf_counter() - t0:.2f}"
           f" s): " + ", ".join(f"{n} " + (f"{t:.2f} s" if t is not None
                                          else "already built")
@@ -1830,8 +2222,11 @@ def main(argv=None) -> int:
     agg_kernel = fused_agg_phase(torch, agg, args.seed)
     fleet_kernel = fleet_step_phase(torch, fs, args.seed)
     serve_kernel = serve_step_phase(torch, fs, args.seed)
+    ssd_kernel = ssd_scan_phase(torch, ssd, args.seed)
     serve = serve_phase(torch, fa, args.seed, card)
     kernel["launches"] = serve["flash_launches"]
+    mamba = mamba2_serve_phase(torch, ssd, args.seed, card)
+    ssd_kernel["launches"] = mamba["ssd_launches"]
     train = train_phase(torch, fa, agg, args.seed, card)
     agg_kernel["launches"] = sum(train[policy]["fused_agg_launches"]
                                  for policy in TRAIN_ROUNDS)
@@ -1841,11 +2236,11 @@ def main(argv=None) -> int:
     serve_fleet = serve_fleet_phase(torch, fs, args.seed, card)
     serve_kernel["launches"] = serve_fleet["launches"]
 
-    kernels = [kernel, agg_kernel, fleet_kernel, serve_kernel]
+    kernels = [kernel, agg_kernel, fleet_kernel, serve_kernel, ssd_kernel]
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels, "serve": serve,
-              "train": train, "fig1": fig1, "fleet": fleet,
-              "serve_fleet": serve_fleet}
+              "serve_mamba2": mamba, "train": train, "fig1": fig1,
+              "fleet": fleet, "serve_fleet": serve_fleet}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

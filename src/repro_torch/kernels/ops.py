@@ -6,6 +6,7 @@ from __future__ import annotations
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fleet_step as _fleet
 from repro_torch.kernels import fused_agg as _agg
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -17,6 +18,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
+    """Chunked SSD scan: x (B, S, H, P), dt (B, S, H) fp32, A (H,) fp32,
+    Bm / Cm (B, S, G, N) with H % G == 0 (groups mapped inside).  Returns
+    (y (B, S, H, P) fp32, final state (B, H, P, N) fp32)."""
+    if x.device.type == "cuda":
+        return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk)
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+
+
+def ssd_scan_y(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """``ssd_scan`` with the JAX package kernel's signature and result:
+    Bm / Cm may be pre-repeated to heads, and only y comes back, in x's
+    dtype."""
+    return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)[0].to(x.dtype)
 
 
 def fused_agg(w, w_stack, s):
@@ -52,3 +71,24 @@ def fleet_step(program, env, *, n: int, emit: bool = False,
         return _fleet.fleet_step_plain(program, env, n=n, emit=emit,
                                        num_groups=num_groups)
     raise ValueError(f"fleet_step: no kernel for device {dev}")
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name.  Each adds one to
+    its ``.launches`` where it launches its kernel, and nowhere else (the
+    serve program of fleet_step has its own wrapper and count)."""
+    return {"flash_attention": _fa.flash_attention_cuda,
+            "fused_agg": _agg.fused_agg_cuda,
+            "fleet_step": _fleet.fleet_step_cuda,
+            "serve_step": _fleet.serve_step_cuda,
+            "ssd_scan": _ssd.ssd_scan_cuda}
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches so far, by kernel name."""
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+def zero_launches():
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0

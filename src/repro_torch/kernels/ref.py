@@ -1,5 +1,5 @@
 """Naive oracles for the kernels (port of the JAX package's ``kernels/ref.py``
-for the kernels ported so far: attention, aggregation, the fleet step's
+for every kernel: attention, the SSD scan, aggregation, the fleet step's
 fleet and serve programs)."""
 from __future__ import annotations
 
@@ -24,6 +24,23 @@ def mha_reference(q, k, v, *, causal: bool = True, window: int = 0):
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def ssd_reference(x, dt, A, Bm, Cm):
+    """Sequential SSD recurrence: x (B, S, H, P), dt (B, S, H), A (H,),
+    Bm / Cm (B, S, H, N) already repeated from groups to heads.  Returns y
+    (B, S, H, P) in x's dtype."""
+    Bsz, S, H, P = x.shape
+    h = torch.zeros((Bsz, H, P, Bm.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t].float()
+        a = torch.exp(dt_t * A.float()[None])                 # (B, H)
+        h = h * a[:, :, None, None] + torch.einsum(
+            "bh,bhn,bhp->bhpn", dt_t, Bm[:, t].float(), x[:, t].float())
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cm[:, t].float(), h))
+    return torch.stack(ys, dim=1).to(x.dtype)
 
 
 def agg_reference(w, w_stack, s):

@@ -1,5 +1,5 @@
-"""Serving launcher: continuous-batching decode over a registered dense
-architecture (port of the JAX package's ``launch/serve.py``).
+"""Serving launcher: continuous-batching decode over a registered dense or
+state-space architecture (port of the JAX package's ``launch/serve.py``).
 
 The default path drives `repro_torch.serve.engine.DecodeEngine` over a batch
 of requests with staggered arrivals (``--stagger`` steps apart);
@@ -11,10 +11,13 @@ card up, and a second, warm pass.
 Decode energy is reported two ways: *measured* joules/token from the
 per-stage engine microbenchmarks (`repro_torch.serve.microbench`, priced at
 the nominal device wattage) next to the *analytic* ``from_params`` pricing
-(~2*N FLOPs/token).
+(~2*N FLOPs/token).  The launch counts of the prefill kernels
+(``flash_attention``, ``ssd_scan``) over both passes are printed; they are
+0 on the CPU, which takes the kernels' plain versions.
 
-  python -m repro_torch.launch.serve --arch granite-3-2b            # card
-  python -m repro_torch.launch.serve --arch granite-3-2b --smoke --device cpu
+  python -m repro_torch.launch.serve                       # mamba2-1.3b, card
+  python -m repro_torch.launch.serve --arch granite-3-2b
+  python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import require_same_device, resolve_device
 from repro_torch.energy.costs import DecodeCostModel
+from repro_torch.kernels import ops
 from repro_torch.models import get_model
 from repro_torch.serve.engine import (DecodeEngine, EngineConfig, Request,
                                       pick_tokens)
@@ -120,7 +124,7 @@ def _run_engine(model, params, prompt, args, cache_len, ring, window,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="mamba2-1.3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--batch", type=int, default=4,
@@ -155,6 +159,7 @@ def main(argv=None):
         return seeded_generators(args.seed, dev)[2]
 
     mode = (f"sampled@T={args.temperature}" if args.sample else "greedy")
+    launches0 = ops.launch_counts()
     if args.single_stream:
         def run():
             toks = generate(model, params, prompt, args.gen, cache_len,
@@ -190,6 +195,10 @@ def main(argv=None):
     print("tokens[0]:", toks[0])
     print(f"{n_tokens / wall:.1f} tok/s (first pass, incl. kernel build and "
           f"warm-up)   {n_tokens / warm:.1f} tok/s (warm)")
+    launches = {name: count - launches0[name]
+                for name, count in ops.launch_counts().items()}
+    print(f"kernel launches (both passes): flash_attention "
+          f"{launches['flash_attention']}, ssd_scan {launches['ssd_scan']}")
 
     cost = DecodeCostModel.from_params(cfg.num_active_params())
     per_request = float(cost.request_cost(S, args.gen))

@@ -21,10 +21,10 @@ kernel's launch count (0 on the CPU)::
 
 Differences from the example: ``--trace`` (replayed day profiles) exits 1
 (``ROADMAP.md`` Queue 1 item 21); ``--microbench ARCH`` prices requests
-from the port's own `engine_microbench` and exits 1 for an architecture
-the port does not serve (``mamba2-1.3b``, the example's default, waits for
-slice 4); ``--backend``, ``--obs-dir`` and the checkpoint flags have no
-counterpart; ``--epochs`` and ``--device`` are new.
+from the port's own `engine_microbench` (default ``mamba2-1.3b``, as the
+example's) and exits 1 for an architecture the port does not serve;
+``--backend``, ``--obs-dir`` and the checkpoint flags have no counterpart;
+``--epochs`` and ``--device`` are new.
 """
 from __future__ import annotations
 
@@ -111,9 +111,10 @@ def microbench_cost(arch: str, device) -> DecodeCostModel:
 
     mcfg = get_smoke_config(arch)
     model = get_model(mcfg)
-    if mcfg.family != "dense":
-        raise NotImplementedError(f"--microbench {arch}: the port serves "
-                                  f"family 'dense', not {mcfg.family!r}")
+    if model.decode_step is None:
+        raise NotImplementedError(f"--microbench {arch}: family "
+                                  f"{mcfg.family!r} has no decode path; the "
+                                  f"port serves families 'dense' and 'ssm'")
     gen = torch.Generator(device=device).manual_seed(0)
     rec = engine_microbench(model, model.init_params(gen), device=device)
     print(f"microbench pricing ({mcfg.name}, {rec['device_watts']:.1f} W "

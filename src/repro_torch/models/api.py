@@ -9,8 +9,8 @@ Every family exposes, with ``cfg`` bound:
   prefill(params, batch, cache_len, impl, window) -> (logits, cache)
   decode_step(params, token, cache, pos, ring, window) -> (logits, cache)
 
-Registered: ``dense`` (served; its ``loss_fn`` raises until the LM local
-update is ported) and ``cnn`` (trained).
+Registered: ``dense`` and ``ssm`` (served; their ``loss_fn`` raises until
+the LM local update is ported) and ``cnn`` (trained).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from functools import partial
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import cnn, transformer
+from repro_torch.models import cnn, ssm, transformer
 
 LM_LOSS_NOT_PORTED = (
     "loss_fn of family {!r} is not ported yet (ROADMAP.md Queue 1 item 10: "
@@ -52,9 +52,10 @@ def get_model(cfg: ModelConfig) -> Model:
         return Model(cfg=cfg, init_params=partial(cnn.init_params, cfg),
                      forward=partial(cnn.forward, cfg),
                      loss_fn=partial(cnn.loss_fn, cfg))
-    if cfg.family != "dense":
+    mods = {"dense": transformer, "ssm": ssm}
+    if cfg.family not in mods:
         raise NotImplementedError(transformer.NOT_PORTED.format(cfg.family))
-    mod = transformer
+    mod = mods[cfg.family]
     return Model(cfg=cfg,
                  init_params=partial(mod.init_params, cfg),
                  forward=partial(mod.forward, cfg),

@@ -18,9 +18,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 
-NOT_PORTED = ("family {!r} is not ported yet (ROADMAP.md Queue 1, slice 4: "
-              "remaining families); the port serves family 'dense' and "
-              "trains family 'cnn'")
+NOT_PORTED = ("family {!r} is not ported yet (ROADMAP.md Queue 1 item 20: "
+              "remaining families); the port serves families 'dense' and "
+              "'ssm' and trains family 'cnn'")
 
 
 def _require_dense(cfg: ModelConfig):

@@ -1,6 +1,8 @@
 """The port's continuous-batching engine against the JAX package's: greedy
-tokens must be identical (granite-3-2b smoke config, fp32, params carried
-across by ``repro_torch.convert``), and the slot lifecycle must hold."""
+tokens must be identical (granite-3-2b and mamba2-1.3b smoke configs, fp32,
+params carried across by ``repro_torch.convert``), and the slot lifecycle
+must hold: KV caches for the attention family, conv and SSM state caches
+for the state-space family."""
 import jax
 import numpy as np
 import pytest
@@ -21,17 +23,17 @@ from repro_torch.serve.engine import (DecodeEngine, EngineConfig, Request,
 _SETUP = {}
 
 
-def _setup():
-    if not _SETUP:
-        jm = jax_model(jax_smoke("granite-3-2b"))
+def _setup(arch="granite-3-2b"):
+    if arch not in _SETUP:
+        jm = jax_model(jax_smoke(arch))
         jp = jm.init_params(jax.random.PRNGKey(0))
-        tm = get_model(get_smoke_config("granite-3-2b"))
-        _SETUP["v"] = (jm, jp, tm, params_from_numpy(jp, device="cpu"))
-    return _SETUP["v"]
+        tm = get_model(get_smoke_config(arch))
+        _SETUP[arch] = (jm, jp, tm, params_from_numpy(jp, device="cpu"))
+    return _SETUP[arch]
 
 
-def _prompt(S, seed):
-    return np.random.default_rng(seed).integers(0, 515, S).astype(np.int32)
+def _prompt(S, seed, vocab=515):
+    return np.random.default_rng(seed).integers(0, vocab, S).astype(np.int32)
 
 
 def _engine(tm, tp, **kw):
@@ -74,6 +76,59 @@ def test_staggered_mixed_lengths_identical_to_jax_engine_and_generate():
         assert tdone[i].prompt_len == jdone[i].prompt_len == S
         assert tdone[i].slot == jdone[i].slot
     assert teng.stats == jeng.stats
+
+
+def test_ssm_staggered_mixed_lengths_identical_to_jax_engine():
+    """mamba2-1.3b: prompts of chunk-multiple lengths (16, 32: the chunked
+    scan) and ragged ones (the per-step recurrence), staggered so inserts
+    land between decode steps: every request's greedy tokens equal the JAX
+    engine's and the port's single-stream `generate`; the engines' slot
+    assignments and counters agree."""
+    jm, jp, tm, tp = _setup("mamba2-1.3b")
+    specs = [(16, 6), (32, 4), (9, 8), (14, 5), (32, 8), (1, 3)]
+    arrivals = [0, 0, 2, 3, 9, 10]
+    cache_len, max_new = 32 + 8 + 1, 8
+    prompts = [_prompt(S, 30 + i, 512) for i, (S, _) in enumerate(specs)]
+
+    jeng = JaxEngine(jm, jp, JaxConfig(slots=2, cache_len=cache_len,
+                                       max_new=max_new))
+    jdone = jeng.run([JaxRequest(rid=i, tokens=prompts[i], max_new=g)
+                      for i, (_, g) in enumerate(specs)], arrivals=arrivals)
+    teng = _engine(tm, tp, slots=2, cache_len=cache_len, max_new=max_new)
+    tdone = teng.run([Request(rid=i, tokens=prompts[i], max_new=g)
+                      for i, (_, g) in enumerate(specs)], arrivals=arrivals)
+    assert set(tdone) == set(jdone) == set(range(len(specs)))
+    for i, (S, g) in enumerate(specs):
+        np.testing.assert_array_equal(tdone[i].tokens, jdone[i].tokens,
+                                      err_msg=f"request {i} vs JAX engine")
+        np.testing.assert_array_equal(
+            tdone[i].tokens, _solo(tm, tp, prompts[i], g, cache_len),
+            err_msg=f"request {i} vs generate")
+        assert tdone[i].prompt_len == S and tdone[i].slot == jdone[i].slot
+    assert teng.stats == jeng.stats
+
+
+def test_ssm_slot_reuse_matches_jax_engine():
+    """mamba2-1.3b, one slot: a request decoded in a reclaimed slot, after a
+    longer occupant, equals the JAX engine's tokens and its own solo run:
+    the insert overwrote the slot's conv and SSM states."""
+    jm, jp, tm, tp = _setup("mamba2-1.3b")
+    cache_len = 45
+    p1, p2 = _prompt(32, 40, 512), _prompt(7, 41, 512)
+    kw = dict(slots=1, cache_len=cache_len, max_new=6)
+    reqs = [(p1, 6), (p2, 5)]
+    jdone = JaxEngine(jm, jp, JaxConfig(**kw)).run(
+        [JaxRequest(rid=i, tokens=p, max_new=g)
+         for i, (p, g) in enumerate(reqs)])
+    engine = _engine(tm, tp, **kw)
+    tdone = engine.run([Request(rid=i, tokens=p, max_new=g)
+                        for i, (p, g) in enumerate(reqs)])
+    assert tdone[0].slot == tdone[1].slot == 0
+    for i, (p, g) in enumerate(reqs):
+        np.testing.assert_array_equal(tdone[i].tokens, jdone[i].tokens)
+        np.testing.assert_array_equal(tdone[i].tokens,
+                                      _solo(tm, tp, p, g, cache_len))
+    assert set(engine._cache) == {"conv", "ssm"}
 
 
 def test_ring_cache_engine_matches_jax_engine():
@@ -235,3 +290,16 @@ def test_microbench_record_has_reference_fields():
     assert rec["device"] == "cpu"
     cost = measured_cost(rec, watts=2.0)
     assert cost.joules_per_decode_step == 2.0 * rec["seconds_per_decode_token"]
+
+
+def test_ssm_microbench_prices_the_chunked_prefill():
+    """The per-stage microbenchmark on mamba2-1.3b: a chunk-multiple prompt
+    (the chunked scan), every stage timed, the SSM cache inserted."""
+    from repro_torch.serve.microbench import engine_microbench
+    _, _, tm, tp = _setup("mamba2-1.3b")
+    rec = engine_microbench(tm, tp, slots=2, prompt_len=16, gen=4, reps=1,
+                            device="cpu")
+    assert rec["arch"] == "mamba2-1.3b" and rec["prompt_len"] == 16
+    for key in ("prefill_ms", "insert_ms", "decode_step_ms",
+                "joules_per_decode_token_measured"):
+        assert rec[key] > 0, key

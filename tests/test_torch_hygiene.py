@@ -49,7 +49,9 @@ def test_package_has_modules():
                  "kernels/fleet_step.py", "launch/fleet.py",
                  "serve/qos.py", "serve/admission.py", "serve/traffic.py",
                  "serve/fleet_serve.py", "energy/control.py",
-                 "kernels/csrc/serve_step.cu", "launch/serve_fleet.py"):
+                 "kernels/csrc/serve_step.cu", "launch/serve_fleet.py",
+                 "models/ssm.py", "kernels/ssd_scan.py",
+                 "kernels/csrc/ssd_scan.cu"):
         assert need in names
 
 

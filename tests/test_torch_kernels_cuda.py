@@ -11,10 +11,12 @@ against its plain version within its module's ``kernel_tolerance``: flash
 attention's (bf16: twice the largest move of rounding P to bf16, plus the
 output's rounding; fp32: the reference's 2e-5), fused_agg's (twice the
 first-order rounding bound of a float32 evaluation, plus two bf16 ulps in
-bf16) and fleet_step's, for its fleet and serve programs (per-client
+bf16), fleet_step's, for its fleet and serve programs (per-client
 outputs bitwise; each stat within gamma_d sum |valid x| of its float64
-sum, d the kernel's summation depth; counts exact); ``chip_smoke.py``
-repeats the checks at the main path's shapes.
+sum, d the kernel's summation depth; counts exact) and ssd_scan's (twice a
+one-evaluation float32 bound over the sum of the terms' absolute values,
+y and the final state); ``chip_smoke.py`` repeats the checks at the main
+path's shapes.
 """
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_agg as agg
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import get_model
 from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
 
@@ -99,6 +102,106 @@ def test_engine_on_card_matches_engine_on_cpu(card):
     got, want = run(on_card, card), run(params, "cpu")
     assert fa.flash_attention_cuda.launches - before == (
         len(specs) * cfg.num_layers)
+    for i in range(len(specs)):
+        np.testing.assert_array_equal(got[i].tokens, want[i].tokens)
+
+
+def _ssd_inputs(B, S, H, P, G, N, dtype, device, seed=0):
+    r = np.random.default_rng(seed)
+    f = lambda a: torch.tensor(a, dtype=torch.float32)
+    x = f(r.standard_normal((B, S, H, P)) * 0.5).to(dtype)
+    dt = f(np.logaddexp(r.standard_normal((B, S, H)), 0.0))
+    A = f(-np.exp(r.standard_normal(H) * 0.3))
+    Bm = f(r.standard_normal((B, S, G, N)) * 0.3).to(dtype)
+    Cm = f(r.standard_normal((B, S, G, N)) * 0.3).to(dtype)
+    return tuple(t.to(device) for t in (x, dt, A, Bm, Cm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,P,G,N,chunk", [
+    (512, 8, 64, 1, 128, 256),     # the mamba2-1.3b layout, two P blocks
+    (256, 8, 64, 8, 128, 16),      # pre-repeated groups, small chunk
+    (192, 4, 40, 2, 16, 96),       # ragged P block and ragged row tile
+    (64, 8, 32, 1, 16, 16),        # the smoke config's widths
+])
+def test_ssd_scan_matches_plain(card, dtype, S, H, P, G, N, chunk):
+    """y and the final state within ``kernel_tolerance`` at batch 2; one
+    launch per call."""
+    x, dt, A, Bm, Cm = _ssd_inputs(2, S, H, P, G, N, dtype, card)
+    before = ssd.ssd_scan_cuda.launches
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_cuda.launches == before + 1
+    wy, wh = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    ty, th = ssd.kernel_tolerance(x, dt, A, Bm, Cm, chunk=chunk)
+    assert y.dtype == h.dtype == torch.float32
+    for got, want, tol in ((y, wy, ty), (h, wh, th)):
+        err = (got - want).abs()
+        assert bool(torch.isfinite(got).all())
+        assert bool((err <= tol).all()), (err / tol).max().item()
+
+
+@pytest.mark.cuda
+def test_ssd_scan_reads_strided_slices(card):
+    """x, Bm, Cm as slices of one wider tensor: no copy, same result as
+    contiguous inputs, bitwise."""
+    B, S, H, P, G, N = 1, 256, 4, 64, 1, 128
+    wide = torch.randn(B, S, H * P + 2 * G * N + 8, device=card) * 0.3
+    x = wide[..., :H * P].reshape(B, S, H, P)
+    Bm = wide[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = wide[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, device=card))
+    A = -torch.rand(H, device=card)
+    a = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=128)
+    b = ssd.ssd_scan_cuda(x.contiguous(), dt, A, Bm.contiguous(),
+                          Cm.contiguous(), chunk=128)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_rejects_what_it_does_not_take(card):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 32, 2, 8, 1, 16, torch.float32, card)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd.ssd_scan_cuda(x.half(), dt, A, Bm.half(), Cm.half(), chunk=8)
+    with pytest.raises(ValueError, match="float32"):
+        ssd.ssd_scan_cuda(x, dt.double(), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="last dim"):
+        ssd.ssd_scan_cuda(x.transpose(2, 3).contiguous().transpose(2, 3),
+                          dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd.ssd_scan_cuda(x, dt.cpu(), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="not divisible"):
+        ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=5)
+    big = torch.zeros(1, 32, 1, 256, device=card)
+    with pytest.raises(ValueError, match="state size"):
+        ssd.ssd_scan_cuda(x, dt, A, big, big, chunk=8)
+
+
+@pytest.mark.cuda
+def test_ssm_engine_on_card_matches_engine_on_cpu(card):
+    """mamba2-1.3b smoke config in fp32: greedy tokens through the engine
+    on the card (ssd_scan kernel in the chunked prefills) equal those on
+    the CPU (plain path), for staggered prompts of chunk-multiple and
+    ragged lengths."""
+    cfg = get_smoke_config("mamba2-1.3b")
+    model = get_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    on_card = _to(params, card)
+    specs = [(32, 6), (16, 4), (9, 8), (14, 5)]
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, S)
+               for i, (S, _) in enumerate(specs)]
+    config = EngineConfig(slots=2, cache_len=41, max_new=8)
+
+    def run(p, device):
+        return DecodeEngine(model, p, config, device=device).run(
+            [Request(rid=i, tokens=prompts[i], max_new=g)
+             for i, (_, g) in enumerate(specs)], arrivals=[0, 0, 2, 3])
+
+    before = ssd.ssd_scan_cuda.launches
+    got, want = run(on_card, card), run(params, "cpu")
+    assert ssd.ssd_scan_cuda.launches - before == 2 * cfg.num_layers
     for i in range(len(specs)):
         np.testing.assert_array_equal(got[i].tokens, want[i].tokens)
 

@@ -38,11 +38,31 @@ def test_cli_without_card_exits_nonzero_with_clear_message():
     out = _run("--arch", "granite-3-2b", "--smoke")
     assert out.returncode != 0
     assert "torch.cuda.is_available() is False" in out.stderr
+    out = _run("--smoke")                          # the default arch
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr
     assert "--device cpu" in out.stderr
     assert "tok/s" not in out.stdout
 
 
 def test_cli_rejects_unported_family():
-    out = _run("--device", "cpu", "--arch", "mamba2-1.3b", "--smoke")
+    out = _run("--device", "cpu", "--arch", "recurrentgemma-2b", "--smoke")
     assert out.returncode != 0
     assert "not ported yet" in out.stderr
+    assert "Queue 1 item 20" in out.stderr
+
+
+def test_cli_serves_mamba2_by_default_on_cpu():
+    """The default architecture is the reference's, mamba2-1.3b: prompt
+    length 32 takes the chunked scan (its plain version on the CPU, so no
+    kernel launch), 9 the per-step recurrence."""
+    for prompt_len in ("32", "9"):
+        out = _run("--device", "cpu", "--smoke", "--batch", "3", "--gen",
+                   "4", "--prompt-len", prompt_len)
+        assert out.returncode == 0, out.stderr
+        assert (f"arch=mamba2-1.3b batch=3 prompt={prompt_len} generated=4"
+                in out.stdout)
+        assert "device=cpu" in out.stdout
+        assert "kernel launches (both passes): flash_attention 0, " \
+               "ssd_scan 0" in out.stdout
+        assert "measured microbench on cpu" in out.stdout

@@ -98,10 +98,22 @@ def test_serve_fleet_cli_refuses_trace_and_unported_archs():
     assert out.returncode == 1
     assert "Queue 1 item 21" in out.stderr
     out = _run("--device", "cpu", "--clients", "10", "--epochs", "1",
-               "--microbench")
+               "--microbench", "recurrentgemma-2b")
     assert out.returncode == 1
-    assert "slice 4" in out.stderr and "'ssm'" in out.stderr
+    assert "Queue 1 item 20" in out.stderr and "'hybrid'" in out.stderr
     out = _run("--device", "cpu", "--clients", "10", "--epochs", "1",
                "--microbench", "cifar-cnn")
     assert out.returncode == 1
-    assert "family 'dense'" in out.stderr
+    assert "no decode path" in out.stderr and "'ssm'" in out.stderr
+
+
+def test_serve_fleet_cli_prices_from_the_mamba2_microbench():
+    """``--microbench`` with no argument means mamba2-1.3b, as in the
+    example: requests are priced from the port's own engine microbenchmark
+    of its smoke config."""
+    out = _run("--device", "cpu", "--clients", "10", "--epochs", "2",
+               "--microbench")
+    assert out.returncode == 0, out.stderr
+    assert "microbench pricing (mamba2-1.3b" in out.stdout
+    assert "on cpu)" in out.stdout
+    assert "client-epochs/s" in out.stdout

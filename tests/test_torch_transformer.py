@@ -168,7 +168,7 @@ def test_per_slot_positions_equal_separate_scalar_decodes():
         torch.testing.assert_close(batched[b], alone[0], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "ssm"])
+@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
