@@ -11,12 +11,17 @@ without either.  Phases, each of which raises on a failed check:
    and the time to build the kernel libraries from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, all started together).
 2. Kernels: ``flash_attention`` on the card against its plain PyTorch
-   version on the same inputs, at the granite-3-2b prefill shapes (B=1,
-   H=32, K=8, D=64; S in {1, 127, 128, 777, 2048}) plus D=128 at S=1024, in
-   bf16 and fp32, causal, causal with window 256, and non-causal.  Times the
-   kernel, its plain version and one library call
-   (``scaled_dot_product_attention``, timed here only, never called by the
-   port) at S=2048, bf16, causal, beside the card's bound.
+   version on the same inputs within ``kernel_tolerance``, in bf16 and
+   fp32, causal, causal with window 256 and non-causal: at the
+   granite-3-2b prefill shapes (B=1, H=32, K=8, D=64; S in {1, 127, 128,
+   777, 2048}), D=128 at S=1024 (granite-8b), recurrentgemma-2b's
+   attention (H=10, K=1, D=256; S in {1, 127, 2048}, also with its window
+   2048), B=2 at S=777 for each head dim, and q, k, v as views of one
+   fused (B, S, H+2K, D) projection.  Times the bf16 kernel (device time
+   from ``torch.profiler``, and CUDA events), its plain version and one
+   library call (``scaled_dot_product_attention``, timed here only, never
+   called by the port) at S=2048, causal, at the three models' shapes,
+   beside the card's bound.
 3. fused_agg kernel: ``fused_agg_cuda`` against ``fused_agg_plain`` within
    ``fused_agg.kernel_tolerance``, on every leaf of the CIFAR CNN at C=40
    with s = mask p E from a sustainable round (p = 1/40, E in {1, 5, 10,
@@ -34,8 +39,9 @@ without either.  Phases, each of which raises on a failed check:
    240 flash launches).  Each request's prefill logits through the kernel
    are then held against the plain PyTorch attention path (``impl="ref"``),
    in bf16 and with the same weights in fp32; the engine's per-stage
-   microbenchmark and a profile of one prefill and one decode step (wall
-   time, device-busy time, kernel count) are printed.
+   microbenchmark, a profile of one prefill and one decode step (wall
+   time, device-busy time, kernel count) and flash's share of the S=2048
+   prefill's device time are printed.
 5. Train: ``repro_torch.launch.train``'s path (``make_run`` ->
    ``train_round`` -> ``core.round.parallel_round``) with the paper's §V
    setup: the CIFAR CNN at full width (1,702,794 params, fp32, TF32 off:
@@ -329,43 +335,94 @@ def check_kernel(torch, fa, q, k, v, causal, window, label,
     return err.max().item(), ratio
 
 
+# the flash checks: (B, H, K, D, sequence lengths, masks); the timed
+# shapes: (name, H, K, D, window), B=1, S=2048, bf16, causal
+FLASH_MASKS = ((True, 0), (True, 256), (False, 0))
+FLASH_CASES = (
+    [(1, 32, 8, 64, (1, 127, 128, 777, 2048), FLASH_MASKS),   # granite-3-2b
+     (1, 32, 8, 128, (1024,), FLASH_MASKS),                    # granite-8b
+     # recurrentgemma-2b: MQA, head dim 256, local window 2048
+     (1, 10, 1, 256, (1, 127, 2048), FLASH_MASKS + ((True, 2048),))]
+    + [(2, H, K, D, (777,), FLASH_MASKS)
+       for H, K, D in ((32, 8, 64), (32, 8, 128), (10, 1, 256))])
+FLASH_TIMED = (("granite-3-2b", 32, 8, 64, 0), ("granite-8b", 32, 8, 128, 0),
+               ("recurrentgemma-2b", 10, 1, 256, 2048))
+
+
+def flash_inputs(torch, gen, B, S, H, K, D, dtype, fused=False):
+    """q, k, v ~ 0.5 N in ``dtype``; ``fused``: views of one (B, S, H + 2K,
+    D) projection, as a fused QKV matmul leaves them (strided heads)."""
+    if fused:
+        qkv = (torch.randn((B, S, H + 2 * K, D), generator=gen, device="cuda")
+               * 0.5).to(dtype)
+        return qkv.split([H, K, K], dim=2)
+    return tuple((torch.randn((B, S, h, D), generator=gen, device="cuda")
+                  * 0.5).to(dtype) for h in (H, K, K))
+
+
 def kernel_phase(torch, fa, seed: int) -> dict:
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    B, H, K = 1, 32, 8
-    cases = [(64, S) for S in (1, 127, 128, 777, 2048)] + [(128, 1024)]
-    masks = ((True, 0), (True, 256), (False, 0))
     worst = {"bfloat16": 0.0, "float32": 0.0}
     worst_ratio = {"bfloat16": 0.0, "float32": 0.0}
-    for D, S in cases:
+    cases = [(B, H, K, D, S, masks, False)
+             for B, H, K, D, seqs, masks in FLASH_CASES for S in seqs]
+    cases.append((2, 32, 8, 64, 777, FLASH_MASKS, True))
+    for B, H, K, D, S, masks, fused in cases:
         for dname in ("bfloat16", "float32"):
-            dt = getattr(torch, dname)
-            q, k, v = ((torch.randn((B, S, h, D), generator=gen, device="cuda")
-                        * 0.5).to(dt) for h in (H, K, K))
+            q, k, v = flash_inputs(torch, gen, B, S, H, K, D,
+                                   getattr(torch, dname), fused)
             for causal, window in masks:
-                err, ratio = check_kernel(torch, fa, q, k, v, causal, window,
-                                          f"D={D} S={S} {dname}")
+                err, ratio = check_kernel(
+                    torch, fa, q, k, v, causal, window,
+                    f"B={B} H={H} K={K} D={D} S={S}"
+                    f"{' fused-qkv view' if fused else ''} {dname}")
                 worst[dname] = max(worst[dname], err)
                 worst_ratio[dname] = max(worst_ratio[dname], ratio)
 
-    # timing at the longest main-path prompt: S=2048, bf16, causal
-    S, D, dname = 2048, 64, "bfloat16"
-    q, k, v = ((torch.randn((B, S, h, D), generator=gen, device="cuda") * 0.5)
-               .to(torch.bfloat16) for h in (H, K, K))
-    kernel_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), 20, torch)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, torch)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))      # (B, heads, S, D)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20, torch)
-    lib_err = (F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2).float()
-        - fa.flash_attention_cuda(q, k, v).float()).abs().max().item()
-    flops, nbytes = attention_work(B, S, H, K, D, True, 0, 2)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dname] * 1e3, nbytes / PEAK_BYTES * 1e3
-    print(f"flash_attention S={S} bf16 causal: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms "
-          f"(|sdpa - kernel| max {lib_err:.3e}); bound {max(t_ops, t_bytes):.4f}"
-          f" ms ({flops:.4g} FLOP, {nbytes:.4g} B)", flush=True)
+    # timing at S=2048, bf16, causal: the kernel and one library call
+    # (scaled_dot_product_attention, timed here only), each by device time
+    # from torch.profiler and by CUDA events, its plain version (events)
+    # and the bound
+    S, reps, shapes = 2048, 10, []
+    for name, H, K, D, window in FLASH_TIMED:
+        q, k, v = flash_inputs(torch, gen, 1, S, H, K, D, torch.bfloat16)
+        run = lambda: fa.flash_attention_cuda(q, k, v, window=window)
+        event_ms = cuda_ms(run, 20, torch)
+        prof = device_profile(torch, lambda: [run() for _ in range(reps)])
+        kernel_ms = sum(ms for n, ms in prof["all"] if "flash_fwd" in n) / reps
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=window), 3, torch)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, heads, S, D)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        library_event_ms = cuda_ms(sdpa, 20, torch)
+        lprof = device_profile(torch, lambda: [sdpa() for _ in range(reps)])
+        library_ms = lprof["device_ms"] / reps
+        # window 2048 at S = 2048 masks nothing that causal does not
+        lib_err = (sdpa().transpose(1, 2).float()
+                   - run().float()).abs().max().item()
+        flops, nbytes = attention_work(1, S, H, K, D, True, window, 2)
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        print(f"flash_attention {name} S={S} H={H} K={K} D={D} bf16 causal "
+              f"window={window}: kernel {kernel_ms:.4f} ms of device time, "
+              f"{event_ms:.4f} ms between CUDA events; plain {plain_ms:.4f} "
+              f"ms; library sdpa {library_ms:.4f} ms of device time, "
+              f"{library_event_ms:.4f} ms between events (|sdpa - kernel| max "
+              f"{lib_err:.3e}); bound {bound:.5f} ms ({flops:.4g} FLOP, "
+              f"{nbytes:.4g} B): kernel at {bound / kernel_ms:.1%} of it",
+              flush=True)
+        shapes.append({"shape": name, "B": 1, "S": S, "H": H, "K": K, "D": D,
+                       "dtype": "bfloat16", "causal": True, "window": window,
+                       "ms": kernel_ms, "event_ms": event_ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library_event_ms": library_event_ms,
+                       "library_max_abs_diff": lib_err, "bound_ms": bound,
+                       "bound_by": "operations" if t_ops >= t_bytes
+                       else "bytes", "flops": flops, "bytes": nbytes})
+    main = shapes[0]
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -376,14 +433,18 @@ def kernel_phase(torch, fa, seed: int) -> dict:
         "max_abs_err_bf16": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],
         "worst_err_over_bound": worst_ratio,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-        "timed_at": {"B": B, "S": S, "H": H, "K": K, "D": D,
-                     "dtype": dname, "causal": True, "window": 0},
+        "ms": main["ms"],
+        "event_ms": main["event_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library_event_ms": main["library_event_ms"],
+        "timed_at": {k: main[k] for k in ("shape", "B", "S", "H", "K", "D",
+                                          "dtype", "causal", "window")}
+        | {"ms, library_ms": "device time from torch.profiler",
+           "event_ms, library_event_ms, plain_ms": "CUDA events"},
+        "shapes": shapes,
     }
 
 
@@ -569,12 +630,18 @@ def serve_phase(torch, fa, seed: int, card: str) -> dict:
               f"{prof['kernels']} kernels; top: "
               + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"][:5]),
               flush=True)
+    prefill = profiles["prefill_2048"]
+    flash_ms = sum(ms for n, ms in prefill["all"] if "flash_fwd" in n)
+    print(f"serve: flash_attention in one S=2048 prefill: {flash_ms:.3f} ms "
+          f"of {prefill['device_ms']:.3f} ms of device time "
+          f"({flash_ms / prefill['device_ms']:.1%})", flush=True)
 
     return {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
             "prompt_lens": list(PROMPT_LENS), "gen": GEN, "slots": SLOTS,
             "stagger": STAGGER, "wall_s": wall,
             "tok_s": len(reqs) * GEN / wall, "stats": engine.stats,
             "flash_launches": launches, "prefill_ms": prefill_ms,
+            "prefill_2048_flash_device_ms": flash_ms,
             "prefill_logit_checks": checks, "profiles": profiles,
             "served_kernel_worst_err_over_bound": served_ratio,
             "microbench": rec,

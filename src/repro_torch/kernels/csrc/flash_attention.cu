@@ -3,55 +3,103 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_kernel and
 // computes the same function: online-softmax attention with the running max
 // m, denominator l and output accumulator kept in fp32, fully masked KV tiles
-// skipped, padded (ragged-tail) KV rows zeroed and masked, masks written with
-// the finite NEG_INF = -1e30 (with -inf a row whose first live tile is fully
-// masked would give exp(-inf - -inf) = NaN), and l clamped at 1e-30.
+// skipped (the skip is decided per query tile, as on the TPU, so the plain
+// version mirrors this kernel's tiles: flash_attention.py tile_sizes), padded
+// (ragged-tail) KV rows zeroed and masked, masks written with the finite
+// NEG_INF = -1e30 before the row max (with -inf a row whose first live tile
+// is fully masked would give exp(-inf - -inf) = NaN; with -1e30 it gets
+// p = 1 there and the next tile's alpha = 0 wipes it, as on the TPU), and l
+// clamped at 1e-30.  q, k, v are read as (B, S, heads, D) through their
+// strides (head dim contiguous); query head h reads KV head h / (H / K), so
+// repeat_kv is never materialised; the output is a contiguous (B, Sq, H, D).
+// Blocks are launched heaviest causal query tile first, all heads of one
+// query tile together (grid (H, q tiles, B)).
 //
-// Design, against what differs from the TPU:
-// * One thread block per (q-tile of 64 rows, query head h, batch b); a loop
-//   over 64-key tiles inside the block takes the place of the TPU's
-//   sequential k-block grid dimension.  Four warps; each warp owns 16 query
-//   rows.  Blocks are launched latest-q-tile first, so the heaviest causal
-//   tiles start first.
-// * Layout: q, k, v are read as (B, S, heads, D) through their strides (the
-//   head dim must be contiguous); no (B, H, S, D) copies are made.  The
-//   output is a contiguous (B, Sq, H, D) tensor.
-// * GQA: query head h reads KV head h / (H / K) directly; repeat_kv is never
-//   materialised.  With K == H this is the TPU kernel's pre-repeated input.
-// * bf16: Q K^T and P V run on the tensor cores through WMMA 16x16x16
-//   fragments with fp32 accumulation; P is rounded to bf16 for the second
-//   product (the TPU kernel multiplies p in fp32) while l sums the unrounded
-//   p, so each output moves by at most 2^-9 sum_k p_k |v_k| / l against the
-//   fp32 product (kernel_tolerance in flash_attention.py).  fp32: both products are
-//   plain FMA loops in fp32, so no TF32 rounding enters.
-// * Per row, lanes own columns lane and lane + 32 of the score tile and
-//   columns lane + 32 j of the output; row max and row sum are warp
-//   shuffles, so m, l and the fp32 output stay in registers.
+// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the
+// two products take 4 D FLOPs per visible (query, key) pair and the bytes
+// are q, k, v read once and o written once.  At S = 2048, causal:
+//   granite-3-2b  (H=32, K=8, D=64)   17.2 GFLOP, 21.0 MB: 0.0174 ms of FLOPs
+//   granite-8b    (H=32, K=8, D=128)  34.4 GFLOP, 41.9 MB: 0.0348 ms
+//   recurrentgemma-2b (H=10, K=1, D=256, window 2048) 21.5 GFLOP: 0.0217 ms
+// so the tensor cores bound it (the card's 295 FLOP/byte is passed above
+// S ~ 740 at granite's shape).  At D = 64 the softmax's exponentials take
+// as long as the products (16 exp per clock per SM against ~4096 bf16
+// FLOPs: 4 D = 256 FLOPs per score), so the exps and the fp32 work around
+// them must overlap the tensor cores rather than follow them.
 //
-// What bounds it on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s):
-// causal FLOPs ~ 2 B H S^2 D (two products over the lower triangle), bytes ~
-// 2 B S (2H + 2K) D for bf16 q, k, v read once and o written once.  At the
-// granite-3-2b prefill shape (H=32, K=8, D=64) that is H S / (2H + 2K) =
-// 0.4 S FLOP per byte, so the FLOPs bound it above S ~ 740 (the card's
-// 295 FLOP/byte) and the bytes below.  This first version uses WMMA
-// (mma.sync) and plain shared-memory tiles, not wgmma and TMA, and a
-// per-row softmax across the warp, so it stays far from that bound.
+// bf16 design (flash_fwd_bf16), tiles chosen by measurement
+// (probes/flash_tiles.py; flash_attention.py tile_sizes):
+// * A block is one query tile of BQ rows of one head: BQ / 64 consumer
+//   warpgroups of 64 rows each and a producer.  D = 64 and 128: BQ = 64,
+//   BK = 64, one consumer warpgroup and a lone producer warp, 3 (D = 64) or
+//   2 (D = 128) blocks an SM, so one block's start and end overlap the
+//   others' steady state; D = 256: BQ = 128, BK = 64, two consumer
+//   warpgroups and a producer warpgroup that setmaxnreg cuts to 24
+//   registers to give the consumers 240.  The C entry picks the tile from
+//   (dtype, D); probes/flash_tiles.py --plant times another query tile
+//   (BQ 64 or 128, BK 64) in a copy of the source.
+// * Copies: one producer thread issues TMA loads (cp.async.bulk.tensor) of
+//   the Q tile once and of K and V tiles into rings of STAGES = 2 stages,
+//   K and V each with a full and an empty mbarrier per stage, so a K stage
+//   is refilled as soon as its scores are in and a V stage once its P V is
+//   done.  The tensor maps are 4-D views (D, heads, S, B) with the caller's
+//   strides, encoded on the host through cuTensorMapEncodeTiled (reached
+//   through cudaGetDriverEntryPoint: no -lcuda) and passed as
+//   __grid_constant__ parameters.  Each box is 64 columns (128 bytes) x
+//   rows, so a tile of D columns is D / 64 boxes, each laid out in the
+//   128-byte swizzle that wgmma reads.  TMA zero-fills rows past S; keys
+//   >= Skv are masked as well.
+// * S = Q K^T: wgmma.m64nBKk16, both operands from shared memory (K-major,
+//   128-byte swizzle: 8-row groups 1024 bytes apart, a k16 step is +32
+//   bytes inside a 128-byte row, a 64-column chunk is the next box).
+// * Softmax on the accumulator registers: a row of the m64nN accumulator
+//   lives in 4 lanes, so its max takes 2 shuffles (its sum is kept per lane
+//   and reduced once, at the end).  The scale is folded into exp2 with
+//   log2(e): p = 2^(s c - m c), c = scale log2(e), one FFMA an element, on
+//   raw scores masked to NEG_INF; a row that has seen only masked keys
+//   takes c = 0, so its p is exactly 1, as on the TPU.  Only tiles that
+//   cross the causal diagonal, the window's edge or Skv are masked element
+//   by element.
+// * O += P V: P is rounded to bf16 in registers and fed as wgmma's register
+//   A operand (the m64nN accumulator layout of two n8 blocks is the A
+//   fragment of one k16 slice), so scores and P never touch shared memory.
+//   V is the B operand from shared memory, MN-major (tnspB): 64-column
+//   chunks LBO = BK * 128 bytes apart, 8-key groups SBO = 1024 bytes.
+//   l sums the unrounded p, so the output moves by at most
+//   2^-9 sum_k p_k |v_k| / l against the fp32 product (flash_attention.py
+//   kernel_tolerance).
+// * Overlap: a consumer warpgroup issues tile i's Q K^T, then tile i-1's
+//   P V, waits for the scores only and runs tile i's softmax while the
+//   tensor cores do P V; O is rescaled by alpha once P V is in.  The
+//   consumer warpgroups of an SM run unsynchronised, so one's softmax also
+//   overlaps the others' products.
+// * Epilogue: O / max(l, 1e-30) rounded to bf16, stored from registers;
+//   rows >= Sq are left out.
+// fp32 (flash_fwd_f32): both products are FMA loops in fp32 on shared-memory
+// tiles (no TF32), one warp per BQ / 4 query rows; it is the path of the
+// fp32 logits check, not of bf16 serving.
+#include <cuda.h>            // CUtensorMap and its enums; no driver symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;              // query rows per block
-constexpr int BK = 64;              // keys per KV tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS = BQ / WARPS;    // query rows per warp (16)
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int STAGES = 2;           // K/V ring depth (bf16)
+
+// own error codes, beside cudaError_t's (all positive)
+constexpr int ERR_UNSUPPORTED = -1;
+constexpr int ERR_NO_ENCODER = -2;
+constexpr int ERR_ENCODE = -3;
+constexpr int ERR_STRIDE = -4;
+
+constexpr int MAX_DEVICES = 64;     // devices whose kernel attributes are cached
 
 struct Params {
   const void* q;
@@ -66,217 +114,520 @@ struct Params {
   float scale;
 };
 
-// Shared-memory leading dimensions (in elements) per type and head dim.
-template <typename T, int D> struct Layout;
+// KV tiles [lo, hi) live for the query tile [q0, q0 + bq): those the TPU
+// kernel does not skip (some query of the tile may see some key of it).
+__device__ __forceinline__ void live_tiles(const Params& p, int q0, int bq, int bk, int& lo,
+                                           int& hi) {
+  const int nk = (p.Skv + bk - 1) / bk;
+  lo = 0;
+  hi = nk;
+  if (p.causal) hi = min(hi, (q0 + bq - 1) / bk + 1);        // k0 <= q_max
+  if (p.window > 0) {                                          // k0 + bk - 1 > q0 - window
+    const int t = q0 - p.window - bk + 1;
+    lo = t < 0 ? 0 : t / bk + 1;
+  }
+}
 
-// bf16: rows padded by 8 elements (16 bytes) to spread banks; WMMA needs the
-// leading dimension to be a multiple of 8 and 32-byte aligned tile pointers.
-template <int D> struct Layout<bf16, D> {
-  static constexpr int LDQ = D + 8, LDK = D + 8, LDV = D + 8, LDP = BK + 8;
-  // fp32 scratch per warp: the score tile, then the P V tile
-  static constexpr int LDS = (BK > D ? BK : D) + 4;
-  static constexpr int SCRATCH = ROWS * LDS;   // floats per warp
+// ---------------------------------------------------------------- PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier has completed the phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: one box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across
+// the asynchronous product's issue and its wait.
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  lbo/sbo in bytes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------------ wgmma (bf16 -> fp32)
+
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) B (16 x 64, smem), both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 registers) B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 registers) B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 256, fp32) += A (64 x 16, bf16 registers) B (16 x 256, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------------------- bf16 kernel
+
+template <int D, int BQ, int BK, int BLOCKS> struct Bf16Tile {
+  static constexpr int NWG = BQ / 64;            // consumer warpgroups
+  // the producer: a warpgroup that gives its registers away (setmaxnreg)
+  // beside two consumer warpgroups, a lone warp beside one
+  static constexpr int THREADS = NWG * 128 + (NWG == 2 ? 128 : 32);
+  static constexpr int NCH = D / 64;             // 64-column (128-byte) chunks
+  static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  // offsets from the 1024-byte aligned base: Q, K ring, V ring, barriers
+  // (q_full, then k_full, v_full, k_empty, v_empty per stage)
+  static constexpr uint32_t q = 0, k = Q_BYTES, v = k + STAGES * KV_BYTES,
+                            bar = v + STAGES * KV_BYTES;
+  static constexpr size_t bytes = bar + 8 * (1 + 4 * STAGES) + 1024;
+  // S tiles are m64n64 (wgmma_ss): BK = 64
+  static_assert(D % 64 == 0 && (BQ == 64 || BQ == 128) && BK == 64, "tile");
+  // BLOCKS blocks an SM at once: 228 KB of shared memory an SM, 1 KB of it
+  // reserved per block
+  static_assert(bytes <= 232448 && BLOCKS * (bytes + 1024) <= 233472, "shared memory");
 };
 
-// fp32: K rows padded by one word so that lanes reading K[c][d] for
-// c = lane hit distinct banks.  Scores stay in registers: no scratch.
-template <int D> struct Layout<float, D> {
-  static constexpr int LDQ = D, LDK = D + 1, LDV = D, LDP = BK;
-  static constexpr int SCRATCH = 0;
-};
-
-__host__ __device__ constexpr size_t round_up(size_t x) {
-  return (x + 127) / 128 * 128;
-}
-
-template <typename T, int D> struct Smem {
-  using L = Layout<T, D>;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + round_up(sizeof(T) * BQ * L::LDQ);
-  static constexpr size_t v = k + round_up(sizeof(T) * BK * L::LDK);
-  static constexpr size_t p = v + round_up(sizeof(T) * BK * L::LDV);
-  static constexpr size_t s = p + round_up(sizeof(T) * BQ * L::LDP);
-  static constexpr size_t bytes = s + round_up(sizeof(float) * WARPS * L::SCRATCH);
-};
-
-__device__ __forceinline__ float warp_max(float x) {
+// Issue S = Q K^T for K ring stage s (unscaled, fp32) and commit it.
+template <int D, int BQ, int BK>
+__device__ __forceinline__ void scores(float (&sc)[BK / 2], uint64_t dq, uint64_t dk, int s) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
+  for (int c = 0; c < D / 64; ++c)
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(sc, dq + ((c * BQ * 128 + kk * 32) >> 4),
+               dk + ((s * BK * D * 2 + c * BK * 128 + kk * 32) >> 4), c | kk);
+  wgmma_commit();
 }
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Copy rows [row0, row0 + ROWS_T) of one head into shared memory with
-// 16-byte loads; rows at or past `valid` are written as zeros (the ragged
-// tail: zero keys are masked below, zero values add nothing).
-template <typename T, int D, int LD, int ROWS_T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride,
-                                          int row0, int valid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;      // vectors per row
-  for (int i = threadIdx.x; i < ROWS_T * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    const int g = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (g < valid) val = *reinterpret_cast<const uint4*>(src + (long long)g * row_stride + c);
-    if constexpr ((LD * sizeof(T)) % 16 == 0) {
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    } else {
-      const T* e = reinterpret_cast<const T*>(&val);
+// Issue O += P V for V ring stage s and commit it.
+template <int D, int BK>
+__device__ __forceinline__ void accumulate_pv(float (&o)[D / 2], const uint32_t (&pa)[BK / 16][4],
+                                              uint64_t dv, int s) {
 #pragma unroll
-      for (int t = 0; t < VEC; ++t) dst[r * LD + c + t] = e[t];
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs(o, pa[kk], dv + ((s * BK * D * 2 + kk * 16 * 128) >> 4));
+  wgmma_commit();
+}
+
+// One tile's online softmax on the score registers: NEG_INF where masked
+// (tested only on edge tiles), the new row max m of the raw scores (2
+// shuffles: a row lives in the 4 lanes of a quad), alpha = 2^((m_old - m) c)
+// and p = 2^(s c - m c) in place of the scores, c = scale log2(e), one FFMA
+// each, and this lane's share of l.  A row masked so far (m = NEG_INF) takes
+// c = 0 there, so its p = 2^0 = 1, as exp(s - m) = exp(0) gives on the TPU.
+template <int BK>
+__device__ __forceinline__ void softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
+                                        float (&alpha)[2], const Params& p, int k0, int row0,
+                                        int lane, bool edge, float c2) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        bool ok = col < p.Skv;
+        if (p.causal) ok = ok && col <= row;
+        if (p.window > 0) ok = ok && row - col < p.window;
+        if (!ok) sc[4 * j + e] = NEG_INF;
+      }
+  }
+  float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f}, cr[2], mc[2];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2((m[r] - mx[r]) * c2);
+    m[r] = mx[r];
+    cr[r] = mx[r] == NEG_INF ? 0.f : c2;
+    mc[r] = mx[r] * cr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], cr[e >> 1], -mc[e >> 1]));
+      rs[e >> 1] += sc[4 * j + e];
     }
-  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 }
 
-// s[r][j] = Q[row r of this warp] . K[column lane + 32 j]   (unscaled)
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[ROWS][2], const float* Qw, const float* Ks,
-                                       float*, int lane,
-                                       const wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                                                            wmma::row_major>*) {
-  using L = Layout<float, D>;
+// P in bf16 as wgmma's A fragments: the k16 slice kk is n8 blocks 2kk, 2kk+1
+// of the accumulator, register for register.
+template <int BK>
+__device__ __forceinline__ void to_bf16(uint32_t (&pa)[BK / 16][4], const float (&sc)[BK / 2]) {
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float k0 = Ks[lane * L::LDK + d];
-    const float k1 = Ks[(lane + 32) * L::LDK + d];
+  for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float qv = Qw[r * L::LDQ + d];
-      s[r][0] = fmaf(qv, k0, s[r][0]);
-      s[r][1] = fmaf(qv, k1, s[r][1]);
-    }
-  }
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[ROWS][2], const bf16*, const bf16* Ks,
-                                       float* Sw, int lane,
-                                       const wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                                                            wmma::row_major>* qf) {
-  using L = Layout<bf16, D>;
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      // B(k = d, n = key) = Ks[key][d]: column-major with leading dim LDK
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, Ks + n * 16 * L::LDK + kk * 16, L::LDK);
-      wmma::mma_sync(acc, qf[kk], kf, acc);
-    }
-    wmma::store_matrix_sync(Sw + n * 16, acc, L::LDS, wmma::mem_row_major);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    s[r][0] = Sw[r * L::LDS + lane];
-    s[r][1] = Sw[r * L::LDS + lane + 32];
-  }
-  __syncwarp();
-}
-
-// o[r][j] = o[r][j] * alpha[r] + sum_k P[r][k] V[k][lane + 32 j]
-template <int D>
-__device__ __forceinline__ void accumulate_pv(float (&o)[ROWS][D / 32], const float (&alpha)[ROWS],
-                                              const float* Pw, const float* Vs, float*,
-                                              int lane) {
-  using L = Layout<float, D>;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) o[r][j] *= alpha[r];
-#pragma unroll 4
-  for (int kk = 0; kk < BK; ++kk) {
-    float vv[D / 32];
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) vv[j] = Vs[kk * L::LDV + lane + 32 * j];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float pr = Pw[r * L::LDP + kk];
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) o[r][j] = fmaf(pr, vv[j], o[r][j]);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void accumulate_pv(float (&o)[ROWS][D / 32], const float (&alpha)[ROWS],
-                                              const bf16* Pw, const bf16* Vs, float* Sw,
-                                              int lane) {
-  using L = Layout<bf16, D>;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-      wmma::load_matrix_sync(pf, Pw + kk * 16, L::LDP);
-      wmma::load_matrix_sync(vf, Vs + kk * 16 * L::LDV + n * 16, L::LDV);
-      wmma::mma_sync(acc, pf, vf, acc);
-    }
-    wmma::store_matrix_sync(Sw + n * 16, acc, L::LDS, wmma::mem_row_major);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j)
-      o[r][j] = o[r][j] * alpha[r] + Sw[r * L::LDS + lane + 32 * j];
-  __syncwarp();
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
-  using L = Layout<T, D>;
-  using S = Smem<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + S::q);
-  T* Ks = reinterpret_cast<T*>(smem + S::k);
-  T* Vs = reinterpret_cast<T*>(smem + S::v);
-  T* Ps = reinterpret_cast<T*>(smem + S::p);
-  float* Ss = reinterpret_cast<float*>(smem + S::s);
+template <int D, int BQ, int BK, int BLOCKS>
+__global__ void __launch_bounds__(Bf16Tile<D, BQ, BK, BLOCKS>::THREADS, BLOCKS)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv, const Params p) {
+  using T = Bf16Tile<D, BQ, BK, BLOCKS>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms need 1024-byte alignment
+  const uint32_t sq = base + T::q, sk = base + T::k, sv = base + T::v;
+  const uint32_t q_full = base + T::bar;
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
+  auto k_empty = [&](int s) { return q_full + 8u * (1 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return q_full + 8u * (1 + 3 * STAGES + s); };
 
   const int nq = (p.Sq + BQ - 1) / BQ;
-  const int iq = nq - 1 - static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int iq = nq - 1 - static_cast<int>(blockIdx.y);
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int kh = h / (p.H / p.K);
+  const int q0 = iq * BQ;
+  int lo, hi;
+  live_tiles(p, q0, BQ, BK, lo, hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), T::NWG);      // one arrival per consumer warpgroup
+      mbar_init(v_empty(s), T::NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == T::NWG) {
+    // ---- producer: one thread keeps the K and V rings full
+    if constexpr (T::NWG == 2) setmaxnreg_dec<24>();
+    if (threadIdx.x % 128 == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int c = 0; c < T::NCH; ++c)
+        tma_load(&tmq, sq + c * BQ * 128, q_full, 64 * c, h, q0, b);
+      for (int ik = lo, i = 0; ik < hi; ++ik, ++i) {
+        const int s = i % STAGES;
+        const uint32_t ph = (i / STAGES) & 1;
+        mbar_wait(k_empty(s), ph ^ 1);    // the first pass over the ring finds it free
+        mbar_expect_tx(k_full(s), T::KV_BYTES);
+        for (int c = 0; c < T::NCH; ++c)
+          tma_load(&tmk, sk + s * T::KV_BYTES + c * BK * 128, k_full(s), 64 * c, kh, ik * BK, b);
+        mbar_wait(v_empty(s), ph ^ 1);
+        mbar_expect_tx(v_full(s), T::KV_BYTES);
+        for (int c = 0; c < T::NCH; ++c)
+          tma_load(&tmv, sv + s * T::KV_BYTES + c * BK * 128, v_full(s), 64 * c, kh, ik * BK, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows q0 + 64 wg + [0, 64).  Tile i's
+    // S = Q K^T is issued before tile i-1's O += P V, so its softmax runs
+    // while the tensor cores do P V.
+    if constexpr (T::NWG == 2) setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;   // this lane's rows: row0, row0 + 8
+    const int rmin = q0 + 64 * wg, rmax = rmin + 63;
+    const float c2 = p.scale * LOG2E;
+    // does tile ik need the per-element mask for this warpgroup's rows?
+    auto edge = [&](int ik) {
+      const int k0 = ik * BK;
+      return k0 + BK > p.Skv || (p.causal && k0 + BK - 1 > rmin) ||
+             (p.window > 0 && k0 <= rmax - p.window);
+    };
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // l: this lane's share of the row sum
+
+    // Q rows of this warpgroup: 64 rows x 128 bytes into each chunk
+    const uint64_t dq = smem_desc(sq + wg * 64 * 128, 16, 1024);
+    const uint64_t dk = smem_desc(sk, 16, 1024);
+    const uint64_t dv = smem_desc(sv, BK * 128, 1024);
+    mbar_wait(q_full, 0);
+
+    const int n = hi - lo;
+    if (n > 0) {
+      float sc[BK / 2], alpha[2];
+      uint32_t pa[BK / 16][4];
+      mbar_wait(k_full(0), 0);
+      wgmma_fence();
+      scores<D, BQ, BK>(sc, dq, dk, 0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (t == 0) mbar_arrive(k_empty(0));
+      softmax<BK>(sc, m, l, alpha, p, lo * BK, row0, lane, edge(lo), c2);
+      to_bf16<BK>(pa, sc);                   // O is still 0: nothing to rescale
+
+      for (int i = 1; i < n; ++i) {
+        const int s = i % STAGES, ps = (i - 1) % STAGES;
+        const uint32_t ph = (i / STAGES) & 1, pph = ((i - 1) / STAGES) & 1;
+        mbar_wait(k_full(s), ph);
+        wgmma_fence();
+        scores<D, BQ, BK>(sc, dq, dk, s);
+        mbar_wait(v_full(ps), pph);
+        accumulate_pv<D, BK>(o, pa, dv, ps);
+        wgmma_wait<1>();                     // the scores are in
+        fence_regs(sc);
+        if (t == 0) mbar_arrive(k_empty(s));
+        softmax<BK>(sc, m, l, alpha, p, (lo + i) * BK, row0, lane, edge(lo + i), c2);
+        wgmma_wait<0>();                     // so is P V of tile i - 1
+        fence_regs(o);
+        fence_regs(pa);
+        if (t == 0) mbar_arrive(v_empty(ps));
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+        to_bf16<BK>(pa, sc);
+      }
+      const int ls = (n - 1) % STAGES;
+      mbar_wait(v_full(ls), ((n - 1) / STAGES) & 1);
+      wgmma_fence();
+      accumulate_pv<D, BK>(o, pa, dv, ls);
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+
+    // epilogue: O / max(l, 1e-30) in bf16, rows < Sq only
+    bf16* og = static_cast<bf16*>(p.o);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      const int row = row0 + 8 * r;
+      if (row < p.Sq) {
+        bf16* dst = og + (static_cast<long long>(b * p.Sq + row) * p.H + h) * D + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- fp32 kernel
+
+constexpr int F32_WARPS = 4;
+constexpr int F32_THREADS = F32_WARPS * 32;
+constexpr int F32_BK = 64;          // keys per KV tile
+
+__host__ __device__ constexpr size_t round_up(size_t x) { return (x + 127) / 128 * 128; }
+
+// Shared memory: Q (BQ x D), K (BK x D + 1 word per row, so lanes reading
+// K[c][d] for c = lane hit distinct banks), V (BK x D), P (BQ x BK).
+template <int D, int BQ> struct F32Tile {
+  static constexpr int ROWS = BQ / F32_WARPS;    // query rows per warp
+  static constexpr int LDK = D + 1;
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + round_up(sizeof(float) * BQ * D);
+  static constexpr size_t v = k + round_up(sizeof(float) * F32_BK * LDK);
+  static constexpr size_t pp = v + round_up(sizeof(float) * F32_BK * D);
+  static constexpr size_t bytes = pp + round_up(sizeof(float) * BQ * F32_BK);
+};
+
+// Copy rows [row0, row0 + NROWS) of one head into shared memory with
+// 16-byte loads; rows at or past `valid` are written as zeros (the ragged
+// tail: zero keys are masked, zero values add nothing).
+template <int D, int LD, int NROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long row_stride,
+                                          int row0, int valid) {
+  constexpr int VPR = D / 4;        // 16-byte vectors per row
+  for (int i = threadIdx.x; i < NROWS * VPR; i += F32_THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 4;
+    const int g = row0 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (g < valid) val = *reinterpret_cast<const float4*>(src + (long long)g * row_stride + c);
+    if constexpr (LD % 4 == 0) {
+      *reinterpret_cast<float4*>(dst + r * LD + c) = val;
+    } else {
+      dst[r * LD + c] = val.x;
+      dst[r * LD + c + 1] = val.y;
+      dst[r * LD + c + 2] = val.z;
+      dst[r * LD + c + 3] = val.w;
+    }
+  }
+}
+
+template <int D, int BQ>
+__global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(const Params p) {
+  using L = F32Tile<D, BQ>;
+  constexpr int ROWS = L::ROWS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem + L::q);
+  float* Ks = reinterpret_cast<float*>(smem + L::k);
+  float* Vs = reinterpret_cast<float*>(smem + L::v);
+  float* Ps = reinterpret_cast<float*>(smem + L::pp);
+
+  const int nq = (p.Sq + BQ - 1) / BQ;
+  const int iq = nq - 1 - static_cast<int>(blockIdx.y);
+  const int h = blockIdx.x, b = blockIdx.z;
   const int kh = h / (p.H / p.K);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kh * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kh * p.v_sh;
   const int q0 = iq * BQ;
-  const int q_max = q0 + BQ - 1;          // tile-level skip, as on the TPU
+  const float* Qw = Qs + warp * ROWS * D;
+  float* Pw = Ps + warp * ROWS * F32_BK;
 
-  T* Qw = Qs + warp * ROWS * L::LDQ;
-  T* Pw = Ps + warp * ROWS * L::LDP;
-  float* Sw = Ss + warp * L::SCRATCH;
-
-  load_tile<T, D, L::LDQ, BQ>(Qs, qg, p.q_ss, q0, p.Sq);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[D / 16];
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wmma::load_matrix_sync(qf[kk], reinterpret_cast<const bf16*>(Qw) + kk * 16, L::LDQ);
-  }
+  load_rows<D, D, BQ>(Qs, qg, p.q_ss, q0, p.Sq);
 
   float m[ROWS], l[ROWS], o[ROWS][D / 32];
 #pragma unroll
@@ -287,21 +638,30 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     for (int j = 0; j < D / 32; ++j) o[r][j] = 0.f;
   }
 
-  const int nk = (p.Skv + BK - 1) / BK;
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * BK;
-    bool live = true;
-    if (p.causal) live = live && k0 <= q_max;
-    if (p.window > 0) live = live && k0 + BK - 1 > q0 - p.window;
-    if (!live) continue;                  // uniform across the block
-
+  int lo, hi;
+  live_tiles(p, q0, BQ, F32_BK, lo, hi);
+  for (int ik = lo; ik < hi; ++ik) {
+    const int k0 = ik * F32_BK;
     __syncthreads();                      // every warp is done with the last tile
-    load_tile<T, D, L::LDK, BK>(Ks, kg, p.k_ss, k0, p.Skv);
-    load_tile<T, D, L::LDV, BK>(Vs, vg, p.v_ss, k0, p.Skv);
+    load_rows<D, L::LDK, F32_BK>(Ks, kg, p.k_ss, k0, p.Skv);
+    load_rows<D, D, F32_BK>(Vs, vg, p.v_ss, k0, p.Skv);
     __syncthreads();
 
+    // s[r][j] = Q[row r of this warp] . K[key lane + 32 j]   (unscaled)
     float s[ROWS][2];
-    scores<D>(s, Qw, Ks, Sw, lane, qf);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float k0v = Ks[lane * L::LDK + d];
+      const float k1v = Ks[(lane + 32) * L::LDK + d];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float qv = Qw[r * D + d];
+        s[r][0] = fmaf(qv, k0v, s[r][0]);
+        s[r][1] = fmaf(qv, k1v, s[r][1]);
+      }
+    }
 
     float alpha[ROWS];
 #pragma unroll
@@ -315,41 +675,145 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
         if (p.window > 0) ok = ok && qpos - kpos < p.window;
         s[r][j] = ok ? s[r][j] * p.scale : NEG_INF;
       }
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
+      float mx = fmaxf(s[r][0], s[r][1]);
+#pragma unroll
+      for (int x = 16; x > 0; x >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      const float m_new = fmaxf(m[r], mx);
       const float p0 = expf(s[r][0] - m_new);
       const float p1 = expf(s[r][1] - m_new);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int x = 16; x > 0; x >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, x);
       alpha[r] = expf(m[r] - m_new);
-      l[r] = l[r] * alpha[r] + warp_sum(p0 + p1);
+      l[r] = l[r] * alpha[r] + sum;
       m[r] = m_new;
-      Pw[r * L::LDP + lane] = from_float<T>(p0);
-      Pw[r * L::LDP + lane + 32] = from_float<T>(p1);
+      Pw[r * F32_BK + lane] = p0;
+      Pw[r * F32_BK + lane + 32] = p1;
     }
     __syncwarp();
-    accumulate_pv<D>(o, alpha, Pw, Vs, Sw, lane);
+
+    // o[r][j] = o[r][j] * alpha[r] + sum_k P[r][k] V[k][lane + 32 j]
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) o[r][j] *= alpha[r];
+#pragma unroll 4
+    for (int kk = 0; kk < F32_BK; ++kk) {
+      float vv[D / 32];
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) vv[j] = Vs[kk * D + lane + 32 * j];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float pr = Pw[r * F32_BK + kk];
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j) o[r][j] = fmaf(pr, vv[j], o[r][j]);
+      }
+    }
   }
 
-  T* og = static_cast<T*>(p.o);
+  float* og = static_cast<float*>(p.o);
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int qpos = q0 + warp * ROWS + r;
     if (qpos >= p.Sq) break;
     const float lr = fmaxf(l[r], 1e-30f);
-    T* row = og + ((long long)(b * p.Sq + qpos) * p.H + h) * D;
+    float* row = og + ((long long)(b * p.Sq + qpos) * p.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < D / 32; ++j) row[lane + 32 * j] = from_float<T>(o[r][j] / lr);
+    for (int j = 0; j < D / 32; ++j) row[lane + 32 * j] = o[r][j] / lr;
   }
 }
 
-template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t bytes = Smem<T, D>::bytes;
-  // above 48 KB, dynamic shared memory must be opted into (per device)
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(p);
+// ---------------------------------------------------------------- host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &got);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got);
+#endif
+    return got == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// The (D, heads, S, B) view of a bf16 (B, S, heads, D) tensor with element
+// strides sb, ss, sh; boxes of 64 columns x `rows` rows of one head, 128-byte
+// swizzle, zeros past the edges.  TMA takes positive strides only: a
+// dimension of size 1 is never stepped, so its stride may be anything; one
+// of stride 0 and size > 1 (an expanded view) is refused.
+int encode(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B, long long sh,
+           long long ss, long long sb, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  const long long size[3] = {heads, S, B}, given[3] = {sh, ss, sb};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    if (given[i] <= 0 && size[i] > 1) return ERR_STRIDE;
+    strides[i] = 2ull * static_cast<cuuint64_t>(given[i] > 0 ? given[i] : D);
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+// Above 48 KB, dynamic shared memory must be opted into, and the attribute
+// belongs to the device: set it (and the largest carveout) once per kernel
+// and device, `ready` being that kernel's flags.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes, std::atomic<bool> (&ready)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool cached = dev < MAX_DEVICES;
+  if (cached && ready[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (e == cudaSuccess && cached) ready[dev].store(true, std::memory_order_release);
+  return e;
+}
+
+template <int D, int BQ, int BK, int BLOCKS>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  using T = Bf16Tile<D, BQ, BK, BLOCKS>;
+  static std::atomic<bool> ready[MAX_DEVICES];
+  const cudaError_t attr = opt_in(flash_fwd_bf16<D, BQ, BK, BLOCKS>, T::bytes, ready);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap tq, tk, tv;
+  int e = encode(&tq, p.q, D, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, BQ);
+  if (e == 0) e = encode(&tk, p.k, D, p.K, p.Skv, p.B, p.k_sh, p.k_ss, p.k_sb, BK);
+  if (e == 0) e = encode(&tv, p.v, D, p.K, p.Skv, p.B, p.v_sh, p.v_ss, p.v_sb, BK);
+  if (e != 0) return e;
+  const dim3 grid(p.H, (p.Sq + BQ - 1) / BQ, p.B);
+  flash_fwd_bf16<D, BQ, BK, BLOCKS><<<grid, T::THREADS, T::bytes, stream>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int BQ>
+int launch_f32(const Params& p, cudaStream_t stream) {
+  constexpr size_t bytes = F32Tile<D, BQ>::bytes;
+  static std::atomic<bool> ready[MAX_DEVICES];
+  const cudaError_t attr = opt_in(flash_fwd_f32<D, BQ>, bytes, ready);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(p.H, (p.Sq + BQ - 1) / BQ, p.B);
+  flash_fwd_f32<D, BQ><<<grid, F32_THREADS, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,9 +821,11 @@ int launch(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns the
-// cudaError_t of the launch (0 on success), or -1 for an unsupported
-// dtype / head dim (the Python wrapper rejects those before calling).
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  The tiles
+// follow from (dtype, D), template <D, BQ, BK, blocks an SM> (mirrored by
+// flash_attention.py tile_sizes).  Returns the cudaError_t of the launch (0
+// on success), or a negative code of this file
+// (flash_attention_error_string).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
                         int B, int Sq, int Skv, int H, int K, int D,
                         long long q_sb, long long q_ss, long long q_sh,
@@ -370,15 +836,23 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                  causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64) return launch<bf16, 64>(p, st);
-  if (dtype == 1 && D == 128) return launch<bf16, 128>(p, st);
-  if (dtype == 0 && D == 64) return launch<float, 64>(p, st);
-  if (dtype == 0 && D == 128) return launch<float, 128>(p, st);
-  return -1;
+  if (dtype == 1) {
+    if (D == 64) return launch_bf16<64, 64, 64, 3>(p, st);
+    if (D == 128) return launch_bf16<128, 64, 64, 2>(p, st);
+    if (D == 256) return launch_bf16<256, 128, 64, 1>(p, st);
+  } else if (dtype == 0) {
+    if (D == 64) return launch_f32<64, 64>(p, st);
+    if (D == 128) return launch_f32<128, 64>(p, st);
+    if (D == 256) return launch_f32<256, 32>(p, st);
+  }
+  return ERR_UNSUPPORTED;
 }
 
 const char* flash_attention_error_string(int code) {
-  if (code == -1) return "unsupported dtype or head dim";
+  if (code == ERR_UNSUPPORTED) return "unsupported dtype or head dim";
+  if (code == ERR_NO_ENCODER) return "cuTensorMapEncodeTiled not found in the driver";
+  if (code == ERR_ENCODE) return "cuTensorMapEncodeTiled refused the q, k or v view";
+  if (code == ERR_STRIDE) return "a bf16 q, k or v has stride 0 along a dimension of size > 1";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -11,10 +11,10 @@ it replaces and what bounds it on the card.
   take; it never falls back to the plain version.  ``.launches`` counts its
   launches.
 * ``flash_attention_plain`` is the same function in plain PyTorch, with the
-  same tiles, the same tile-level skip, the same padded-KV guard and the
-  same finite ``NEG_INF`` masking.  The CPU path and the on-card kernel
-  check use it; ``kernel_tolerance`` is the bound the check holds the
-  kernel to.
+  kernel's tiles (``tile_sizes``), the same tile-level skip, the same
+  padded-KV guard and the same finite ``NEG_INF`` masking.  The CPU path
+  and the on-card kernel check use it; ``kernel_tolerance`` is the bound
+  the check holds the kernel to.
 
 Both take q (B, Sq, H, D) and k, v (B, Skv, K, D) with H % K == 0: query
 head h attends with KV head h // (H / K), which is what the reference's
@@ -31,10 +31,38 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-BLOCK_Q = 64        # the kernel's tile sizes (csrc/flash_attention.cu BQ, BK)
-BLOCK_K = 64
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (query rows, keys) of a tile, per (dtype, head dim): the instantiations
+# csrc/flash_attention.cu's C entry picks, chosen by measurement
+# (probes/flash_tiles.py).
+# bf16: 64 x 64 (one consumer warpgroup, 3 or 2 blocks an SM) up to
+# D = 128; 128 x 64 at D = 256 (two consumer warpgroups; Q and two stages
+# of K and V fill 192 KB).  fp32: 64 x 64, and 32 query rows at D = 256
+# (the FMA loop's output rows stay in registers).
+_TILES = {
+    (torch.bfloat16, 64): (64, 64),
+    (torch.bfloat16, 128): (64, 64),
+    (torch.bfloat16, 256): (128, 64),
+    (torch.float32, 64): (64, 64),
+    (torch.float32, 128): (64, 64),
+    (torch.float32, 256): (32, 64),
+}
+# tiles the plain version takes for a head dim or dtype the kernel does not
+# take (the CPU path only)
+_OTHER_TILES = (64, 64)
+
+
+def tile_sizes(D: int, dtype) -> tuple:
+    """(block_q, block_k) of the kernel for head dim ``D`` and ``dtype``;
+    raises for a head dim or dtype the kernel does not take."""
+    if dtype not in DTYPES:
+        raise ValueError(f"flash_attention: dtype {dtype} not supported "
+                         f"(float32, bfloat16)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not supported "
+                         f"{HEAD_DIMS}")
+    return _TILES[(dtype, D)]
 
 
 def _check_heads(H: int, K: int):
@@ -44,18 +72,22 @@ def _check_heads(H: int, K: int):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+                          block_q: int | None = None,
+                          block_k: int | None = None):
     """Plain PyTorch flash attention; returns (B, Sq, H, D) in q's dtype.
 
     The loop runs over KV tiles and is vectorised over query rows; a row
     takes a tile's update only if the tile is live for the row's query tile
     (the kernel's skip of fully masked tiles).  That skip changes the result
     only for rows with no visible key at all, which it leaves as the
-    kernel does.
+    kernel does.  The tiles default to the kernel's (``tile_sizes``).
     """
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     _check_heads(H, K)
+    tiles = _TILES.get((q.dtype, D), _OTHER_TILES)
+    block_q = tiles[0] if block_q is None else block_q
+    block_k = tiles[1] if block_k is None else block_k
     scale = 1.0 / (D ** 0.5)
     g = H // K
     qf = q.float().transpose(1, 2)                               # (B,H,Sq,D)
@@ -152,13 +184,8 @@ def _check_cuda_inputs(q, k, v, window):
         if t.dim() != 4:
             raise ValueError(f"flash_attention_cuda: {name} must be "
                              f"(B, S, heads, D), got {tuple(t.shape)}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not "
-                         f"supported (float32, bfloat16)")
     B, Sq, H, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not supported "
-                         f"{HEAD_DIMS}")
+    tile_sizes(D, q.dtype)
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention_cuda: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
@@ -167,7 +194,7 @@ def _check_cuda_inputs(q, k, v, window):
         raise ValueError("flash_attention_cuda: empty sequence")
     if window < 0:
         raise ValueError(f"flash_attention_cuda: window {window} < 0")
-    vec = 16 // q.element_size()        # the kernel's 16-byte loads
+    vec = 16 // q.element_size()        # 16-byte loads and TMA boxes
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention_cuda: {name}'s head dim must "
@@ -176,11 +203,19 @@ def _check_cuda_inputs(q, k, v, window):
             raise ValueError(f"flash_attention_cuda: {name} must be 16-byte "
                              f"aligned with strides in multiples of {vec} "
                              f"(strides {t.stride()})")
+        # bf16 is read by TMA, whose strides are positive; fp32 by pointers
+        if q.dtype == torch.bfloat16 and any(
+                st == 0 and n > 1 for st, n in zip(t.stride()[:3], t.shape)):
+            raise ValueError(f"flash_attention_cuda: bf16 {name} has stride "
+                             f"0 along a dimension of size > 1 (an expanded "
+                             f"view, strides {t.stride()}); make it "
+                             f"contiguous")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the Hopper kernel; returns a contiguous (B, Sq, H, D) tensor
-    in q's dtype.  Raises on a launch error (``cudaGetLastError``)."""
+    """Launch the Hopper kernel (its tiles: ``tile_sizes``); returns a
+    contiguous (B, Sq, H, D) tensor in q's dtype.  Raises on a launch
+    error."""
     window = int(window)
     _check_cuda_inputs(q, k, v, window)
     B, Sq, H, D = q.shape

@@ -8,6 +8,8 @@ frameworks round inputs and outputs at the same places but sum in another
 order).  The CUDA kernel itself runs only on the card:
 ``test_torch_kernels_cuda.py`` and ``chip_smoke.py``.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +48,7 @@ def _check(got, want, dtype):
 
 @pytest.mark.parametrize("B,S,H,D", [
     (1, 32, 1, 16), (2, 64, 4, 32), (1, 128, 2, 64), (2, 48, 3, 32),
+    (2, 40, 2, 256),            # recurrentgemma's head dim, ragged S
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 16), (False, 0)])
@@ -76,12 +79,18 @@ def test_uneven_lengths_and_single_query(Sq, Skv):
                                         block_k=16), pallas, "float32")
 
 
-@pytest.mark.parametrize("H,K", [(4, 2), (8, 1), (32, 8)])
+@pytest.mark.parametrize("H,K,D,S", [
+    pytest.param(4, 2, 16, 24, id="4-2"),
+    pytest.param(8, 1, 16, 24, id="8-1"),
+    pytest.param(32, 8, 16, 24, id="32-8"),
+    # MQA at recurrentgemma-2b's head dim, a ragged length
+    pytest.param(3, 1, 256, 37, id="3-1-D256-S37"),
+])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 8)])
-def test_gqa_mapping_matches_repeated_kv(H, K, causal, window):
+def test_gqa_mapping_matches_repeated_kv(H, K, D, S, causal, window):
     """Query head h reads KV head h // (H/K): the same as the reference's
     ``repeat_kv`` before the Pallas kernel."""
-    (jq, jk, jv), (tq, tk, tv) = _qkv(1, 24, H, 16, "float32", K=K)
+    (jq, jk, jv), (tq, tk, tv) = _qkv(1, S, H, D, "float32", K=K)
     rep = lambda a: jnp.repeat(a, H // K, axis=2)
     want = jops.flash_attention(jq, rep(jk), rep(jv), causal=causal,
                                 window=window, block_q=8, block_k=8,
@@ -111,12 +120,48 @@ def test_cpu_dispatch_takes_plain_and_cuda_wrapper_refuses_cpu():
                                  tv[:, :, :1].repeat(1, 1, 3, 1))
 
 
+def test_tile_sizes_mirror_the_kernels_dispatch():
+    """``tile_sizes`` gives, for every (dtype, head dim) the kernel takes,
+    the tiles that ``csrc/flash_attention.cu``'s C entry launches for it,
+    one instantiation a head dim, and the plain version defaults to them;
+    other head dims and dtypes raise."""
+    src = (fa.build.CSRC / "flash_attention.cu").read_text()
+    f32_bk = re.search(r"constexpr int F32_BK = (\d+);", src).group(1)
+    made = {}
+    for dtype, pat in (
+            (torch.bfloat16,
+             r"if \(D == (\d+)\) return launch_bf16<(\d+), (\d+), (\d+), \d+>"),
+            (torch.float32,
+             r"if \(D == (\d+)\) return launch_f32<(\d+), (\d+)>()")):
+        for d, d_t, bq, bk in re.findall(pat, src):
+            assert d == d_t and (dtype, int(d)) not in made, (dtype, d)
+            made[(dtype, int(d))] = (int(bq), int(bk or f32_bk))
+    assert made == {(dtype, D): fa.tile_sizes(D, dtype)
+                    for dtype in fa.DTYPES for D in fa.HEAD_DIMS}
+    assert fa.HEAD_DIMS == (64, 128, 256)
+    _, (q, k, v) = _qkv(1, 130, 2, 8, "float32", K=1)
+    for dtype in fa.DTYPES:
+        for D in fa.HEAD_DIMS:
+            bq, bk = fa.tile_sizes(D, dtype)
+            x = [t.to(dtype).repeat(1, 1, 1, D // 8) for t in (q, k, v)]
+            torch.testing.assert_close(
+                fa.flash_attention_plain(*x, causal=False, window=7),
+                fa.flash_attention_plain(*x, causal=False, window=7,
+                                         block_q=bq, block_k=bk),
+                rtol=0, atol=0)
+    for D, dtype in ((32, torch.float32), (32, torch.bfloat16),
+                     (16, torch.bfloat16), (64, torch.float16)):
+        with pytest.raises(ValueError, match="head dim|dtype"):
+            fa.tile_sizes(D, dtype)
+
+
 def _bf16_kernel_model(q, k, v, *, causal, fault=None, late=256):
     """Dense attention with the bf16 kernel's rounding: each p (relative
     to its row max) rounded to bf16 before P V, l summed from the unrounded
     p, the output rounded to bf16.  ``fault`` plants a kernel bug in rows
-    ``>= late``: "dropped_tile" skips keys [0, 64), "causal_off_by_one"
-    lets row q see key q + 1."""
+    ``>= late``: "dropped_tile" skips the first KV tile of the kernel's
+    tiles (``tile_sizes``), "causal_off_by_one" lets row q see key
+    q + 1."""
     B, S, H, D = q.shape
     g = H // k.shape[2]
     qf = q.float().transpose(1, 2)
@@ -126,23 +171,30 @@ def _bf16_kernel_model(q, k, v, *, causal, fault=None, late=256):
     reach = rows + (1 if fault == "causal_off_by_one" else 0) * (rows >= late)
     visible = cols <= reach if causal else torch.ones(S, S, dtype=torch.bool)
     if fault == "dropped_tile":
-        visible = visible & ~((rows >= late) & (cols < fa.BLOCK_K))
+        block_k = fa.tile_sizes(D, q.dtype)[1]
+        visible = visible & ~((rows >= late) & (cols < block_k))
     s = torch.where(visible, qf @ kf.transpose(-1, -2) / D ** 0.5, fa.NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     out = (p.bfloat16().float() @ vf) / p.sum(-1, keepdim=True)
     return out.transpose(1, 2).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("fault,causal", [
-    (None, True), (None, False), ("dropped_tile", True),
-    ("dropped_tile", False), ("causal_off_by_one", True)])
-def test_kernel_tolerance_admits_rounding_and_rejects_faults(fault, causal):
+_FAULTS = [(None, True), (None, False), ("dropped_tile", True),
+           ("dropped_tile", False), ("causal_off_by_one", True)]
+
+
+@pytest.mark.parametrize("fault,causal,D,K", [
+    pytest.param(f, c, 64, 2, id=f"{f}-{c}") for f, c in _FAULTS] + [
+    # recurrentgemma-2b's head dim, MQA
+    pytest.param(f, c, 256, 1, id=f"{f}-{c}-D256") for f, c in _FAULTS])
+def test_kernel_tolerance_admits_rounding_and_rejects_faults(fault, causal,
+                                                             D, K):
     """``kernel_tolerance`` (the on-card kernel check's bound) admits the
     bf16 kernel's rounding of P and of the output, and rejects a dropped
     KV tile or a causal off-by-one confined to rows >= 256 of 512, where
     each output averages hundreds of values: the off-by-one moves none by
     more than ~1e-2, which the reference's 2e-2 tolerance would admit."""
-    _, (q, k, v) = _qkv(1, 512, 4, 64, "bfloat16", K=2)
+    _, (q, k, v) = _qkv(1, 512, 4, D, "bfloat16", K=K)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     got = _bf16_kernel_model(q, k, v, causal=causal, fault=fault)
     err = (got.float() - want.float()).abs()

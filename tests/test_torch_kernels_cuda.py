@@ -47,11 +47,18 @@ def _qkv(B, S, H, K, D, dtype, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
-def test_kernel_matches_plain(card, dtype, D):
-    """Batch 2, ragged length 200, GQA 8/2, all three masks; the launch
-    counter moves once per launch."""
-    q, k, v = _qkv(2, 200, 8, 2, D, dtype, card)
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("H,K,layout", [(8, 2, "gqa"), (4, 1, "mqa"),
+                                        (8, 2, "fused")])
+def test_kernel_matches_plain(card, dtype, D, H, K, layout):
+    """Batch 2, ragged length 200, GQA 8/2 or MQA 4/1, all three masks;
+    "fused": q, k, v are views of one (B, S, H + 2K, D) projection (strided
+    heads).  The launch counter moves once per launch."""
+    if layout == "fused":
+        qkv, _, _ = _qkv(2, 200, H + 2 * K, 1, D, dtype, card)
+        q, k, v = qkv.split([H, K, K], dim=2)
+    else:
+        q, k, v = _qkv(2, 200, H, K, D, dtype, card)
     for causal, window in ((True, 0), (True, 64), (False, 0)):
         before = fa.flash_attention_cuda.launches
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -63,6 +70,38 @@ def test_kernel_matches_plain(card, dtype, D):
                                   window=window)
         err = (got.float() - want.float()).abs()
         assert bool((err <= tol).all()), (err / tol).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["heads", "batch", "size1"])
+def test_kernel_on_stride0_kv_matches_plain_or_raises(card, dtype, view):
+    """k, v with stride 0: expanded along the KV heads or the batch (size >
+    1), or along dimensions of size 1.  fp32 reads through pointers and
+    takes all three; bf16 reads through TMA, which takes no stride 0, so it
+    raises on an expanded view and takes stride 0 only at size 1.  Taken
+    views match the plain version."""
+    q, k, v = _qkv(2, 200, 8, 2, 64, dtype, card)
+    if view == "heads":
+        k, v = (t[:, :, :1].expand(2, 200, 2, 64) for t in (k, v))
+    elif view == "batch":
+        k, v = (t[:1].expand(2, 200, 2, 64) for t in (k, v))
+    else:
+        q = q[:1]
+        k, v = (t[:1, :, :1].as_strided((1, 200, 1, 64),
+                                         (0, t.stride(1), 0, 1))
+                for t in (k, v))
+    assert 0 in k.stride() and 0 in v.stride()
+    if dtype == torch.bfloat16 and view != "size1":
+        with pytest.raises(ValueError, match="stride 0"):
+            fa.flash_attention_cuda(q, k, v)
+        return
+    got = fa.flash_attention_cuda(q, k, v, window=64)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, window=64)
+    tol = fa.kernel_tolerance(q, k, v, want, window=64)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), (err / tol).max().item()
 
 
 @pytest.mark.cuda
