@@ -117,12 +117,15 @@ without either.  Phases, each of which raises on a failed check:
 11. ssd_scan kernel (run after phase 9): ``ssd_scan_cuda`` against
    ``ssd_scan_plain`` on the same inputs, y and the final state within
    ``ssd_scan.kernel_tolerance``, at the mamba2-1.3b prefill shape (B=1,
-   H=64, P=64, N=128, one group, chunk 256; S in {256, 512, 2048}), at B=2
-   with groups pre-repeated to heads and chunk 16, each in bf16 and fp32,
-   and the reference's state-carry case (dt 0.05, A -0.01, a unit impulse
-   at t=0, S=1024: the last chunk must still see token 0).  Times the
-   kernel (device time from ``torch.profiler``, and CUDA events) and its
-   plain version at S=2048, bf16, beside the card's bound; no single
+   H=64, P=64, N=128, one group, chunk 256; S in {256, 512, 2048, 4096}:
+   one chunk up to a chain of 16), at B=2 with groups pre-repeated to
+   heads and chunk 16 and with 8 groups at chunk 256, each in bf16 and
+   fp32, and the reference's state-carry case (dt 0.05, A -0.01, a unit
+   impulse at t=0, S=1024: the last chunk must still see token 0).  Times
+   the kernel (device time from ``torch.profiler``, each of its kernels by
+   name, and CUDA events) and its plain version at S=2048, bf16, beside the
+   card's bound with its terms (C B^T and the split products on the tensor
+   cores, the bytes) and its CUDA-core pricing; no single
    PyTorch call computes the scan.
 12. Serve Mamba2 (run after phase 4): mamba2-1.3b at full width and depth
    (48 layers, bf16, random weights from ``--seed``) through
@@ -236,7 +239,10 @@ SSM_STATE_NOISE_FACTOR = 2.0
 # the ssd_scan phase: mamba2-1.3b's prefill layout
 SSD_WIDTHS = dict(H=64, P=64, N=128)
 SSD_CHUNK = 256
-SSD_SEQS = (256, 512, 2048)
+# S = 256 is one chunk (no state to carry between chunks); 4096 the longest
+# chain of carried states
+SSD_SEQS = (256, 512, 2048, 4096)
+SSD_GROUPS = 8                      # the B = 2 grouped case: 8 heads a group
 
 
 def nvidia_smi() -> str:
@@ -847,6 +853,11 @@ def mamba2_serve_phase(torch, ssd, seed: int, card: str) -> dict:
               f" {prof['kernels']} kernels; top: "
               + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"][:5]),
               flush=True)
+    pre = profiles["prefill_2048"]
+    ssd_ms = sum(ms for name, ms in pre["all"] if "ssd_scan" in name)
+    print(f"profile mamba2 prefill_2048: ssd_scan kernels {ssd_ms:.3f} ms of "
+          f"{pre['device_ms']:.3f} ms device busy "
+          f"({ssd_ms / pre['device_ms']:.1%})", flush=True)
     return {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
             "params": model.num_params(params),
             "prompt_lens": list(MAMBA_PROMPT_LENS), "gen": GEN,
@@ -855,7 +866,8 @@ def mamba2_serve_phase(torch, ssd, seed: int, card: str) -> dict:
             "launches": counts, "ssd_launches": counts["ssd_scan"],
             "prefill_ms": prefill_ms, "prefill_checks": checks,
             "served_kernel_worst_err_over_bound": served_ratio,
-            "profiles": profiles, "microbench": rec,
+            "profiles": profiles, "prefill_2048_ssd_device_ms": ssd_ms,
+            "microbench": rec,
             "joules_per_decode_token_at_power_limit":
                 at_limit.joules_per_decode_step}
 
@@ -1580,21 +1592,48 @@ def serve_step_phase(torch, fs, seed: int) -> dict:
     }
 
 
-def ssd_work(B, S, H, P, G, N, chunk, elsize) -> tuple:
-    """(FLOPs on bf16 operands, FLOPs on fp32 operands, bytes) the chunked
-    scan needs: per (b, h) and chunk, C.B over the causal pairs (Q(Q+1)/2 N
-    FMAs; bf16 operands when x, B and C are bf16, whose products are exact
-    in fp32), the weighted sum of x over them (Q(Q+1)/2 P, weights in
-    fp32), C.h and the state update (2 Q P N, fp32), two FLOPs an FMA; x,
-    B, C, dt and A read once, y and the final state (fp32) written once."""
+def ssd_work(B, S, H, P, G, N, chunk, elsize) -> dict:
+    """The chunked scan's work, per chunk: C.B over the causal pairs
+    (Q(Q+1)/2 N FMAs) once a (b, group), since C_t.B_s depends on neither
+    dt nor A and every head of a group shares it (on operands of x's dtype:
+    bf16 products are exact in fp32), and once a (b, h) the products with
+    an fp32 operand, M x over the causal pairs (Q(Q+1)/2 P), C.h and the
+    state update (2 Q P N); two FLOPs an FMA.  Bytes: x, B, C, dt and A
+    read once, y and the final state (fp32) written once.
+    ``workspace_bytes``: what the bf16 design adds, each chunk's state
+    update in fp32 and its carried state as two bf16 terms, each written
+    once and read at least once; it is the design's own traffic, not the
+    work's, and stays out of the bound."""
     Q, nC = chunk, S // chunk
-    cb = B * H * nC * Q * (Q + 1) // 2 * N
-    rest = B * H * nC * (Q * (Q + 1) // 2 * P + 2 * Q * P * N)
+    cb = 2 * B * G * nC * Q * (Q + 1) // 2 * N
+    rest = 2 * B * H * nC * (Q * (Q + 1) // 2 * P + 2 * Q * P * N)
     nbytes = (elsize * (B * S * H * P + 2 * B * S * G * N)
               + 4 * (B * S * H + H) + 4 * (B * S * H * P + B * H * P * N))
-    if elsize == 2:
-        return 2 * cb, 2 * rest, nbytes
-    return 0, 2 * (cb + rest), nbytes
+    workspace = 2 * 4 * B * H * nC * P * N if elsize == 2 else 0
+    return {"cb_flops": cb, "fp32_operand_flops": rest, "bytes": nbytes,
+            "workspace_bytes": workspace}
+
+
+def ssd_bound(ssd, work) -> dict:
+    """The least time (ms) the card could take for ``ssd_work``'s work in
+    bf16: C.B and ``ssd.SPLIT_TERMS`` bf16 terms of each product with an
+    fp32 operand on the tensor cores (the card can do them no other way at
+    that rate), against the bytes at 3.35 TB/s.  ``cuda_core_ms`` prices
+    it as a kernel without the split would run it (the fp32-operand
+    products at the fp32 rate)."""
+    split = ssd.SPLIT_TERMS
+    flops = work["cb_flops"] + split * work["fp32_operand_flops"]
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    cuda_core = max((work["cb_flops"] / PEAK_FLOPS["bfloat16"]
+                     + work["fp32_operand_flops"] / PEAK_FLOPS["float32"])
+                    * 1e3, t_bytes)
+    return {"ms": max(t_ops, t_bytes),
+            "by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes, "split_terms": split,
+            "flops_at_bf16_rate": flops, "bf16_rate": PEAK_FLOPS["bfloat16"],
+            "fp32_rate": PEAK_FLOPS["float32"], "byte_rate": PEAK_BYTES,
+            "cuda_core_ms": cuda_core}
 
 
 def ssd_inputs(torch, gen, B, S, H, P, G, N, dtype):
@@ -1639,7 +1678,8 @@ def ssd_scan_phase(torch, ssd, seed: int) -> dict:
     H, P, N = SSD_WIDTHS["H"], SSD_WIDTHS["P"], SSD_WIDTHS["N"]
     worst = {"bfloat16": 0.0, "float32": 0.0}
     worst_ratio = 0.0
-    cases = [(1, S, 1, SSD_CHUNK) for S in SSD_SEQS] + [(2, 512, H, 16)]
+    cases = ([(1, S, 1, SSD_CHUNK) for S in SSD_SEQS]
+             + [(2, 512, H, 16), (2, 512, SSD_GROUPS, SSD_CHUNK)])
     for B, S, G, chunk in cases:
         for dname in ("bfloat16", "float32"):
             inputs = ssd_inputs(torch, gen, B, S, H, P, G, N,
@@ -1680,16 +1720,33 @@ def ssd_scan_phase(torch, ssd, seed: int) -> dict:
     reps = 10
     prof = device_profile(torch, lambda: [
         ssd.ssd_scan_cuda(*inputs, chunk=SSD_CHUNK) for _ in range(reps)])
-    kernel_ms = sum(ms for name, ms in prof["all"]
-                    if "ssd_scan" in name) / reps
-    f16, f32, nbytes = ssd_work(B, S, H, P, 1, N, SSD_CHUNK, 2)
-    t_ops = (f16 / PEAK_FLOPS["bfloat16"] + f32 / PEAK_FLOPS["float32"]) * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+    parts = {name: ms / reps for name, ms in prof["all"]
+             if "ssd_scan" in name}
+    kernel_ms = sum(parts.values())
+    work = ssd_work(B, S, H, P, 1, N, SSD_CHUNK, 2)
+    bound = ssd_bound(ssd, work)
     print(f"ssd_scan S={S} bf16 H={H} P={P} N={N} G=1 chunk={SSD_CHUNK}: "
           f"kernel {kernel_ms:.4f} ms of device time, {event_ms:.4f} ms "
-          f"between CUDA events; plain {plain_ms:.4f} ms; no library call; "
-          f"bound {max(t_ops, t_bytes):.4f} ms ({f16:.4g} FLOP at the bf16 "
-          f"rate + {f32:.4g} at the fp32 rate, {nbytes:.4g} B)", flush=True)
+          f"between CUDA events; plain {plain_ms:.4f} ms; no library call",
+          flush=True)
+    others = [(name, ms / reps) for name, ms in prof["all"]
+              if "ssd_scan" not in name]
+    print("ssd_scan kernels of one call, device ms: "
+          + "; ".join(f"{name} {ms:.4f}" for name, ms in parts.items())
+          + "".join(f"; also on the stream: {name} {ms:.4f}"
+                    for name, ms in others), flush=True)
+    print(f"ssd_scan bound {bound['ms']:.4f} ms ({bound['by']}): "
+          f"{work['cb_flops']:.4g} FLOP of C.B (once a group) + "
+          f"{bound['split_terms']} x {work['fp32_operand_flops']:.4g} FLOP "
+          f"of M x, C.h and the state "
+          f"update (their fp32 operand as {bound['split_terms']} bf16 terms) "
+          f"at {bound['bf16_rate']:.4g} FLOP/s = {bound['ops_ms']:.4f} ms; "
+          f"{work['bytes']:.4g} B at {bound['byte_rate']:.4g} B/s = "
+          f"{bound['bytes_ms']:.4f} ms; share {bound['ms'] / kernel_ms:.1%}. "
+          f"Priced with the fp32-operand products at the CUDA cores' "
+          f"{bound['fp32_rate']:.4g} FLOP/s: {bound['cuda_core_ms']:.4f} ms. "
+          f"The design's own workspace traffic, not in the bound: "
+          f"{work['workspace_bytes']:.4g} B written and read", flush=True)
     return {
         "name": "ssd_scan",
         "route": "cuda",
@@ -1702,15 +1759,16 @@ def ssd_scan_phase(torch, ssd, seed: int) -> dict:
         "worst_err_over_bound": worst_ratio,
         "ms": kernel_ms,
         "event_ms": event_ms,
+        "kernel_parts_ms": parts,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound["ms"],
+        "bound_by": bound["by"],
+        "bound_terms": bound,
         "library_ms": None,
         "timed_at": {"B": B, "S": S, "H": H, "P": P, "N": N, "G": 1,
-                     "chunk": SSD_CHUNK, "dtype": dname,
-                     "flops_bf16": f16, "flops_fp32": f32,
-                     "bytes": nbytes,
-                     "ms": "device time from torch.profiler"},
+                     "chunk": SSD_CHUNK, "dtype": dname, **work,
+                     "ms": "device time from torch.profiler: the sum of "
+                           "the kernels named ssd_scan"},
     }
 
 

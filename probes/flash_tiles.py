@@ -18,10 +18,11 @@ skips the timing; ``--time-only`` skips the checks; ``--dims`` keeps only
 the given head dims.
 
 ``--plant D:BQ:BLOCKS`` measures a bf16 tile that does not ship: in a copy
-of ``src/`` (never in the checkout itself) the C entry's instantiation for
-head dim D becomes ``launch_bf16<D, BQ, 64, BLOCKS>`` (BQ query rows: 64 or
-128, BLOCKS blocks an SM) and ``tile_sizes`` follows it, and the copy's
-probe runs for that head dim alone.
+of the checkout (``probes/plant.py``; never in the checkout itself) the C
+entry's instantiation for head dim D becomes ``launch_bf16<D, BQ, 64,
+BLOCKS>`` (BQ query rows: 64 or 128, BLOCKS blocks an SM) and
+``tile_sizes`` follows it, and the copy's probe runs for that head dim
+alone.
 
 Exits 1 if a check fails.  Needs one NVIDIA Hopper card.
 """
@@ -30,7 +31,6 @@ from __future__ import annotations
 import argparse
 import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -44,35 +44,31 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs                                   # noqa: E402
 from repro_torch.kernels import build                     # noqa: E402
 from repro_torch.kernels import flash_attention as fa     # noqa: E402
+from plant import plant                                   # noqa: E402
 
 SHAPES = {64: (32, 8, 0), 128: (32, 8, 0), 256: (10, 1, 2048)}   # H, K, window
 CU = os.path.join("src", "repro_torch", "kernels", "csrc", "flash_attention.cu")
 PY = os.path.join("src", "repro_torch", "kernels", "flash_attention.py")
 
 
-def plant(spec: str, rest: list) -> int:
+def plant_tile(spec: str, rest: list) -> int:
     """Run this probe in a copy of the checkout whose bf16 tile at head dim
     D is (BQ, 64) with BLOCKS blocks an SM; returns its exit code."""
     D, bq, blocks = (int(x) for x in spec.split(":"))
+    edits = []
+    for path, pat, new in ((CU, rf"launch_bf16<{D}, \d+, 64, \d+>",
+                            f"launch_bf16<{D}, {bq}, 64, {blocks}>"),
+                           (PY, rf"\(torch\.bfloat16, {D}\): \(\d+, 64\)",
+                            f"(torch.bfloat16, {D}): ({bq}, 64)")):
+        with open(os.path.join(REPO, path)) as f:
+            found = re.findall(pat, f.read())
+        if len(found) != 1:
+            raise SystemExit(f"flash_tiles: --plant {spec} matched "
+                             f"{len(found)} places in {path}")
+        edits.append((path, found[0], new))
     with tempfile.TemporaryDirectory() as work:
-        shutil.copytree(os.path.join(REPO, "src"), os.path.join(work, "src"),
-                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        for name in ("chip_smoke.py", os.path.join("probes", "flash_tiles.py")):
-            os.makedirs(os.path.dirname(os.path.join(work, name)), exist_ok=True)
-            shutil.copy(os.path.join(REPO, name), os.path.join(work, name))
-        edits = ((CU, rf"launch_bf16<{D}, \d+, 64, \d+>",
-                  f"launch_bf16<{D}, {bq}, 64, {blocks}>"),
-                 (PY, rf"\(torch\.bfloat16, {D}\): \(\d+, 64\)",
-                  f"(torch.bfloat16, {D}): ({bq}, 64)"))
-        for path, pat, new in edits:
-            full = os.path.join(work, path)
-            with open(full) as f:
-                text, n = re.subn(pat, new, f.read())
-            if n != 1:
-                raise SystemExit(f"flash_tiles: --plant {spec} matched {n} "
-                                 f"places in {path}")
-            with open(full, "w") as f:
-                f.write(text)
+        plant(work, edits, extra=[os.path.join("probes", name)
+                                  for name in ("flash_tiles.py", "plant.py")])
         print(f"planted bf16 D={D}: tiles ({bq}, 64), {blocks} blocks an SM",
               flush=True)
         return subprocess.run([sys.executable,
@@ -100,8 +96,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("flash_tiles: no CUDA card")
     if args.plant:
-        return plant(args.plant, [f for f in ("--quick", "--time-only")
-                                  if getattr(args, f[2:].replace("-", "_"))])
+        return plant_tile(args.plant,
+                          [f for f in ("--quick", "--time-only")
+                           if getattr(args, f[2:].replace("-", "_"))])
     dims = [int(d) for d in args.dims.split(",")]
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.nvidia_smi(), "| torch", torch.__version__, "CUDA",

@@ -3,8 +3,9 @@ a plain C interface -> ``ctypes``.
 
 Every library is compiled from the sources under ``kernels/csrc`` only, for
 ``sm_90a`` (Hopper; ``wgmma``/``setmaxnreg`` need the ``a``), into
-``kernels/_build/<name>-<hash>/`` where the hash covers the sources and the
-flags, so an edited source is rebuilt and an unchanged one is reused.  That
+``kernels/_build/<name>-<hash>/`` where the hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+is rebuilt and an unchanged one is reused.  That
 directory is listed in ``.gitignore``.  Nothing here runs at import time:
 the CPU tests import every module, and this machine may have no ``nvcc``.
 """
@@ -43,10 +44,11 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where library ``name`` (from ``csrc/<name>.cu``) lives once built,
-    keyed on a hash of its source and the compiler flags."""
-    src = CSRC / f"{name}.cu"
+    keyed on a hash of its source, the shared headers and the compiler
+    flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.read_bytes())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 

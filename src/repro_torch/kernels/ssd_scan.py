@@ -4,12 +4,15 @@ wrapper and its plain PyTorch version.
 Port of ``repro/kernels/ssd_scan.py``.  The kernel lives in
 ``csrc/ssd_scan.cu`` (CUDA C++ for ``sm_90a``, built by ``kernels/build.py``
 and bound through ``ctypes``); its source note says what it replaces and
-what bounds it on the card.
+what bounds it on the card.  In bf16 it runs as three launches (the
+chunks' state updates in parallel, their recurrence, then y chunk by chunk
+in parallel) on ``wgmma`` with TMA loads, its fp32 operands split into
+``SPLIT_TERMS`` bf16 terms; fp32 inputs take FMA loops on the CUDA cores.
 
 * ``ssd_scan_cuda`` launches the kernel on PyTorch's current stream.  It
   takes CUDA tensors only and raises on anything the kernel does not take;
   it never falls back to the plain version.  ``.launches`` counts its
-  launches.
+  calls (one a call, whatever the number of launches inside it).
 * ``ssd_scan_plain`` is the same function in plain PyTorch: the chunked
   einsums of the reference's ``models.ssm.ssd_chunked``, with its masked
   ``where(mask, exp(diff), 0)``, and the kernel's prefix sums of dt A
@@ -37,6 +40,12 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 128                     # csrc/ssd_scan.cu NMAX
+MAX_HEAD_DIM_BF16 = 64              # csrc/ssd_scan.cu PMAX_BF16
+# bf16 terms of each fp32 operand of the bf16 path's tensor-core products
+# (M, the state update's x dt exp(.), the carried state in C h^T).  It
+# mirrors the two terms csrc/ssd_scan.cu hardcodes (hi and lo): changing it
+# does not change the kernel, only the CPU model of the split and the bound.
+SPLIT_TERMS = 2
 
 
 def _check_shapes(x, dt, A, Bm, Cm, chunk: int):
@@ -177,9 +186,11 @@ def kernel_tolerance(x, dt, A, Bm, Cm, *, chunk: int):
 def _kernel():
     lib = build.load("ssd_scan")
     fn = lib.ssd_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 7
+    lib.ssd_scan_workspace_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -215,6 +226,28 @@ def _check_cuda_inputs(x, dt, A, Bm, Cm, chunk):
     if Bm.shape[3] > MAX_STATE:
         raise ValueError(f"ssd_scan_cuda: state size {Bm.shape[3]} > "
                          f"{MAX_STATE}")
+    if x.dtype == torch.bfloat16:
+        _check_tma_views(x, Bm, Cm)
+
+
+def _check_tma_views(x, Bm, Cm):
+    """What the bf16 path's TMA loads and tiles take: P <= 64, N a multiple
+    of 8, 16-byte aligned bases and strides (in elements, multiples of 8)
+    along every dimension of size > 1."""
+    if x.shape[3] > MAX_HEAD_DIM_BF16:
+        raise ValueError(f"ssd_scan_cuda: head dim {x.shape[3]} > "
+                         f"{MAX_HEAD_DIM_BF16} in bfloat16")
+    if Bm.shape[3] % 8:
+        raise ValueError(f"ssd_scan_cuda: state size {Bm.shape[3]} is not a "
+                         f"multiple of 8 in bfloat16")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.data_ptr() % 16 or any(
+                st % 8 or st <= 0 for st, n in zip(t.stride()[:3], t.shape)
+                if n > 1):
+            raise ValueError(f"ssd_scan_cuda: bfloat16 {name} needs a 16-byte "
+                             f"aligned base and positive strides that are "
+                             f"multiples of 8 elements (strides "
+                             f"{t.stride()})")
 
 
 def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int):
@@ -223,7 +256,10 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int):
     their strides (their last dim contiguous): the model hands in slices of
     the conv output without copying.  Raises on a launch error
     (``cudaGetLastError``), which a chunk too long for one block's shared
-    memory (3 floats a row beside ~108 KB of tiles) gives."""
+    memory gives: a few floats a row beside the tiles, ~101 KB in bf16,
+    ~108 KB in fp32.  In bf16 the call allocates a workspace of its own
+    (the chunks' state updates and carried states, ~4 P N bytes a chunk
+    and head, twice)."""
     chunk = int(chunk)
     _check_cuda_inputs(x, dt, A, Bm, Cm, chunk)
     Bsz, S, H, P = x.shape
@@ -231,11 +267,16 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int):
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
     h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     lib = _kernel()
+    dtype = DTYPES[x.dtype]
+    nbytes = lib.ssd_scan_workspace_bytes(dtype, Bsz, S, H, P, N, chunk)
+    work = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+            if nbytes else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), h.data_ptr(),
-        DTYPES[x.dtype], Bsz, S, H, P, G, N, chunk,
+        None if work is None else work.data_ptr(),
+        dtype, Bsz, S, H, P, G, N, chunk,
         *x.stride()[:3], *Bm.stride()[:3], *Cm.stride()[:3], stream)
     if err != 0:
         msg = lib.ssd_scan_error_string(err).decode()

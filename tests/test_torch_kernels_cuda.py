@@ -163,10 +163,13 @@ def _ssd_inputs(B, S, H, P, G, N, dtype, device, seed=0):
     (256, 8, 64, 8, 128, 16),      # pre-repeated groups, small chunk
     (192, 4, 40, 2, 16, 96),       # ragged P block and ragged row tile
     (64, 8, 32, 1, 16, 16),        # the smoke config's widths
+    (256, 8, 64, 1, 128, 256),     # one chunk: no state carried between chunks
+    (4096, 4, 64, 1, 128, 256),    # 16 chunks: the longest chain of states
+    (512, 64, 64, 8, 128, 256),    # 8 groups of 8 heads
 ])
 def test_ssd_scan_matches_plain(card, dtype, S, H, P, G, N, chunk):
     """y and the final state within ``kernel_tolerance`` at batch 2; one
-    launch per call."""
+    counted launch per call."""
     x, dt, A, Bm, Cm = _ssd_inputs(2, S, H, P, G, N, dtype, card)
     before = ssd.ssd_scan_cuda.launches
     y, h = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
@@ -183,20 +186,22 @@ def test_ssd_scan_matches_plain(card, dtype, S, H, P, G, N, chunk):
 
 @pytest.mark.cuda
 def test_ssd_scan_reads_strided_slices(card):
-    """x, Bm, Cm as slices of one wider tensor: no copy, same result as
-    contiguous inputs, bitwise."""
+    """x, Bm, Cm as slices of one wider tensor (the model's conv output),
+    in fp32 and bf16: no copy, same result as contiguous inputs, bitwise."""
     B, S, H, P, G, N = 1, 256, 4, 64, 1, 128
-    wide = torch.randn(B, S, H * P + 2 * G * N + 8, device=card) * 0.3
-    x = wide[..., :H * P].reshape(B, S, H, P)
-    Bm = wide[..., H * P:H * P + G * N].reshape(B, S, G, N)
-    Cm = wide[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
-    dt = torch.nn.functional.softplus(torch.randn(B, S, H, device=card))
-    A = -torch.rand(H, device=card)
-    a = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=128)
-    b = ssd.ssd_scan_cuda(x.contiguous(), dt, A, Bm.contiguous(),
-                          Cm.contiguous(), chunk=128)
-    for u, v in zip(a, b):
-        assert torch.equal(u, v)
+    for dtype in (torch.float32, torch.bfloat16):
+        wide = (torch.randn(B, S, H * P + 2 * G * N + 8, device=card)
+                * 0.3).to(dtype)
+        x = wide[..., :H * P].reshape(B, S, H, P)
+        Bm = wide[..., H * P:H * P + G * N].reshape(B, S, G, N)
+        Cm = wide[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
+        dt = torch.nn.functional.softplus(torch.randn(B, S, H, device=card))
+        A = -torch.rand(H, device=card)
+        a = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=128)
+        b = ssd.ssd_scan_cuda(x.contiguous(), dt, A, Bm.contiguous(),
+                              Cm.contiguous(), chunk=128)
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)
 
 
 @pytest.mark.cuda
@@ -216,6 +221,17 @@ def test_ssd_scan_rejects_what_it_does_not_take(card):
     big = torch.zeros(1, 32, 1, 256, device=card)
     with pytest.raises(ValueError, match="state size"):
         ssd.ssd_scan_cuda(x, dt, A, big, big, chunk=8)
+    # what the bf16 path's TMA loads do not take
+    xb, Bb, Cb = (t.bfloat16() for t in (x, Bm, Cm))
+    wide = torch.zeros(1, 32, 2, 72, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd.ssd_scan_cuda(wide, dt, A, Bb, Cb, chunk=8)
+    odd = torch.zeros(1, 32, 1, 12, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ssd.ssd_scan_cuda(xb, dt, A, odd, odd, chunk=8)
+    padded = torch.zeros(1, 32, 2, 9, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd.ssd_scan_cuda(padded[..., :8], dt, A, Bb, Cb, chunk=8)
 
 
 @pytest.mark.cuda

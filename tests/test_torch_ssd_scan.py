@@ -194,14 +194,28 @@ def _round(t, fmt):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def _split(t, k):
+    """float32 ``t`` as the kernel's k-term bf16 split represents it: the
+    sum, in float64, of k bf16 terms, each the bf16 rounding of what the
+    terms before it leave (the residuals are exact in float32)."""
+    total, rest = torch.zeros_like(t, dtype=torch.float64), t.float()
+    for _ in range(k):
+        term = rest.to(torch.bfloat16).float()
+        total, rest = total + term.double(), rest - term
+    return total.float()
+
+
 def _planted(x, dt, A, Bm, Cm, chunk, *, mask="causal", carry=True,
-             round_m=None, round_state=None):
+             round_m=None, round_state=None, split_m=None, split_state=None):
     """The chunked scan with a planted fault: ``mask`` "none" keeps the
     upper triangle, "strict" drops the diagonal; ``carry=False`` restarts
     every chunk from a zero state (drops the inter-chunk term);
     ``round_m`` / ``round_state`` ("bf16", "tf32") round the weights M of
     the intra-chunk product, or the state update's x dt exp(.) operand,
-    before multiplying (what a tensor-core product without a split does)."""
+    before multiplying (what a tensor-core product without a split does).
+    ``split_m`` / ``split_state`` = k replace M, or the state update's
+    operand and the carried state of C h^T, by their k-term bf16 split
+    (``_split``): what the kernel's tensor-core products multiply."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2:]
     Q, nC = chunk, S // chunk
@@ -217,15 +231,20 @@ def _planted(x, dt, A, Bm, Cm, chunk, *, mask="causal", carry=True,
     M = torch.einsum("bcqhn,bcshn->bcqsh", Ch, Bh) * decay * d[:, :, None]
     if round_m:
         M = _round(M, round_m)
+    if split_m:
+        M = _split(M, split_m)
     y = torch.einsum("bcqsh,bcshp->bcqhp", M, xh)
     xw = (torch.exp(cum[:, :, -1:] - cum) * d)[..., None] * xh
     if round_state:
         xw = _round(xw, round_state)
+    if split_state:
+        xw = _split(xw, split_state)
     dBx = torch.einsum("bcqhn,bcqhp->bchpn", Bh, xw)
     h = torch.zeros(B, H, P, N)
     for ic in range(nC):
         if carry:
-            y[:, ic] += torch.einsum("bqhn,bhpn,bqh->bqhp", Ch[:, ic], h,
+            hc = _split(h, split_state) if split_state else h
+            y[:, ic] += torch.einsum("bqhn,bhpn,bqh->bqhp", Ch[:, ic], hc,
                                      torch.exp(cum[:, ic]))
         else:
             h = torch.zeros(B, H, P, N)
@@ -264,19 +283,37 @@ def test_kernel_tolerance_holds_and_rejects_planted_faults(G, chunk,
         "off-by-one causal mask"
 
 
-@pytest.mark.parametrize("where,fmt", [("M", "bf16"), ("M", "tf32"),
-                                       ("state", "tf32")])
+SPLITS = (f"split{ss.SPLIT_TERMS}", f"split{ss.SPLIT_TERMS - 1}")
+
+
+@pytest.mark.parametrize("where,fmt", [
+    ("M", "bf16"), ("M", "tf32"), ("state", "tf32"),
+    *(("M", f) for f in SPLITS), *(("state", f) for f in SPLITS)])
 def test_kernel_tolerance_rejects_rounded_products(where, fmt):
     """At mamba2-1.3b's chunk (256) and state size (128), bf16 x, B and C,
     where a chunk's sum of |dt A| reaches the hundreds, the bound still
     holds a clean scan and rejects one that rounds the intra-chunk weights
-    M, or the state update's x dt exp(.) operand, to bf16 or TF32."""
+    M, or the state update's x dt exp(.) operand, to bf16 or TF32.  The
+    kernel's split ("split<k>": M, or the state operands, as k bf16 terms)
+    passes it with ``ssd_scan.SPLIT_TERMS`` terms, at under a quarter of
+    the bound, and is rejected with one term fewer."""
     _, T = _inputs(1, 512, 4, 16, 128, "bfloat16", G=1, seed=5)
     y, h = ss.ssd_scan_plain(*T, chunk=256)
     tol_y, tol_h = ss.kernel_tolerance(*T, chunk=256)
     clean = _planted(*T, 256)
     assert bool(((clean[0] - y).abs() <= tol_y).all())
     assert bool(((clean[1] - h).abs() <= tol_h).all())
+    if fmt.startswith("split"):
+        k = int(fmt[len("split"):])
+        got = _planted(*T, 256, **{"split_m" if where == "M"
+                                   else "split_state": k})
+        ratio = max(float(((g - w).abs() / t).max())
+                    for g, w, t in ((got[0], y, tol_y), (got[1], h, tol_h)))
+        if k == ss.SPLIT_TERMS:
+            assert ratio <= 0.25, f"{k}-term {where} split at {ratio:.3f}"
+        else:
+            assert ratio > 1, f"{k}-term {where} split passed ({ratio:.3f})"
+        return
     if where == "M":
         got, want, tol = _planted(*T, 256, round_m=fmt)[0], y, tol_y
     else:
