@@ -27,10 +27,12 @@ without either.  Phases, each of which raises on a failed check:
    with s = mask p E from a sustainable round (p = 1/40, E in {1, 5, 10,
    20}), on ragged M in {1, 257, 16385} in fp32 and bf16, on a bf16
    granite-3-2b MLP weight (2048 x 8192) at C=8, and with s = 0 (out must
-   equal w exactly).  Times the whole CNN tree (10 launches) and fc1.w
-   alone (C=40, M=1,572,864, fp32): kernel, plain version and one library
-   call (``torch.addmv``, timed here only, never called by the port)
-   beside the card's bound.
+   equal w exactly); the whole CNN tree in one launch
+   (``ops.fused_agg_tree``), bitwise equal to one launch a leaf.  Times
+   the tree and fc1.w alone (C=40, M=1,572,864, fp32): the kernel's device
+   time (``torch.profiler``) and CUDA events, the plain version and the
+   library call (``torch.addmv``, one a leaf: ten for the tree; timed
+   here only, never called by the port) beside the card's bound.
 4. Serve: granite-3-2b at full width and depth (40 layers, bf16, random
    weights from ``--seed``) through ``DecodeEngine.run``: 4 slots, 6 greedy
    requests of 32 new tokens, arrivals 2 steps apart, prompt lengths
@@ -49,7 +51,7 @@ without either.  Phases, each of which raises on a failed check:
    taus (1, 5, 10, 20), T=5, batch 24, Adam lr 1e-3, p = 1/40; 5 rounds
    of ``sustainable`` and 3 of ``wait_all`` (the loss is 0 from round 4
    on).  Every kernel's count is set to 0 before each run and read after
-   it (10 fused_agg launches per round).  The card's masks must equal the
+   it (one fused_agg launch per round: the whole tree).  The card's masks must equal the
    CPU's bitwise, no-op rounds must leave the model bitwise unchanged, and
    the loss must fall.  Sustainable rounds 0, 2 and 3 and wait_all round
    0 (rounds 1 and 4 are left out for time: ~1 min each) are run again
@@ -96,10 +98,15 @@ without either.  Phases, each of which raises on a failed check:
    gate (none, sustainable, threshold, greedy), with and without
    histograms and mode output, at n in {1, 257, 65537}, with per-client
    battery, prices, token budgets and thresholds, on a dyadic
-   configuration (every stat bitwise), and at n = 10,000,000: charge,
-   streak and mode bitwise, the stats within ``kernel_tolerance``
-   (histogram counts exact).  Times the main path's instantiation at n =
-   10,000,000 (battery-gated, sustainable training, hist) as in phase 7.
+   configuration (every stat bitwise), with every per-client input a view
+   at a 4-byte offset (the kernel's scalar path), at n one client either
+   side of one and two strides of the persistent grid, and at n =
+   10,000,000: charge, streak and mode bitwise, the stats within
+   ``kernel_tolerance`` (histogram counts exact).  Prints the launch shape
+   (grid, blocks an SM, the occupancy CUDA reports) and times the main
+   path's instantiation at n = 10,000,000 (battery-gated, sustainable
+   training, hist): its one launch by ``torch.profiler`` and CUDA events,
+   and the fold alone in a launch of its own.
 10. Serving fleet: ``repro_torch.launch.serve_fleet``'s path,
    ``examples/serve_fleet.py``'s scenario at N = 1,000,000 for 192 epochs:
    the agnostic, gated and controlled runs (the last with histograms);
@@ -946,8 +953,25 @@ def fused_agg_phase(torch, agg, seed: int) -> dict:
     record(fused_agg_check(torch, agg, w, ws, s[:8] + 0.01,
                            "granite-3-2b MLP weight 2048x8192 C=8 bfloat16"))
 
+    # the tree in one launch, bitwise equal to the leaves' own launches
+    before = agg.fused_agg_cuda.launches
+    tree_out = ops.fused_agg_tree(params, stack, s)
+    torch.cuda.synchronize()
+    tree_launches = agg.fused_agg_cuda.launches - before
+    same = all(torch.equal(tree_out[n][l].reshape(-1),
+                           agg.fused_agg_cuda(params[n][l].reshape(-1),
+                                              stack[n][l].reshape(C, -1), s))
+               for n in params for l in params[n])
+    print(f"kernel fused_agg CNN tree (10 leaves, C={C}): {tree_launches} "
+          f"launch, bitwise equal to one launch a leaf: {same} "
+          f"{'ok' if same and tree_launches == 1 else 'FAIL'}", flush=True)
+    if not (same and tree_launches == 1):
+        raise AssertionError(f"fused_agg tree: {tree_launches} launches, "
+                             f"bitwise equal to the leaves' launches {same}")
+
     # timing: the whole CNN tree (one aggregation of the train path) and
-    # fc1.w alone, against the bytes bound and one library call per leaf
+    # fc1.w alone, against the bytes bound; the library call is one addmv
+    # a leaf (ten calls for the tree: no single call computes it)
     def library(wt, wst):
         return torch.addmv(wt, wst.t(), s, beta=1.0 - float(s.sum()))
 
@@ -956,36 +980,36 @@ def fused_agg_phase(torch, agg, seed: int) -> dict:
     fc1 = (params["fc1"]["w"].reshape(-1), stack["fc1"]["w"].reshape(C, -1))
     lib_err = max((library(w, ws) - agg.fused_agg_cuda(w, ws, s)).abs()
                   .max().item() for w, ws in leaves)
+    run = {"tree": lambda: ops.fused_agg_tree(params, stack, s),
+           "fc1.w": lambda: agg.fused_agg_cuda(*fc1, s)}
     times = {}
     for label, items in (("tree", leaves), ("fc1.w", [fc1])):
         nbytes = sum((C + 2) * w.numel() * w.element_size() for w, _ in items)
+        prof = device_profile(torch, lambda: [run[label]()
+                                              for _ in range(10)])
         times[label] = {
-            "kernel_ms": cuda_ms(lambda: ops.fused_agg_tree(params, stack, s)
-                                 if label == "tree" else
-                                 agg.fused_agg_cuda(*fc1, s), 50, torch),
+            "kernel_ms": sum(ms for n, ms in prof["all"]
+                             if "fused_agg" in n) / 10,
+            "event_ms": cuda_ms(run[label], 50, torch),
             "plain_ms": cuda_ms(lambda: [agg.fused_agg_plain(w, ws, s)
                                          for w, ws in items], 5, torch),
             "library_ms": cuda_ms(lambda: [library(w, ws) for w, ws in items],
                                   50, torch),
+            "library_calls": len(items),
             "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3,
-            "launches_per_call": len(items)}
+            "launches_per_call": 1}
         t = times[label]
         print(f"fused_agg {label} (C={C}, fp32): kernel {t['kernel_ms']:.4f} "
-              f"ms, plain {t['plain_ms']:.4f} ms, library addmv "
-              f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s)",
-              flush=True)
+              f"ms of device time in one launch ({t['event_ms']:.4f} ms "
+              f"between CUDA events, host included), plain "
+              f"{t['plain_ms']:.4f} ms, library addmv {t['library_ms']:.4f} "
+              f"ms ({len(items)} call{'s' if len(items) > 1 else ''}); bound "
+              f"{t['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at "
+              f"{PEAK_BYTES / 1e12} TB/s), {t['bound_ms'] / t['kernel_ms']:.1%}"
+              f" of it", flush=True)
     print(f"fused_agg: |addmv - kernel| max {lib_err:.3e} over the CNN tree",
           flush=True)
-    # the tree's 10 launches are short: how much of its wall is the device
-    prof = device_profile(torch, lambda: ops.fused_agg_tree(params, stack, s))
-    times["tree"]["device_ms"] = sum(ms for n, ms in prof["all"]
-                                     if "fused_agg" in n)
-    times["tree"]["profile_wall_ms"] = prof["wall_ms"]
-    print(f"profile fused_agg tree: wall {prof['wall_ms']:.4f} ms, fused_agg "
-          f"kernels {times['tree']['device_ms']:.4f} ms of device time, "
-          f"{prof['kernels']} kernels", flush=True)
-    fc1_t = times["fc1.w"]
+    tree_t = times["tree"]
     return {
         "name": "fused_agg",
         "route": "cuda",
@@ -994,14 +1018,18 @@ def fused_agg_phase(torch, agg, seed: int) -> dict:
         "launches": None,
         "max_abs_err": worst,
         "worst_err_over_bound": worst_ratio,
-        "ms": fc1_t["kernel_ms"],
-        "plain_ms": fc1_t["plain_ms"],
-        "bound_ms": fc1_t["bound_ms"],
+        "ms": tree_t["kernel_ms"],
+        "plain_ms": tree_t["plain_ms"],
+        "bound_ms": tree_t["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": fc1_t["library_ms"],
-        "timed_at": f"fc1.w of the CIFAR CNN, the largest leaf of the "
-                    f"train path: C={C}, M={fc1[0].numel()}, fp32",
-        "tree": times["tree"],
+        "library_ms": None,
+        "timed_at": f"the CIFAR CNN tree, one aggregation of the train path: "
+                    f"10 leaves, C={C}, fp32, one launch; ms is device time "
+                    f"from torch.profiler; no single PyTorch call computes "
+                    f"the tree (ten addmv: library_ten_calls_ms)",
+        "library_ten_calls_ms": tree_t["library_ms"],
+        "tree": tree_t,
+        "fc1.w": times["fc1.w"],
         "library_max_abs_diff": lib_err,
     }
 
@@ -1464,15 +1492,32 @@ def serve_inputs(torch, n, gen, *, admission, train, hist, dyadic=False,
     return program, penv
 
 
+def offset_views(torch, env, n):
+    """``env`` with every per-client (n,) tensor replaced by an equal view
+    that starts 4 bytes into a larger buffer: off the 16-byte boundary the
+    serve kernel's vector path needs."""
+    out = dict(env)
+    for k, t in env.items():
+        if torch.is_tensor(t) and t.shape == (n,) and t.stride(0) == 1:
+            buf = torch.empty(n + 1, dtype=t.dtype, device=t.device)
+            buf[1:] = t
+            out[k] = buf[1:]
+    return out
+
+
 def serve_step_check(torch, fs, n, gen, *, admission, train, hist, emit,
-                     label, show=False, **kw) -> dict:
+                     label, show=False, misaligned=False, **kw) -> dict:
     """``fleet_step_cuda`` on the serve program against
     ``fleet_step_plain`` on the same inputs: charge, streak and mode
     bitwise, the stats within ``fleet_step.kernel_tolerance`` of their
     float64 sums (histogram counts exact); on dyadic inputs every stat
-    bitwise equal to the plain version's.  Raises on a failure."""
+    bitwise equal to the plain version's.  ``misaligned``: every
+    per-client input a view at a 4-byte offset (the kernel's scalar
+    path).  Raises on a failure."""
     program, env = serve_inputs(torch, n, gen, admission=admission,
                                 train=train, hist=hist, **kw)
+    if misaligned:
+        env = offset_views(torch, env, n)
     from repro_torch.energy import step_ops
 
     got_state, got_emits, got = fs.fleet_step_cuda(program, env, n=n,
@@ -1536,6 +1581,25 @@ def serve_step_phase(torch, fs, seed: int) -> dict:
                         show=n == SERVE_KERNEL_NS[-1] and train is None,
                         label=f"{adm} train={train} n={n} dyadic (stats "
                               f"bitwise)"))
+    # the scalar path (misaligned views) and the edges of the persistent
+    # grid's stride (grid x SERVE_TILE clients a sweep of the grid)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stride = fs.serve_grid(10 ** 9, sms) * fs.SERVE_TILE
+    for n in SERVE_KERNEL_NS[1:] + (stride + 1,):
+        for adm in SERVE_ADMISSIONS:
+            record(serve_step_check(
+                torch, fs, n, gen, admission=adm, train="sustainable",
+                hist=True, emit=True, misaligned=True, per_client=True,
+                show=adm == "battery_gated",
+                label=f"{adm} train=sustainable n={n} misaligned views, "
+                      f"per-client battery, prices and thresholds"))
+    for n in (stride - 1, stride, stride + 1, 2 * stride - 1,
+              2 * stride + 1):
+        record(serve_step_check(
+            torch, fs, n, gen, admission="battery_gated",
+            train="sustainable", hist=True, emit=True, show=True,
+            label=f"battery_gated train=sustainable n={n} (grid stride "
+                  f"{stride}) hist emit"))
     n = SERVE_KERNEL_BIG
     for adm in SERVE_ADMISSIONS:
         record(serve_step_check(torch, fs, n, gen, admission=adm,
@@ -1544,6 +1608,18 @@ def serve_step_phase(torch, fs, seed: int) -> dict:
                                                  f"n={n} hist emit"))
     print(f"kernel serve_step: {cases} cases, worst stats err/bound "
           f"{worst:.3f}, max |kernel - plain| {err:.3e}", flush=True)
+    lib = fs._serve_kernel()
+    occupancy = lib.serve_step_occupancy(fs.ADMISSIONS["battery_gated"],
+                                         fs.TRAINS["sustainable"], 1)
+    per_sm = lib.serve_step_blocks_per_sm()
+    print(f"serve_step launch shape: {per_sm} blocks an SM x {sms} SMs = "
+          f"grid {sms * per_sm} at n = {n} (fleet_step.py mirrors "
+          f"{fs.SERVE_BLOCKS_PER_SM}); occupancy of the main instantiation "
+          f"{occupancy} blocks an SM", flush=True)
+    if per_sm != fs.SERVE_BLOCKS_PER_SM:
+        raise AssertionError(f"csrc/serve_step.cu runs {per_sm} blocks an "
+                             f"SM, fleet_step.SERVE_BLOCKS_PER_SM says "
+                             f"{fs.SERVE_BLOCKS_PER_SM}")
 
     # timing: the main path's instantiation (the controlled run: battery-
     # gated admission, a sustainable training load, hist, no mode output)
@@ -1556,19 +1632,32 @@ def serve_step_phase(torch, fs, seed: int) -> dict:
     reps = 10
     prof = device_profile(torch, lambda: [
         fs.fleet_step_cuda(program, env, n=n) for _ in range(reps)])
-    parts = {name: ms / reps for name, ms in prof["all"]
-             if "serve_step" in name}
-    kernel_ms = sum(parts.values())
+    kernel_ms = sum(ms for name, ms in prof["all"]
+                    if "serve_step" in name) / reps
+    # the fold alone: the same code the last block runs, in a launch of
+    # its own on the rows the last call left
+    partials, counts = fs._serve_scratch(torch.device("cuda", 0),
+                                         torch.cuda.current_stream().cuda_stream)
+    sums = torch.empty(16 + fs.NBINS, device="cuda")
+    stats = torch.empty(15 + fs.NBINS, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    grid = fs.serve_grid(n, sms)
+    prof = device_profile(torch, lambda: [lib.serve_step_fold_only(
+        partials.data_ptr(), counts.data_ptr(), sums.data_ptr(),
+        stats.data_ptr(), grid, 1, stream) for _ in range(reps)])
+    fold_ms = sum(ms for name, ms in prof["all"]
+                  if "serve_step_fold" in name) / reps
+    parts = {"walk (the kernel less the fold alone)": kernel_ms - fold_ms,
+             "fold alone (one block, its own launch)": fold_ms}
     nbytes = fs.kernel_bytes(program, env, n)
     bound_ms = nbytes / PEAK_BYTES * 1e3
     print(f"serve_step n={n} battery-gated, sustainable training, hist: "
-          f"kernel {kernel_ms:.4f} ms of device time a call ("
-          + ", ".join(f"{'reduce' if 'reduce' in k else 'step'} {v:.4f}"
-                      for k, v in parts.items())
+          f"kernel {kernel_ms:.4f} ms of device time a call, one launch ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
           + f"), {event_ms:.4f} ms between CUDA events (host included); "
           f"plain {plain_ms:.4f} ms, no library call; bound {bound_ms:.4f} "
-          f"ms ({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s)",
-          flush=True)
+          f"ms ({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12} TB/s), "
+          f"{bound_ms / kernel_ms:.1%} of it", flush=True)
     return {
         "name": "fleet_step (serve program)",
         "route": "cuda",
@@ -1589,6 +1678,7 @@ def serve_step_phase(torch, fs, seed: int) -> dict:
                     f"thresholds: {nbytes} bytes; ms is device time from "
                     f"torch.profiler",
         "cases": cases,
+        "grid": grid, "blocks_per_sm": per_sm, "occupancy": occupancy,
     }
 
 
@@ -2181,9 +2271,10 @@ def train_phase(torch, fa, agg, seed: int, card: str) -> dict:
               f"{rounds * C * T / wall:.1f} client-steps/s on {card}; "
               f"fused_agg launches {launches}, flash_attention launches "
               f"{flash}", flush=True)
-        if launches != 10 * rounds:
+        if launches != rounds:
             raise AssertionError(f"fused_agg launched {launches} times in "
-                                 f"{rounds} rounds, expected 10 per round")
+                                 f"{rounds} rounds, expected one per round "
+                                 f"(the whole tree)")
         want = [real(policy, seed, r, cpu.E) for r in range(rounds)]
         parts = [h["participants"] for h in hist]
         if not (len(masks) == rounds and all(

@@ -18,15 +18,15 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def plant(dest: str, edits=(), extra=()) -> None:
+def plant(dest: str, edits=(), extra=(), root: str = REPO) -> None:
     """Copy ``src/``, ``chip_smoke.py`` and the ``extra`` files (paths
-    relative to the checkout) into ``dest``, then apply ``edits``, each a
-    (path, old, new) triple of literal text."""
-    shutil.copytree(os.path.join(REPO, "src"), os.path.join(dest, "src"),
+    relative to the checkout) from the checkout ``root`` into ``dest``,
+    then apply ``edits``, each a (path, old, new) triple of literal text."""
+    shutil.copytree(os.path.join(root, "src"), os.path.join(dest, "src"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     for name in ("chip_smoke.py", *extra):
         os.makedirs(os.path.dirname(os.path.join(dest, name)), exist_ok=True)
-        shutil.copy(os.path.join(REPO, name), os.path.join(dest, name))
+        shutil.copy(os.path.join(root, name), os.path.join(dest, name))
     for path, old, new in edits:
         full = os.path.join(dest, path)
         with open(full) as f:

@@ -8,7 +8,7 @@
 
 Both operate on client-stacked trees (leading axis C).  Unlike the
 reference, whose TPU path is plain ``jnp``, ``aggregate`` goes through the
-``fused_agg`` kernel (``kernels.ops.fused_agg_tree``, one launch per leaf)
+``fused_agg`` kernel (``kernels.ops.fused_agg_tree``, one launch per tree)
 with ``s = server_lr * mask * p * scale``: on CUDA tensors it launches the
 Hopper kernel, on CPU tensors it takes the kernel's plain version.  The
 sequential-mode helpers stay plain float32 PyTorch, as in the reference.

@@ -10,7 +10,7 @@ the scaled deltas (eqs. 12-13) into the new global model.
   are stacked on a leading client axis C, the local step is mapped over it
   with ``torch.func.vmap``, the optimizer runs on the stacked tree, and
   one aggregation ends the round (the ``fused_agg`` kernel, one launch
-  per leaf).
+  per tree).
 * **sequential** (``sequential_client_step`` + ``finish_sequential_round``)
   — one client at a time; linearity of eq. (13) makes it equal.
 * **replay** (``replay_round``) — the parallel round with the model's

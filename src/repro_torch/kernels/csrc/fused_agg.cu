@@ -22,16 +22,35 @@
 //   stays under the 48 KB that needs no opt-in).
 // * Order is fixed: every thread sums s and its products over c = 0..C-1
 //   in ascending order, so the result does not depend on the launch shape.
+// * One launch a tree (fused_agg_segments): a table of up to 64 leaves of
+//   one dtype (w, w_stack and out pointers, M, the vector width, the
+//   leaf's first block) rides in the kernel's parameters, and each block
+//   finds its leaf there.  The CIFAR CNN's nine small leaves (a few MB
+//   each) fill a fraction of the 132 SMs alone and are then bound by
+//   latency; in one launch with fc1.w their blocks fill the card beside
+//   its blocks.  A single leaf (fused_agg) is a one-row table, so a leaf
+//   is computed bit for bit the same either way.
 //
 // What bounds it on an H100 SXM (3.35 TB/s): it is bytes, with 2 FLOPs per
 // element read: (C + 2) * M * sizeof(T) bytes.  For the CIFAR CNN's fc1.w
 // at C = 40, M = 1,572,864, fp32, that is 264.2 MB, 78.9 us at the card's
-// rate.  This first version relies on the loads in flight across the C
-// loop and the warps of the SM to cover memory latency; it has no
-// cp.async / TMA pipeline.
+// rate; the whole CNN tree is 286.1 MB, 85.4 us.  The kernel relies on the
+// loads in flight across the C loop and the warps of the SM to cover
+// memory latency; it has no cp.async / TMA pipeline.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// One leaf of a launch: its rows, its length, its vector width and the
+// first block of the launch that works on it.
+struct Segment {
+  const void* w;
+  const void* w_stack;
+  void* out;
+  long long M;
+  long long first_block;
+  int vec;
+};
 
 namespace {
 
@@ -83,16 +102,23 @@ template <> struct Vec<bf16, 1> {
   }
 };
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
-fused_agg_kernel(const T* __restrict__ w, const T* __restrict__ w_stack,
-                 const float* __restrict__ s, T* __restrict__ out, int C,
-                 long long M) {
-  extern __shared__ float s_sh[];
-  for (int c = threadIdx.x; c < C; c += THREADS) s_sh[c] = s[c];
-  __syncthreads();
+// MAX_SEGMENTS rows keep the table, passed by value, under the 4 KB of
+// kernel parameters.
+constexpr int MAX_SEGMENTS = 64;
+struct Table {
+  int count;
+  Segment seg[MAX_SEGMENTS];
+};
 
-  const long long i = ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
+template <typename T, int VEC>
+__device__ __forceinline__ void agg_block(const Segment& sg,
+                                          const float* s_sh, int C,
+                                          long long blk) {
+  const T* __restrict__ w = static_cast<const T*>(sg.w);
+  const T* __restrict__ w_stack = static_cast<const T*>(sg.w_stack);
+  T* __restrict__ out = static_cast<T*>(sg.out);
+  const long long M = sg.M;
+  const long long i = (blk * THREADS + threadIdx.x) * VEC;
   if (i >= M) return;                  // ragged tail: nothing past M is touched
 
   float ssum = 0.f;
@@ -118,14 +144,60 @@ fused_agg_kernel(const T* __restrict__ w, const T* __restrict__ w_stack,
   Vec<T, VEC>::store(out + i, wv);
 }
 
-template <typename T, int VEC>
-int launch(const void* w, const void* w_stack, const float* s, void* out,
-           int C, long long M, cudaStream_t stream) {
-  const long long per_block = (long long)THREADS * VEC;
-  const long long blocks = (M + per_block - 1) / per_block;
-  fused_agg_kernel<T, VEC><<<(unsigned)blocks, THREADS, C * sizeof(float), stream>>>(
-      static_cast<const T*>(w), static_cast<const T*>(w_stack), s,
-      static_cast<T*>(out), C, M);
+// Every block finds its segment in the table (the same for all its
+// threads, so the branch on the vector width does not diverge).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fused_agg_kernel(const __grid_constant__ Table tab,
+                 const float* __restrict__ s, int C) {
+  extern __shared__ float s_sh[];
+  for (int c = threadIdx.x; c < C; c += THREADS) s_sh[c] = s[c];
+  __syncthreads();
+
+  int g = 0;
+  while (g + 1 < tab.count && blockIdx.x >= tab.seg[g + 1].first_block) ++g;
+  const Segment& sg = tab.seg[g];
+  const long long blk = blockIdx.x - sg.first_block;
+  if (sg.vec == 4) agg_block<T, 4>(sg, s_sh, C, blk);
+  else agg_block<T, 1>(sg, s_sh, C, blk);
+}
+
+long long blocks_of(const Segment& sg) {
+  const long long per_block = (long long)THREADS * sg.vec;
+  return (sg.M + per_block - 1) / per_block;
+}
+
+// -2 for a bad client count or an empty leaf, -1 for a bad vector width,
+// -3 for a table whose block offsets do not follow from its leaves.
+int check(const Table& tab, int C) {
+  if (C < 1 || C > MAX_CLIENTS || tab.count < 1 || tab.count > MAX_SEGMENTS)
+    return -2;
+  long long next = 0;
+  for (int g = 0; g < tab.count; ++g) {
+    const Segment& sg = tab.seg[g];
+    if (sg.M < 1) return -2;
+    if (!(sg.vec == 1 || (sg.vec == 4 && sg.M % 4 == 0))) return -1;
+    if (sg.first_block != next) return -3;
+    next += blocks_of(sg);
+  }
+  return 0;
+}
+
+int launch(const Table& tab, const float* s, int dtype, int C,
+           cudaStream_t stream) {
+  const int bad = check(tab, C);
+  if (bad) return bad;
+  const Segment& end = tab.seg[tab.count - 1];
+  const long long blocks = end.first_block + blocks_of(end);
+  const size_t smem = C * sizeof(float);
+  if (dtype == 0)
+    fused_agg_kernel<float><<<(unsigned)blocks, THREADS, smem, stream>>>(
+        tab, s, C);
+  else if (dtype == 1)
+    fused_agg_kernel<bf16><<<(unsigned)blocks, THREADS, smem, stream>>>(
+        tab, s, C);
+  else
+    return -1;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -133,26 +205,39 @@ int launch(const void* w, const void* w_stack, const float* s, void* out,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; vec: 4 (rows aligned for vector loads,
-// M % 4 == 0) or 1.  Returns the cudaError_t of the launch (0 on success),
-// -1 for an unsupported dtype / vec, -2 for C outside [1, 12288] or M < 1
-// (the Python wrapper rejects those before calling).
+// One leaf.  dtype: 0 = float32, 1 = bfloat16; vec: 4 (rows aligned for
+// vector loads, M % 4 == 0) or 1.  Returns the cudaError_t of the launch
+// (0 on success), -1 for an unsupported dtype / vec, -2 for C outside
+// [1, 12288] or M < 1 (the Python wrapper rejects those before calling).
 int fused_agg(const void* w, const void* w_stack, const void* s, void* out,
               int dtype, int C, long long M, int vec, void* stream) {
-  if (C < 1 || C > MAX_CLIENTS || M < 1) return -2;
-  if (vec == 4 && M % 4) return -1;
-  const float* sf = static_cast<const float*>(s);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && vec == 4) return launch<float, 4>(w, w_stack, sf, out, C, M, st);
-  if (dtype == 0 && vec == 1) return launch<float, 1>(w, w_stack, sf, out, C, M, st);
-  if (dtype == 1 && vec == 4) return launch<bf16, 4>(w, w_stack, sf, out, C, M, st);
-  if (dtype == 1 && vec == 1) return launch<bf16, 1>(w, w_stack, sf, out, C, M, st);
-  return -1;
+  Table tab;
+  tab.count = 1;
+  tab.seg[0] = Segment{w, w_stack, out, M, 0, vec};
+  return launch(tab, static_cast<const float*>(s), dtype, C,
+                static_cast<cudaStream_t>(stream));
+}
+
+// Several leaves of one dtype in one launch: `segments` holds `count`
+// (at most 64) rows, each leaf's first_block the sum of the blocks of the
+// rows before it (ceil(M / (256 vec)) a row).  Each element is computed
+// exactly as by fused_agg on its leaf alone.  Returns as fused_agg, or -3
+// for block offsets that do not follow from the rows.
+int fused_agg_segments(const Segment* segments, int count, const void* s,
+                       int dtype, int C, void* stream) {
+  if (count < 1 || count > MAX_SEGMENTS) return -2;
+  Table tab;
+  tab.count = count;
+  for (int g = 0; g < count; ++g) tab.seg[g] = segments[g];
+  return launch(tab, static_cast<const float*>(s), dtype, C,
+                static_cast<cudaStream_t>(stream));
 }
 
 const char* fused_agg_error_string(int code) {
   if (code == -1) return "unsupported dtype or vector width";
-  if (code == -2) return "client count outside [1, 12288] or empty leaf";
+  if (code == -2) return "client count outside [1, 12288], empty leaf or "
+                         "segment count outside [1, 64]";
+  if (code == -3) return "segment block offsets do not follow from the rows";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

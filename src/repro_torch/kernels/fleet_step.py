@@ -16,7 +16,8 @@ and the closures' choices) and raises for any other.
 
 * ``fleet_step_cuda`` launches a kernel and its one-block reduction on
   PyTorch's current stream; CUDA tensors only, no fallback.  A serve
-  program goes to ``serve_step_cuda``.  Per-client outputs are bitwise
+  program goes to ``serve_step_cuda``, whose kernel folds its blocks'
+  partial sums in the same launch.  Per-client outputs are bitwise
   equal to the plain version on any inputs.  Stats are bitwise equal on
   dyadic inputs and within ``kernel_tolerance`` of the exact sums
   otherwise; histogram counts are exact.  ``fleet_step_cuda.launches`` and
@@ -52,6 +53,14 @@ REDUCE_LANES = 32              # lanes that add one column over the blocks
 MAX_GROUPS = 64
 NBINS = sum(s.bins for s in hist_lib.FLEET_HIST_SPECS)
 GATES = {Policy.SUSTAINABLE: 0, Policy.THRESHOLD: 1, Policy.GREEDY: 2}
+# csrc/serve_step.cu's launch shape: a persistent grid of SERVE_BLOCKS_PER_SM
+# blocks an SM, each walking SERVE_TILE-client tiles, SERVE_CPT clients a
+# thread a tile; the reduction order follows from it
+SERVE_THREADS = 256
+SERVE_CPT = 2
+SERVE_TILE = SERVE_THREADS * SERVE_CPT
+SERVE_BLOCKS_PER_SM = 3
+H100_SMS = 132
 # csrc/serve_step.cu's template choices and the order of its inputs
 ADMISSIONS = {"agnostic": 0, "battery_gated": 1, "charge_gated": 2}
 TRAINS = {"none": 0, "sustainable": 1, "threshold": 2, "greedy": 3}
@@ -288,14 +297,41 @@ def serve_program_variant(program: step_ops.StepProgram
 @functools.cache
 def _serve_kernel():
     lib = build.load("serve_step")
-    fn = lib.serve_step
-    ptr = ctypes.c_void_p
-    fn.argtypes = ([ptr] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                   + [ptr])
-    fn.restype = ctypes.c_int
-    lib.serve_step_error_string.argtypes = [ctypes.c_int]
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.serve_step.argtypes = ([ptr, ctypes.c_uint] + [ptr] * 7
+                               + [ctypes.c_longlong] + [i] * 6 + [ptr])
+    lib.serve_step.restype = i
+    lib.serve_step_fold_only.argtypes = [ptr] * 4 + [i] * 2 + [ptr]
+    lib.serve_step_fold_only.restype = i
+    lib.serve_step_occupancy.argtypes = [i] * 3
+    lib.serve_step_occupancy.restype = i
+    lib.serve_step_blocks_per_sm.argtypes = []
+    lib.serve_step_blocks_per_sm.restype = i
+    lib.serve_step_error_string.argtypes = [i]
     lib.serve_step_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def serve_grid(n: int, sms: int = H100_SMS) -> int:
+    """Blocks of csrc/serve_step.cu's persistent grid for ``n`` clients on
+    a card with ``sms`` SMs: as many as are resident, at most one a
+    tile."""
+    return min(-(-n // SERVE_TILE), sms * SERVE_BLOCKS_PER_SM)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _serve_scratch(device, stream: int):
+    """(partials, counts) for serve_step calls on one stream: partials
+    (16, the largest grid) float32, and counts (1 + NBINS) int32 zeroed
+    once, which every call leaves at 0 (the last block's ticket and the
+    global bin counts)."""
+    rows = _sm_count(device) * SERVE_BLOCKS_PER_SM
+    return (torch.empty(16 * rows, dtype=torch.float32, device=device),
+            torch.zeros(1 + NBINS, dtype=torch.int32, device=device))
 
 
 def serve_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
@@ -303,10 +339,12 @@ def serve_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
     """Launch the serve program's Hopper kernel for one epoch over ``n``
     clients; returns (state, emits, stats) as new tensors on the card.
     Raises on a program the kernel does not run, on inputs it does not take
-    and on a launch error."""
+    and on a launch error.  Per-client inputs that all start on a 16-byte
+    boundary are copied 16 bytes at a time, others (views at an offset) 4
+    bytes at a time: the results are the same."""
     adm, train, hist = serve_program_variant(program)
-    if n < 1:
-        raise ValueError(f"serve_step_cuda: n={n} must be at least 1")
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"serve_step_cuda: n={n} must be in [1, 2^31)")
     charge = env["charge"]
     device = charge.device
     if device.type != "cuda":
@@ -314,38 +352,34 @@ def serve_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
                          f"takes CUDA tensors")
     f32 = torch.float32
     reads = set(program.input_names()) | {"valid"}
-    ptrs, strides, keep = [], [], []
-    for nm in SERVE_INPUTS:
+    ptrs, per_client, keep = [], 0, []
+    for j, nm in enumerate(SERVE_INPUTS):
         if nm in reads:
             t, s = _operand(env, nm, n, f32, device)
             keep.append(t)
             ptrs.append(t.data_ptr())
-            strides.append(s)
+            per_client |= s << j
         else:                       # not read by this instantiation
             ptrs.append(charge.data_ptr())
-            strides.append(0)
     in_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    stride_arr = (ctypes.c_longlong * len(strides))(*strides)
 
-    blocks = -(-n // TILE)
-    F = len(program.totals) + len(program.averages) + 1
     H = NBINS if hist else 0
     charge_out = torch.empty(n, dtype=f32, device=device)
     streak_out = torch.empty(n if hist else 1, dtype=f32, device=device)
     mode_out = torch.empty(n if emit else 1, dtype=torch.int32,
                            device=device)
-    partials = torch.empty((F, blocks), dtype=f32, device=device)
-    counts = torch.empty((max(H, 1), blocks), dtype=torch.int32,
-                         device=device)
-    sums = torch.empty(F + H, dtype=f32, device=device)
-    stats_buf = torch.empty(F - 1 + H, dtype=f32, device=device)
-    lib = _serve_kernel()
+    vec = all(p % 16 == 0 for j, p in enumerate(ptrs) if per_client >> j & 1)
+    sums = torch.empty(16 + H, dtype=f32, device=device)
+    stats_buf = torch.empty(15 + H, dtype=f32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.serve_step(in_arr, stride_arr, charge_out.data_ptr(),
+    partials, counts = _serve_scratch(device, stream)
+    grid = serve_grid(n, _sm_count(device))
+    lib = _serve_kernel()
+    err = lib.serve_step(in_arr, per_client, charge_out.data_ptr(),
                          streak_out.data_ptr(), mode_out.data_ptr(),
                          partials.data_ptr(), counts.data_ptr(),
-                         sums.data_ptr(), stats_buf.data_ptr(), n, adm,
-                         train, int(hist), int(emit), stream)
+                         sums.data_ptr(), stats_buf.data_ptr(), n, grid,
+                         int(vec), adm, train, int(hist), int(emit), stream)
     if err != 0:
         msg = lib.serve_step_error_string(err).decode()
         raise RuntimeError(f"serve_step kernel launch failed ({err}: {msg}) "
@@ -383,6 +417,19 @@ def reduction_depth(n: int) -> int:
     return CPT + 5 + (WARPS - 1) + -(-blocks // REDUCE_LANES) + 5
 
 
+def serve_reduction_depth(n: int, sms: int = H100_SMS) -> int:
+    """The most float32 additions on any client's path to a stat in
+    ``csrc/serve_step.cu`` on a card with ``sms`` SMs: SERVE_CPT a tile
+    over each tile a block walks, 5 in the warp tree, SERVE_THREADS / 32 -
+    1 over the warps, then ceil(grid / 32) down a lane of the fold and 5
+    in its warp tree."""
+    grid = serve_grid(n, sms)
+    tiles = -(-n // SERVE_TILE)
+    steps = -(-tiles // grid)
+    return (SERVE_CPT * steps + 5 + (SERVE_THREADS // 32 - 1)
+            + -(-grid // REDUCE_LANES) + 5)
+
+
 def stats_float64(program: step_ops.StepProgram, env: dict, valid,
                   groups=None, num_groups: int | None = None) -> dict:
     """The stats in float64 from the per-client buffers of a round (the
@@ -411,12 +458,17 @@ def kernel_tolerance(program: step_ops.StepProgram, env: dict, valid, n: int,
     env of ``step_ops.run_step`` on the same inputs.
 
     A float32 sum whose terms each pass through at most d roundings (the
-    product valid * x and ``reduction_depth(n)`` additions) is within
+    product valid * x and ``reduction_depth(n)`` additions, or
+    ``serve_reduction_depth(n)`` for a serve program) is within
     gamma_d sum |valid x| of the exact sum, gamma_d = d u / (1 - d u),
     u = 2^-24, in any order.  An average num / max(den, 1) adds the
     error of den (exact for 0/1 weights) and one rounding of the
     division.  Histogram counts are exact: their bound is 0."""
-    d = reduction_depth(n) + 1
+    if program.name == "serve_step":
+        sms = _sm_count(valid.device) if valid.is_cuda else H100_SMS
+        d = serve_reduction_depth(n, sms) + 1
+    else:
+        d = reduction_depth(n) + 1
     gam = d * U32 / (1 - d * U32)
     v = valid.double().abs()
     absum = lambda buf, w: (w * env[buf].double().abs()).sum(dim=-1)

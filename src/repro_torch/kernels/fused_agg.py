@@ -12,8 +12,11 @@ which is ``w + sum_c s_c (w_stack[c] - w)`` without the (C, M) deltas.
 * ``fused_agg_cuda`` launches ``csrc/fused_agg.cu`` (built by
   ``kernels/build.py``, bound through ``ctypes``) on PyTorch's current
   stream.  It takes CUDA tensors only and raises on anything the kernel
-  does not take; it never falls back to the plain version.  ``.launches``
-  counts its launches.
+  does not take; it never falls back to the plain version.
+  ``fused_agg_tree_cuda`` does the same for every leaf of a tree in one
+  launch per dtype (``segment_table``), each leaf bit for bit as
+  ``fused_agg_cuda`` computes it.  ``fused_agg_cuda.launches`` counts the
+  kernel's launches by both.
 * ``fused_agg_plain`` computes the same expression in float32 PyTorch
   (elementwise products and sums, so no TF32 setting reaches it).  The CPU
   path and the on-card check use it; ``kernel_tolerance`` is the bound the
@@ -27,10 +30,13 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.tree import tree_leaves, tree_map
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CLIENTS = 12288            # csrc/fused_agg.cu: s fits 48 KB of smem
 VEC = 4                        # outputs per thread on the aligned path
+THREADS = 256                  # csrc/fused_agg.cu: threads a block
+MAX_SEGMENTS = 64              # csrc/fused_agg.cu: leaves a launch
 U32 = 2.0 ** -24               # float32 unit roundoff
 
 
@@ -67,14 +73,22 @@ def kernel_tolerance(w, w_stack, s, want):
     return tol
 
 
+class Segment(ctypes.Structure):
+    """A row of csrc/fused_agg.cu's segment table: one leaf."""
+    _fields_ = [("w", ctypes.c_void_p), ("w_stack", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("M", ctypes.c_longlong),
+                ("first_block", ctypes.c_longlong), ("vec", ctypes.c_int)]
+
+
 @functools.cache
 def _kernel():
     lib = build.load("fused_agg")
-    fn = lib.fused_agg
-    fn.argtypes = ([ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_agg.argtypes = [ptr] * 4 + [i, i, ctypes.c_longlong, i, ptr]
+    lib.fused_agg.restype = i
+    lib.fused_agg_segments.argtypes = [ctypes.POINTER(Segment), i, ptr, i, i,
+                                       ptr]
+    lib.fused_agg_segments.restype = i
     lib.fused_agg_error_string.argtypes = [ctypes.c_int]
     lib.fused_agg_error_string.restype = ctypes.c_char_p
     return lib
@@ -141,3 +155,58 @@ def fused_agg_cuda(w, w_stack, s):
 
 
 fused_agg_cuda.launches = 0
+
+
+def segment_table(leaves) -> list:
+    """The launches of one tree: ``leaves`` is a list of (w (M,), w_stack
+    (C, M), out (M,)) on one card; returns [(dtype, rows)], one entry per
+    dtype in the order the dtype first appears (and another where a dtype
+    has more than MAX_SEGMENTS leaves), each row (w, w_stack, out, M,
+    first_block, vec) with first_block the blocks of the rows before it
+    (ceil(M / (THREADS vec)) a row) and vec as ``_vector_width``."""
+    groups: dict = {}
+    for w, ws, out in leaves:
+        groups.setdefault(w.dtype, []).append((w, ws, out))
+    table = []
+    for dtype, items in groups.items():
+        for at in range(0, len(items), MAX_SEGMENTS):
+            rows, first = [], 0
+            for w, ws, out in items[at:at + MAX_SEGMENTS]:
+                M, vec = w.shape[0], _vector_width(w, ws, out)
+                rows.append((w, ws, out, M, first, vec))
+                first += -(-M // (THREADS * vec))
+            table.append((dtype, rows))
+    return table
+
+
+def fused_agg_tree_cuda(w_global, w_stack, s):
+    """``fused_agg_cuda`` over every leaf of a tree (nested dicts, lists or
+    tuples; w_global's leaves (...), w_stack's (C, ...)), in one launch
+    per dtype; returns the tree of new tensors.  Each leaf is bitwise
+    what ``fused_agg_cuda`` gives for it.  Raises, before anything is
+    built, on what the kernel does not take."""
+    ws_leaves = tree_leaves(w_stack)
+    flat = [(w.reshape(-1), ws.reshape(ws.shape[0], -1))
+            for w, ws in zip(tree_leaves(w_global), ws_leaves)]
+    if not flat or len(flat) != len(ws_leaves):
+        raise ValueError(f"fused_agg_tree_cuda: w_global has "
+                         f"{len(flat)} leaves, w_stack {len(ws_leaves)}")
+    for w, ws in flat:
+        _check_cuda_inputs(w, ws, s)
+    leaves = [(w, ws, torch.empty_like(w)) for w, ws in flat]
+    C = flat[0][1].shape[0]
+    lib = _kernel()
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    for dtype, rows in segment_table(leaves):
+        table = (Segment * len(rows))(*[
+            Segment(w.data_ptr(), ws.data_ptr(), out.data_ptr(), M, first,
+                    vec) for w, ws, out, M, first, vec in rows])
+        err = lib.fused_agg_segments(table, len(rows), s.data_ptr(),
+                                     DTYPES[dtype], C, stream)
+        if err != 0:
+            msg = lib.fused_agg_error_string(err).decode()
+            raise RuntimeError(f"fused_agg kernel launch failed ({err}: "
+                               f"{msg}) for {len(rows)} {dtype} leaves")
+        fused_agg_cuda.launches += 1
+    outs = iter(out for _, _, out in leaves)
+    return tree_map(lambda w: next(outs).reshape(w.shape), w_global)

@@ -7,6 +7,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fleet_step as _fleet
 from repro_torch.kernels import fused_agg as _agg
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -49,14 +50,14 @@ def fused_agg(w, w_stack, s):
 
 
 def fused_agg_tree(w_global, w_stack, s):
-    """``fused_agg`` leaf by leaf over nested dicts (one launch per leaf),
-    each leaf flattened: w_global's leaves (...), w_stack's (C, ...)."""
-    if isinstance(w_global, dict):
-        return {k: fused_agg_tree(v, w_stack[k], s)
-                for k, v in w_global.items()}
-    flat = fused_agg(w_global.reshape(-1),
-                     w_stack.reshape(w_stack.shape[0], -1), s)
-    return flat.reshape(w_global.shape)
+    """``fused_agg`` over a tree, each leaf flattened: w_global's leaves
+    (...), w_stack's (C, ...).  On the card one launch per tree (per
+    dtype); on the CPU leaf by leaf."""
+    if tree_leaves(w_global)[0].device.type == "cuda":
+        return _agg.fused_agg_tree_cuda(w_global, w_stack, s)
+    return tree_map(lambda w, ws: fused_agg(
+        w.reshape(-1), ws.reshape(ws.shape[0], -1), s).reshape(w.shape),
+        w_global, w_stack)
 
 
 def fleet_step(program, env, *, n: int, emit: bool = False,
@@ -76,7 +77,9 @@ def fleet_step(program, env, *, n: int, emit: bool = False,
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name.  Each adds one to
     its ``.launches`` where it launches its kernel, and nowhere else (the
-    serve program of fleet_step has its own wrapper and count)."""
+    serve program of fleet_step has its own wrapper and count;
+    ``fused_agg_tree_cuda`` launches the fused_agg kernel and counts on
+    ``fused_agg_cuda.launches``)."""
     return {"flash_attention": _fa.flash_attention_cuda,
             "fused_agg": _agg.fused_agg_cuda,
             "fleet_step": _fleet.fleet_step_cuda,

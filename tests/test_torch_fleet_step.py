@@ -302,3 +302,16 @@ def test_kernel_tolerance_admits_rounding_and_rejects_faults(n, groups):
 def test_reduction_depth_follows_the_launch_shape():
     assert fs.reduction_depth(1) == fs.CPT + 5 + fs.WARPS - 1 + 1 + 5
     assert fs.reduction_depth(10_000_000) == 16 + 5 + 7 + 77 + 5
+
+
+def test_serve_reduction_depth_follows_the_serve_launch_shape():
+    """csrc/serve_step.cu: a persistent grid of SERVE_BLOCKS_PER_SM blocks
+    an SM (at most a block a tile), SERVE_CPT clients a thread a tile."""
+    assert fs.serve_grid(1) == 1
+    assert fs.serve_grid(10_000_000) == 132 * fs.SERVE_BLOCKS_PER_SM
+    assert fs.serve_grid(10_000_000, sms=114) == 114 * fs.SERVE_BLOCKS_PER_SM
+    assert fs.serve_reduction_depth(1) == fs.SERVE_CPT + 5 + 7 + 1 + 5
+    tiles, grid = -(-10_000_000 // fs.SERVE_TILE), fs.serve_grid(10_000_000)
+    assert fs.serve_reduction_depth(10_000_000) == (
+        fs.SERVE_CPT * -(-tiles // grid) + 5 + 7 + -(-grid // 32) + 5)
+    assert fs.serve_reduction_depth(10_000_000) == 2 * 50 + 5 + 7 + 13 + 5

@@ -146,3 +146,65 @@ def test_kernel_tolerance_admits_rounding_and_rejects_faults(C, M):
         ok, ratio = _within(torch.tensor(_kernel_model(w, ws, s, **fault)),
                             want, tx)
         assert not ok and ratio > 10, (fault, ratio)
+
+
+def _leaf(M, C=3, dtype=torch.float32, offset=0):
+    """(w, w_stack, out) of one leaf; ``offset`` elements into a larger
+    buffer, so the rows start off a 16-byte boundary."""
+    w = torch.zeros(M + offset, dtype=dtype)[offset:]
+    ws = torch.zeros(C, M, dtype=dtype)
+    return w, ws, torch.zeros(M, dtype=dtype)
+
+
+def test_segment_table_block_offsets_and_vector_widths():
+    """Each row starts where the blocks of the rows before it end (a block
+    takes THREADS * vec elements); vec is 4 only where M % 4 == 0 and the
+    rows are aligned."""
+    leaves = [_leaf(1024), _leaf(1025), _leaf(10), _leaf(4096, offset=1),
+              _leaf(1)]
+    (dtype, rows), = agg.segment_table(leaves)
+    assert dtype == torch.float32
+    assert [r[3] for r in rows] == [1024, 1025, 10, 4096, 1]
+    assert [r[5] for r in rows] == [4, 1, 1, 1, 1]
+    assert [r[4] for r in rows] == [0, 1, 6, 7, 23]
+    for (w, ws, out, *_), leaf in zip(rows, leaves):
+        assert w is leaf[0] and ws is leaf[1] and out is leaf[2]
+
+
+def test_segment_table_one_launch_per_dtype():
+    """The CNN tree's ten leaves are one launch; a bf16 leaf among them
+    starts its own group (numbered from block 0); more than MAX_SEGMENTS
+    leaves of one dtype split."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    params = get_model(get_config("cifar-cnn")).init_params(
+        torch.Generator().manual_seed(0))
+    leaves = [(w.reshape(-1), torch.zeros(2, w.numel()),
+               torch.empty(w.numel())) for w in
+              (params[n][l] for n in params for l in params[n])]
+    assert len(leaves) == 10 and len(agg.segment_table(leaves)) == 1
+    mixed = leaves[:3] + [_leaf(300, dtype=torch.bfloat16)] + leaves[3:]
+    groups = agg.segment_table(mixed)
+    assert [g[0] for g in groups] == [torch.float32, torch.bfloat16]
+    assert len(groups[0][1]) == 10 and groups[1][1][0][4] == 0
+    many = agg.segment_table([_leaf(8)] * (agg.MAX_SEGMENTS + 1))
+    assert [len(rows) for _, rows in many] == [agg.MAX_SEGMENTS, 1]
+    assert many[1][1][0][4] == 0
+
+
+def test_tree_wrapper_refuses_cpu_tensors_before_any_build(monkeypatch):
+    """The card's tree wrapper checks every leaf before it loads (and so
+    builds) the kernel library: a CPU tensor raises and nothing is
+    built."""
+    from repro_torch.kernels import build
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(build, "load", no_build)
+    tree = {"a": torch.zeros(4, 5), "b": torch.zeros(3)}
+    stack = {"a": torch.zeros(2, 4, 5), "b": torch.zeros(2, 3)}
+    before = agg.fused_agg_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        agg.fused_agg_tree_cuda(tree, stack, torch.zeros(2))
+    assert agg.fused_agg_cuda.launches == before

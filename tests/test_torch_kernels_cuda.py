@@ -302,6 +302,49 @@ def test_fused_agg_rejects_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
+def test_fused_agg_tree_is_one_launch_bitwise_equal_to_leaf_launches(card):
+    """The CIFAR CNN's ten leaves at C = 40 in one launch (and a bf16 leaf
+    in a second), each leaf bitwise what its own launch gives, including a
+    leaf that starts off a 16-byte boundary (the scalar path)."""
+    from repro_torch.configs import get_config
+    r = np.random.default_rng(1)
+    params = get_model(get_config("cifar-cnn")).init_params(
+        torch.Generator().manual_seed(0))
+    C = 40
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=torch.float32
+                                                 ).to(dt).to(card)
+    tree = {n: {l: t(params[n][l].numpy()) for l in params[n]}
+            for n in params}
+    stack = {n: {l: t(params[n][l].numpy()[None] + 1e-3 * r.standard_normal(
+        (C,) + tuple(params[n][l].shape))) for l in params[n]}
+        for n in params}
+    s = t(r.uniform(0, 5.0 / C, C))
+    before = agg.fused_agg_cuda.launches
+    got = ops.fused_agg_tree(tree, stack, s)
+    torch.cuda.synchronize()
+    assert agg.fused_agg_cuda.launches - before == 1
+    for n in tree:
+        for l in tree[n]:
+            want = agg.fused_agg_cuda(tree[n][l].reshape(-1),
+                                      stack[n][l].reshape(C, -1), s)
+            assert torch.equal(got[n][l].reshape(-1), want), (n, l)
+    buf = t(r.standard_normal(1001))
+    mixed = {"a": tree["fc2"]["w"], "off": buf[1:],
+             "h": t(r.standard_normal(300), torch.bfloat16)}
+    mstack = {"a": stack["fc2"]["w"], "off": t(r.standard_normal((C, 1000))),
+              "h": t(r.standard_normal((C, 300)), torch.bfloat16)}
+    before = agg.fused_agg_cuda.launches
+    got = ops.fused_agg_tree(mixed, mstack, s)
+    torch.cuda.synchronize()
+    assert agg.fused_agg_cuda.launches - before == 2     # one per dtype
+    for k in mixed:
+        want = agg.fused_agg_cuda(mixed[k].reshape(-1),
+                                  mstack[k].reshape(C, -1), s)
+        assert got[k].dtype == mixed[k].dtype
+        assert torch.equal(got[k].reshape(-1), want), k
+
+
+@pytest.mark.cuda
 def test_train_round_on_card_matches_cpu(card):
     """One CNN round (C=4, T=2, B=8, SGD) on the card, through the kernel,
     against the same round on the CPU (plain path): same participants, and
@@ -330,7 +373,7 @@ def test_train_round_on_card_matches_cpu(card):
     before = agg.fused_agg_cuda.launches
     got, mg = run(_to(params, card), _to(batch, card), card)
     torch.cuda.synchronize()
-    assert agg.fused_agg_cuda.launches - before == 10     # one per leaf
+    assert agg.fused_agg_cuda.launches - before == 1      # one per tree
     want, mw = run(params, batch, "cpu")
     assert float(mg["participants"]) == float(mw["participants"])
     flat = lambda t: torch.cat([t[k][kk].cpu().reshape(-1) for k in t
@@ -521,6 +564,57 @@ def test_serve_step_matches_plain(card, admission, train, hist):
     ratios = fs.stats_error(stats, exact, fs.kernel_tolerance(
         prog, out, env["valid"], n))
     assert max(ratios.values()) <= 1.0, ratios
+
+
+def _offset(t):
+    """An equal view of ``t`` that starts 4 bytes into a larger buffer."""
+    buf = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["misaligned", "stride-1", "stride",
+                                   "stride+1", "2stride-1", "2stride+1"])
+def test_serve_step_scalar_path_and_grid_edges(card, where):
+    """Per-client inputs as views at a 4-byte offset (the kernel's scalar
+    path), and n one client either side of one and two sweeps of the
+    persistent grid (grid x SERVE_TILE clients): charge, streak and mode
+    bitwise, stats within ``kernel_tolerance``."""
+    from repro_torch.energy import step_ops
+    from repro_torch.kernels import fleet_step as fs
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    stride = fs.serve_grid(10 ** 9, sms) * fs.SERVE_TILE
+    n = {"misaligned": 70_001, "stride-1": stride - 1, "stride": stride,
+         "stride+1": stride + 1, "2stride-1": 2 * stride - 1,
+         "2stride+1": 2 * stride + 1}[where]
+    prog, env = _serve_epoch(n, "battery", "sustainable", True, card)
+    if where == "misaligned":
+        env = {k: _offset(v) if torch.is_tensor(v) and v.shape == (n,)
+               and v.stride(0) == 1 else v for k, v in env.items()}
+        assert env["charge"].data_ptr() % 16 == 4
+    state, emits, stats = ops.fleet_step(prog, env, n=n, emit=True)
+    torch.cuda.synchronize()
+    out, _ = step_ops.run_step(prog, env, valid=env["valid"])
+    for k in prog.state_out:
+        assert torch.equal(state[k], out[k]), k
+    assert torch.equal(emits["mode"], out["mode"])
+    exact = fs.stats_float64(prog, out, env["valid"])
+    ratios = fs.stats_error(stats, exact, fs.kernel_tolerance(
+        prog, out, env["valid"], n))
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+@pytest.mark.cuda
+def test_serve_step_launch_shape(card):
+    """The grid is SMs x SERVE_BLOCKS_PER_SM, which is what the kernel
+    says and the occupancy CUDA reports for the main instantiation."""
+    from repro_torch.kernels import fleet_step as fs
+    lib = fs._serve_kernel()
+    assert lib.serve_step_blocks_per_sm() == fs.SERVE_BLOCKS_PER_SM
+    assert lib.serve_step_occupancy(fs.ADMISSIONS["battery_gated"],
+                                    fs.TRAINS["sustainable"], 1) \
+        == fs.SERVE_BLOCKS_PER_SM
 
 
 @pytest.mark.cuda

@@ -447,18 +447,23 @@ def test_bytes_moved_equals_reference():
 
 
 # ------------------------------------------------ kernel model and faults --
-def _block_sums(x, n, skip_last=False, keep=None):
-    """Column sums in csrc/serve_step.cu's order (that of fleet_step.cu):
-    per thread CPT clients from +0, a warp shuffle tree, the 8 warps in
-    order; then lane l of the second pass adds rows l, l+32, ... and a
-    shuffle tree."""
-    blocks = -(-n // fs.TILE)
-    xp = np.zeros(blocks * fs.TILE, np.float32)
+def _block_sums(x, n, fold_fault=None, keep=None):
+    """Column sums in csrc/serve_step.cu's order: block g of the persistent
+    grid walks tiles g, g + grid, ...; thread tid adds clients tid, tid +
+    256, ... (SERVE_CPT of them) of each tile in order, from +0; a warp
+    shuffle tree, the 8 warps in order; then lane l of the fold adds rows
+    l, l+32, ... and a shuffle tree.  ``fold_fault`` plants a fold that skips the last row or counts
+    row 0 twice."""
+    grid = fs.serve_grid(n)
+    tiles = -(-n // fs.SERVE_TILE)
+    steps = -(-tiles // grid)
+    xp = np.zeros(steps * grid * fs.SERVE_TILE, np.float32)
     xp[:n] = np.where(keep, x, 0) if keep is not None else x
-    t = xp.reshape(blocks, fs.CPT, fs.THREADS)
-    acc = np.zeros((blocks, fs.THREADS), np.float32)
-    for k in range(fs.CPT):
-        acc = (acc + t[:, k, :]).astype(np.float32)
+    t = xp.reshape(steps, grid, fs.SERVE_CPT, fs.SERVE_THREADS)
+    acc = np.zeros((grid, fs.SERVE_THREADS), np.float32)
+    for k in range(steps):
+        for j in range(fs.SERVE_CPT):
+            acc = (acc + t[k, :, j, :]).astype(np.float32)
 
     def tree(w):
         w = w.copy()
@@ -467,12 +472,15 @@ def _block_sums(x, n, skip_last=False, keep=None):
                                  ).astype(np.float32)
         return w[..., 0]
 
-    lanes = tree(acc.reshape(blocks, fs.WARPS, 32))
+    warps = fs.SERVE_THREADS // 32
+    lanes = tree(acc.reshape(grid, warps, 32))
     rows = lanes[:, 0]
-    for j in range(1, fs.WARPS):
+    for j in range(1, warps):
         rows = (rows + lanes[:, j]).astype(np.float32)
-    if skip_last:
+    if fold_fault == "skip_last_row":
         rows = rows[:-1]
+    elif fold_fault == "double_row":
+        rows = np.append(rows, rows[0])
     m = -(-len(rows) // 32)
     rp = np.zeros(m * 32, np.float32)
     rp[:len(rows)] = rows
@@ -485,16 +493,18 @@ def _block_sums(x, n, skip_last=False, keep=None):
 def _kernel_model(program, out, valid, n, fault=None):
     """The stats as csrc/serve_step.cu sums them, from the per-client
     buffers of a plain epoch; ``fault`` plants one the check must catch:
-    the last block skipped, the ragged tail dropped, the missed requests
-    summed from the shed buffer."""
+    the fold skipping the last row or counting a row twice, the last
+    partial tile dropped, the missed requests summed from the shed
+    buffer."""
     v = valid.numpy()
-    keep = (np.arange(n) < (n // fs.TILE) * fs.TILE
+    keep = (np.arange(n) < (n // fs.SERVE_TILE) * fs.SERVE_TILE
             if fault == "drop_tail" else None)
-    skip = fault == "skip_last_block"
+    fold_fault = fault if fault in ("skip_last_row", "double_row") else None
     buf = lambda b: out[b].expand(n).numpy().astype(np.float32)
     if fault == "wrong_buffer":
         buf = lambda b, _b=buf: _b("shed" if b == "missed" else b)
-    col = lambda x: _block_sums((v * x).astype(np.float32), n, skip, keep)
+    col = lambda x: _block_sums((v * x).astype(np.float32), n, fold_fault,
+                                keep)
     stats = {s: col(buf(b)) for s, b in program.totals}
     den = max(col(np.ones(n, np.float32)), np.float32(1))
     stats.update({s: np.float32(col(buf(b)) / den)
@@ -502,11 +512,7 @@ def _kernel_model(program, out, valid, n, fault=None):
     for spec in program.hists:
         idx = hist_lib.bin_index(out[spec.buf], spec.lo, spec.hi,
                                  spec.bins).numpy()
-        w = v.copy()
-        if keep is not None:
-            w = w * keep
-        if skip:
-            w[((n - 1) // fs.TILE) * fs.TILE:] = 0
+        w = v.copy() if keep is None else v * keep
         stats[spec.name] = np.bincount(idx, weights=w, minlength=spec.bins
                                        ).astype(np.float32)
     return {k: torch.tensor(np.asarray(x)) for k, x in stats.items()}
@@ -515,7 +521,9 @@ def _kernel_model(program, out, valid, n, fault=None):
 @pytest.mark.parametrize("n", [3 * 4096 + 1000, 65537, 300_001])
 @pytest.mark.parametrize("kind", ["battery", "charge"])
 def test_kernel_tolerance_admits_rounding_and_rejects_faults(n, kind):
-    """A model of the kernel's float32 summation order lies well inside
+    """A model of the kernel's float32 summation order (the persistent
+    walk, SERVE_CPT clients a thread a tile, the fixed-order fold) lies
+    well inside
     ``kernel_tolerance`` of the float64 sums of the 15 serve stats; each
     planted fault breaks it by more than 10x, or breaks an exact count."""
     r = np.random.default_rng(n)
@@ -536,8 +544,8 @@ def test_kernel_tolerance_admits_rounding_and_rejects_faults(n, kind):
     tol = fs.kernel_tolerance(tp, out, valid, n)
     ratios = fs.stats_error(_kernel_model(tp, out, valid, n), exact, tol)
     assert max(ratios.values()) < 0.5, ratios
-    faults = ["skip_last_block", "wrong_buffer"]
-    if n % fs.TILE:
+    faults = ["skip_last_row", "double_row", "wrong_buffer"]
+    if n % fs.SERVE_TILE:
         faults.append("drop_tail")
     for fault in faults:
         bad = _kernel_model(tp, out, valid, n, fault=fault)
