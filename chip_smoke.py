@@ -147,6 +147,37 @@ without either.  Phases, each of which raises on a failed check:
    weights upcast to fp32; then tok/s, the engine's per-stage
    microbenchmark and a profile of one S=2048 prefill and one decode step.
 
+13. Sharded fleet (run after phases 8 and 10): the client axis over
+   ``torch.distributed`` ranks (``simulate_fleet`` / ``run_serve_
+   controlled`` with ``mesh=``).  (a) One NCCL rank on cuda:0 at full
+   size: the example's fleet scenario at N = 1,000,000, 150 sustainable
+   rounds with histograms and masks, and the serving scenario's controlled
+   run, 192 epochs with modes: every stat, mask, mode, charge and count
+   bitwise equal to the same run host-local on the card, one step kernel
+   and one finalize a round or epoch and no other kernel, and each round's
+   finalize bitwise equal to its plain version (``step_ops.row_stats``)
+   on the row the round all-reduced; rounds/s and epochs/s beside the
+   host-local runs'; the all-reduce of a round's row alone, the finalize
+   launches' device time (``torch.profiler``) on the last round's row,
+   and the kernels one sharded round and one sharded epoch record, by
+   name.
+   (b) Two gloo ranks sharing cuda:0 (spawned as this script with
+   ``--sharded-child``, a deadline on both): a dyadic Bernoulli fleet at N
+   = 1,000,001 (padded) for 20 rounds of each fleet policy with histograms
+   and groups (G = 3), a Constant-traffic, Bernoulli-harvest serving fleet
+   for 10 controlled epochs, and a fleet of 2^24 + 2 clients padded so
+   that one rank counts 2^24 + 1 clients in a bin: bitwise to host-local
+   on the card; the scenarios' first 2 rounds and epochs: per-client
+   outputs and counts bitwise, the other stats within
+   ``kernel_tolerance(..., world=2)`` of their exact values (from each
+   round's inputs, recorded in the host-local run); on each rank every
+   round's finalize bitwise equal to ``step_ops.row_stats`` on its
+   all-reduced row.
+
+Every profile must record the kernels its window launched (the port's
+launch counts say how many), or it is taken again, and after ten the
+run fails.
+
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes a
 JSON record of every number measured.
@@ -279,28 +310,116 @@ def cuda_ms(fn, reps: int, torch) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(torch, fn) -> dict:
+def queued_ms(torch, fn, reps: int) -> float:
+    """Mean device ms per call of ``fn`` between CUDA events, the calls'
+    launches queued behind a sleeping kernel so that the card runs them
+    back to back, with no host time between them (after one warm-up
+    call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)          # ~60 ms of device time
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# the port's kernels as a profile names them, by the launch count that
+# counts them: (substrings of a kernel's name, kernels recorded a launch)
+PROFILE_NAMES = {
+    "flash_attention": ((("flash_fwd_bf16", "flash_fwd_f32"), 1),),
+    "fused_agg": ((("fused_agg_kernel",), 1),),
+    "fleet_step": ((("fleet_step_kernel",), 1), (("fleet_step_reduce",), 1)),
+    "serve_step": ((("serve_step_kernel",), 1),),
+    # bf16 records three kernels a launch, fp32 one: the chunk pass or the
+    # fp32 kernel is the one both record
+    "ssd_scan": ((("ssd_scan_chunk_bf16", "ssd_scan_f32"), 1),),
+    "fleet_step finalize": ((("fleet_step_finalize_kernel",), 1),),
+    "serve_step finalize": ((("serve_step_finalize_kernel",), 1),),
+}
+
+
+class ProfileIncomplete(AssertionError):
+    """A profile that did not record every kernel its window launched."""
+
+
+def launched(torch, fn) -> dict:
+    """{name substrings: kernels} of the port's kernels that one call of
+    ``fn`` launches, from their wrappers' launch counts (read before and
+    after the call, not reset) and ``PROFILE_NAMES``."""
+    from repro_torch.kernels import ops
+
+    def counts():
+        return {**ops.launch_counts(), **{f"{k} finalize": v for k, v in
+                                          ops.finalize_counts().items()}}
+
+    before = counts()
+    fn()
+    torch.cuda.synchronize()
+    after = counts()
+    return {names: (after[wrapper] - before[wrapper]) * per_launch
+            for wrapper, kinds in PROFILE_NAMES.items()
+            for names, per_launch in kinds}
+
+
+def device_profile(torch, fn, expect=None, calls: int | None = None,
+                   tries: int = 10) -> dict:
     """Wall time, device-busy time and kernel count of one call of ``fn``
-    (after a warm-up call), from ``torch.profiler``."""
+    (after a warm-up call), from ``torch.profiler``.  The profile must
+    hold every kernel the call launched: ``expect`` maps a kernel-name
+    substring (or a tuple of them) to the kernels of those names the call
+    launches (written at the call site, or from `launched`); with
+    ``calls`` (``fn`` calls one library function that many times, whose
+    kernels the port does not count) each kernel name must be recorded a
+    multiple of ``calls`` times; and some kernel must be recorded.  The
+    profiler on the card has been seen to miss whole windows, so a profile
+    short of this is taken again, up to ``tries`` times, and then this
+    raises ProfileIncomplete.  The result says how many were taken."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    expect = {(k,) if isinstance(k, str) else k: v
+              for k, v in (expect or {}).items()}
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
+    for taken in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation]
+        short = []
+        for names, want in expect.items():
+            got = sum(e.count for e in kernels
+                      if any(s in e.key for s in names))
+            if got != want:
+                short.append(f"{'|'.join(names)}: {got} of {want}")
+        if calls:
+            short += [f"{e.key[:60]}: {e.count}, not a multiple of {calls}"
+                      for e in kernels if e.count % calls]
+        if not kernels:
+            short.append("no kernel recorded")
+        if not short:
+            break
+        print(f"profile {taken} of {tries} incomplete: " + "; ".join(short),
+              flush=True)
+    else:
+        raise ProfileIncomplete(f"torch.profiler missed kernels in {tries} "
+                                f"profiles: " + "; ".join(short))
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_share": device_ms / wall_ms,
-            "kernels": sum(e.count for e in kernels),
+            "kernels": sum(e.count for e in kernels), "profiles": taken,
+            "counts": {e.key: e.count for e in kernels},
             "top": [(e.key[:60], e.self_device_time_total / 1e3) for e in top],
             "all": [(e.key, e.self_device_time_total / 1e3) for e in kernels]}
 
@@ -402,7 +521,8 @@ def kernel_phase(torch, fa, seed: int) -> dict:
         q, k, v = flash_inputs(torch, gen, 1, S, H, K, D, torch.bfloat16)
         run = lambda: fa.flash_attention_cuda(q, k, v, window=window)
         event_ms = cuda_ms(run, 20, torch)
-        prof = device_profile(torch, lambda: [run() for _ in range(reps)])
+        prof = device_profile(torch, lambda: [run() for _ in range(reps)],
+                              expect={"flash_fwd_bf16": reps})
         kernel_ms = sum(ms for n, ms in prof["all"] if "flash_fwd" in n) / reps
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=window), 3, torch)
@@ -410,7 +530,8 @@ def kernel_phase(torch, fa, seed: int) -> dict:
         sdpa = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
         library_event_ms = cuda_ms(sdpa, 20, torch)
-        lprof = device_profile(torch, lambda: [sdpa() for _ in range(reps)])
+        lprof = device_profile(torch, lambda: [sdpa() for _ in range(reps)],
+                               calls=reps)
         library_ms = lprof["device_ms"] / reps
         # window 2048 at S = 2048 masks nothing that causal does not
         lib_err = (sdpa().transpose(1, 2).float()
@@ -631,11 +752,13 @@ def serve_phase(torch, fa, seed: int, card: str) -> dict:
                             (busy._pos, busy._active, busy._gen))
     batch = {"tokens": torch.tensor(prompts[0], dtype=torch.long,
                                     device="cuda")[None]}
+    prefill = lambda: model.prefill(params, batch, cache_len=cache_len)
+    step = lambda: busy._step(pos, active, gen_idx)
     profiles = {
-        "prefill_2048": device_profile(
-            torch, lambda: model.prefill(params, batch, cache_len=cache_len)),
-        "decode_step_4_slots": device_profile(
-            torch, lambda: busy._step(pos, active, gen_idx)),
+        "prefill_2048": device_profile(torch, prefill,
+                                       launched(torch, prefill)),
+        "decode_step_4_slots": device_profile(torch, step,
+                                              launched(torch, step)),
     }
     for name, prof in profiles.items():
         print(f"profile {name}: wall {prof['wall_ms']:.3f} ms, device busy "
@@ -848,11 +971,13 @@ def mamba2_serve_phase(torch, ssd, seed: int, card: str) -> dict:
                             (busy._pos, busy._active, busy._gen))
     batch = {"tokens": torch.tensor(prompts[0], dtype=torch.long,
                                     device="cuda")[None]}
+    prefill = lambda: model.prefill(params, batch)
+    step = lambda: busy._step(pos, active, gen_idx)
     profiles = {
-        "prefill_2048": device_profile(
-            torch, lambda: model.prefill(params, batch)),
-        "decode_step_4_slots": device_profile(
-            torch, lambda: busy._step(pos, active, gen_idx)),
+        "prefill_2048": device_profile(torch, prefill,
+                                       launched(torch, prefill)),
+        "decode_step_4_slots": device_profile(torch, step,
+                                              launched(torch, step)),
     }
     for name, prof in profiles.items():
         print(f"profile mamba2 {name}: wall {prof['wall_ms']:.3f} ms, device "
@@ -986,7 +1111,8 @@ def fused_agg_phase(torch, agg, seed: int) -> dict:
     for label, items in (("tree", leaves), ("fc1.w", [fc1])):
         nbytes = sum((C + 2) * w.numel() * w.element_size() for w, _ in items)
         prof = device_profile(torch, lambda: [run[label]()
-                                              for _ in range(10)])
+                                              for _ in range(10)],
+                              expect={"fused_agg_kernel": 10})
         times[label] = {
             "kernel_ms": sum(ms for n, ms in prof["all"]
                              if "fused_agg" in n) / 10,
@@ -1174,7 +1300,8 @@ def fleet_step_phase(torch, fs, seed: int) -> dict:
     # its two launches per call
     reps = 10
     prof = device_profile(torch, lambda: [
-        fs.fleet_step_cuda(program, env, n=n) for _ in range(reps)])
+        fs.fleet_step_cuda(program, env, n=n) for _ in range(reps)],
+        expect={"fleet_step_kernel": reps, "fleet_step_reduce": reps})
     parts = {name: ms / reps for name, ms in prof["all"]
              if "fleet_step" in name}
     kernel_ms = sum(parts.values())
@@ -1407,9 +1534,10 @@ def fleet_phase(torch, fs, seed: int, card: str) -> dict:
                              "from the CPU's")
 
     # where a round's time goes
-    prof = device_profile(torch, lambda: launch.run_policy(
+    one = lambda: launch.run_policy(
         process, E, n, 1, launch.POLICIES[0][0], 1.0, seed, True, "cuda",
-        state=last.final_state, round_offset=rounds))
+        state=last.final_state, round_offset=rounds)
+    prof = device_profile(torch, one, launched(torch, one))
     step_ms = sum(ms for name, ms in prof["all"] if "fleet_step" in name)
     print(f"profile fleet round (sustainable, N={n:,}): wall "
           f"{prof['wall_ms']:.3f} ms, device busy {prof['device_ms']:.3f} ms "
@@ -1631,7 +1759,8 @@ def serve_step_phase(torch, fs, seed: int) -> dict:
                        torch)
     reps = 10
     prof = device_profile(torch, lambda: [
-        fs.fleet_step_cuda(program, env, n=n) for _ in range(reps)])
+        fs.fleet_step_cuda(program, env, n=n) for _ in range(reps)],
+        expect={"serve_step_kernel": reps})
     kernel_ms = sum(ms for name, ms in prof["all"]
                     if "serve_step" in name) / reps
     # the fold alone: the same code the last block runs, in a launch of
@@ -1644,7 +1773,8 @@ def serve_step_phase(torch, fs, seed: int) -> dict:
     grid = fs.serve_grid(n, sms)
     prof = device_profile(torch, lambda: [lib.serve_step_fold_only(
         partials.data_ptr(), counts.data_ptr(), sums.data_ptr(),
-        stats.data_ptr(), grid, 1, stream) for _ in range(reps)])
+        stats.data_ptr(), grid, 1, stream) for _ in range(reps)],
+        expect={"serve_step_fold": reps})
     fold_ms = sum(ms for name, ms in prof["all"]
                   if "serve_step_fold" in name) / reps
     parts = {"walk (the kernel less the fold alone)": kernel_ms - fold_ms,
@@ -1809,7 +1939,9 @@ def ssd_scan_phase(torch, ssd, seed: int) -> dict:
                        3, torch)
     reps = 10
     prof = device_profile(torch, lambda: [
-        ssd.ssd_scan_cuda(*inputs, chunk=SSD_CHUNK) for _ in range(reps)])
+        ssd.ssd_scan_cuda(*inputs, chunk=SSD_CHUNK) for _ in range(reps)],
+        expect={f"ssd_scan_{k}_bf16": reps
+                for k in ("state", "chain", "chunk")})
     parts = {name: ms / reps for name, ms in prof["all"]
              if "ssd_scan" in name}
     kernel_ms = sum(parts.values())
@@ -2139,10 +2271,11 @@ def serve_fleet_phase(torch, fs, seed: int, card: str) -> dict:
 
     # where an epoch's time goes (the controlled run's configuration)
     last = results["controlled"]
-    prof = device_profile(torch, lambda: launch.run(
+    one = lambda: launch.run(
         "gated", traffic, harvest, cost, train, n, 1, seed, "cuda",
         state=last.final_state[:1] + last.final_state[2:],
-        epoch_offset=epochs))
+        epoch_offset=epochs)
+    prof = device_profile(torch, one, launched(torch, one))
     step_ms = sum(ms for name, ms in prof["all"] if "serve_step" in name)
     print(f"profile serving epoch (gated, sustainable training, N={n:,}): "
           f"wall {prof['wall_ms']:.3f} ms, device busy "
@@ -2329,7 +2462,8 @@ def train_phase(torch, fa, agg, seed: int, card: str) -> dict:
         if policy == "sustainable" and not (
                 all(math.isfinite(x) for x in live) and live[-1] < live[0]):
             raise AssertionError(f"train {policy}: loss did not fall: {live}")
-        prof = device_profile(torch, lambda: train.train_round(run, w, 0))
+        one = lambda: train.train_round(run, w, 0)
+        prof = device_profile(torch, one, launched(torch, one))
         agg_ms = sum(ms for n, ms in prof["all"] if "fused_agg" in n)
         print(f"profile train round ({policy}): wall {prof['wall_ms']:.3f} "
               f"ms, device busy {prof['device_ms']:.3f} ms "
@@ -2394,11 +2528,619 @@ def fig1_phase(torch, seed: int) -> dict:
     return {"wall_s": wall, "results": res}
 
 
+# the sharded fleet phase: the client axis over torch.distributed ranks.
+# (a) one NCCL rank on the card at the scenarios' full size; (b) two gloo
+# ranks sharing the card (NCCL refuses two ranks on one device) on
+# exact-arithmetic fleets, the scenarios' first rounds, and counts above
+# 2^24 on one rank
+SHARDED = dict(clients=1_000_000, rounds=150, epochs=192)
+SHARDED_WORLD = 2
+SHARDED_DYADIC_N = 1_000_001        # padded to 1,000,002 over two ranks
+SHARDED_DYADIC_ROUNDS = 20
+SHARDED_SERVE_EPOCHS = 10           # two controlled days of 5 epochs
+SHARDED_FIRST = 2                   # the scenarios' first rounds / epochs
+SHARDED_BIG = 2 ** 24 + 2           # padded to 2 x (2^24 + 1): one rank
+#                                     holds 2^24 + 1 valid clients, the
+#                                     other one
+SHARDED_DEADLINE = 480.0            # seconds for the spawned ranks
+SHARDED_TIMEOUT = 180               # seconds a rank waits in a collective
+SHARDED_REPS = 50                   # all-reduces timed
+
+
+def digest(res) -> dict:
+    """{field: sha256 of its bytes} of a FleetResult or ServeResult: its
+    per-client outputs and every stat."""
+    import hashlib
+
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()) \
+        .hexdigest()
+    out = {k: sha(getattr(res, k).cpu().numpy())
+           for k in ("masks", "modes", "final_charge", "final_streak")
+           if getattr(res, k, None) is not None}
+    out.update({f"stat/{k}": sha(v) for k, v in res.stats.items()})
+    return out
+
+
+def bitwise_equal(torch, a, b) -> bool:
+    """Two FleetResults or ServeResults equal bit for bit: per-client
+    outputs (on the card) and every stat."""
+    for k in ("masks", "modes", "final_charge", "final_streak"):
+        x, y = getattr(a, k, None), getattr(b, k, None)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(
+                x.view(torch.int32), y.view(torch.int32))):
+            return False
+    return (set(a.stats) == set(b.stats)
+            and all(np.array_equal(np.asarray(v).view(np.int32),
+                                   np.asarray(b.stats[k]).view(np.int32))
+                    for k, v in a.stats.items()))
+
+
+def sharded_cases(torch, seed: int) -> dict:
+    """{name: (kind, run)}: the runs of phase 13(b), each ``run(mesh)`` ->
+    (result, extra), host-local with mesh=None.  kind: "exact" (everything
+    bitwise), "scenario" (per-client outputs bitwise, stats within the
+    two-rank bound) or "big" (counts above 2^24 on one rank: per-client
+    outputs and counts bitwise, the other stats, sums of more terms than
+    float32 holds exactly, within the two-rank bound)."""
+    from repro_torch.core import EnergyProfile, Policy
+    from repro_torch.energy.arrivals import Bernoulli
+    from repro_torch.energy.battery import BatteryConfig
+    from repro_torch.energy.control import AdmissionRule, ServerController
+    from repro_torch.energy.costs import DecodeCostModel
+    from repro_torch.energy.fleet import FleetConfig, simulate_fleet
+    from repro_torch.launch import fleet as lf
+    from repro_torch.launch import serve_fleet as ls
+    from repro_torch.serve import (BatteryGated, Constant, QoSSpec,
+                                   ServeConfig, run_serve_controlled)
+
+    dev = "cuda"
+    n = SHARDED_DYADIC_N
+    exact_bat = BatteryConfig(capacity=2.5, leak=0.0, init_charge=0.5)
+    bern = lambda m: Bernoulli.create(m, prob=0.375, amount=1.25, device=dev)
+
+    def fleet(policy):
+        def run(mesh):
+            cfg = FleetConfig(num_clients=n, policy=policy, threshold=1.5,
+                              seed=3)
+            return simulate_fleet(
+                bern(n), exact_bat, 0.75, cfg, SHARDED_DYADIC_ROUNDS,
+                E=EnergyProfile(n).cycles(dev),
+                groups=torch.arange(n, device=dev) % FLEET_GROUPS,
+                num_groups=FLEET_GROUPS, hist=True, record_masks=True,
+                mesh=mesh, device=dev), {}
+        return run
+
+    def serve(mesh):
+        ctrl = ServerController(T0=5, E0=4, rules=(AdmissionRule(),))
+        res, ctrl = run_serve_controlled(
+            Constant.create(n, rate=2.0, device=dev), bern(n), exact_bat,
+            DecodeCostModel(2.0 ** -8, 2.0 ** -9, 2.0 ** -6),
+            QoSSpec(64.0, 128.0, 32.0),
+            BatteryGated.create(n, 1.0, 1.0, device=dev),
+            ServeConfig(n, seed=3), SHARDED_SERVE_EPOCHS, ctrl,
+            train_cost=0.25, control_every=SHARDED_SERVE_EPOCHS // 2,
+            hist=True, record_modes=True, mesh=mesh, device=dev)
+        return res, {"admit": [t["admit"] for t in ctrl.trace]}
+
+    def scenario_fleet(mesh):
+        process, _, E = lf.scenario(SHARDED["clients"], seed, dev)
+        return lf.run_policy(process, E, SHARDED["clients"], SHARDED_FIRST,
+                             Policy.SUSTAINABLE, 1.0, seed, True, dev,
+                             record_masks=True, mesh=mesh)[0], {}
+
+    def scenario_serve(mesh):
+        traffic, harvest, cost, train = ls.scenario(SHARDED["clients"], dev)
+        return ls.run("gated", traffic, harvest, cost, train,
+                      SHARDED["clients"], SHARDED_FIRST, seed, dev,
+                      hist=True, record_modes=True, mesh=mesh)[0], {}
+
+    def big(mesh):
+        m = SHARDED_BIG
+        return simulate_fleet(
+            bern(m), BatteryConfig(capacity=2.5, leak=0.0, init_charge=2.5),
+            0.25, FleetConfig(num_clients=m, policy="greedy"), 1, hist=True,
+            pad_to=SHARDED_WORLD * (2 ** 24 + 1), mesh=mesh,
+            device=dev), {}
+
+    cases = {f"fleet {p}": ("exact", fleet(p))
+             for p in ("sustainable", "greedy", "threshold", "always")}
+    cases["serve controlled"] = ("exact", serve)
+    cases["scenario fleet"] = ("scenario", scenario_fleet)
+    cases["scenario serve"] = ("scenario", scenario_serve)
+    cases["counts above 2^24"] = ("big", big)
+    return cases
+
+
+class RoundTap:
+    """While entered, records each round (or epoch) a run takes: its step
+    program, ``n`` and ``num_groups``, with ``env`` a copy of its inputs,
+    and on a mesh the row it all-reduced (the finalize's input), by
+    wrapping ``kernels.ops.fleet_step`` and ``dist.collectives.
+    all_reduce_row``.  The kernels' launch counts are not touched."""
+
+    def __init__(self, env: bool = False):
+        self.env, self.rounds = env, []
+
+    def __enter__(self):
+        from repro_torch.dist import collectives
+        from repro_torch.kernels import ops
+
+        self._mods = (ops, collectives)
+        step, reduce = self._orig = (ops.fleet_step,
+                                     collectives.all_reduce_row)
+
+        def tapped_step(program, env, *, n, emit=False, num_groups=None,
+                        mesh=None):
+            rec = {"program": program, "n": n, "num_groups": num_groups,
+                   "row": None}
+            if self.env:
+                rec["env"] = {k: v.clone() if hasattr(v, "clone") else v
+                              for k, v in env.items()}
+            self.rounds.append(rec)
+            return step(program, env, n=n, emit=emit, num_groups=num_groups,
+                        mesh=mesh)
+
+        def tapped_reduce(row, group):
+            out = reduce(row, group)
+            # the wrapper allocates a row a round: holding it is a copy
+            self.rounds[-1]["row"] = row
+            return out
+
+        ops.fleet_step = tapped_step
+        collectives.all_reduce_row = tapped_reduce
+        return self
+
+    def __exit__(self, *exc):
+        ops, collectives = self._mods
+        ops.fleet_step, collectives.all_reduce_row = self._orig
+
+
+def finalize_vs_plain(torch, tap: RoundTap) -> list:
+    """[rounds compared, rounds that differ]: each round's finalize kernel
+    (``fleet_finalize_cuda`` / ``serve_finalize_cuda``) on the row the
+    round all-reduced, against its plain version ``step_ops.row_stats`` on
+    the same row, bit for bit (both round each sum to float32 once and
+    divide once in IEEE arithmetic)."""
+    from repro_torch.energy import step_ops
+    from repro_torch.kernels import fleet_step as fs
+
+    bits = lambda t: t.reshape(-1).view(torch.int32)
+    compared = differ = 0
+    for rec in tap.rounds:
+        prog, row, G = rec["program"], rec["row"], rec["num_groups"]
+        if row is None:
+            continue
+        got = (fs.serve_finalize_cuda(prog, row)
+               if prog.name == "serve_step"
+               else fs.fleet_finalize_cuda(prog, row, G))
+        want = step_ops.row_stats(prog, row, G)
+        compared += 1
+        differ += not (set(got) == set(want) and all(
+            torch.equal(bits(got[k]), bits(want[k])) for k in want))
+    return [compared, differ]
+
+
+def round_bounds(torch, tap: RoundTap, world: int) -> list:
+    """For each round of a host-local run recorded with ``RoundTap(env=
+    True)``: its stats' exact float64 values (``stats_float64`` of
+    ``step_ops.run_step``'s final env on the round's inputs) and
+    ``kernel_tolerance``'s bound on one rank and on ``world`` ranks."""
+    from repro_torch.energy import step_ops
+    from repro_torch.kernels import fleet_step as fs
+
+    out = []
+    for rec in tap.rounds:
+        prog, env, n, G = (rec["program"], rec["env"], rec["n"],
+                           rec["num_groups"])
+        valid, groups = env["valid"], env.get("groups")
+        final, _ = step_ops.run_step(prog, env, valid=valid, groups=groups,
+                                     num_groups=G)
+        out.append({"exact": fs.stats_float64(prog, final, valid, groups, G),
+                    "tol": {w: fs.kernel_tolerance(prog, final, valid, n,
+                                                   groups, G, world=w)
+                            for w in (1, world)}})
+    return out
+
+
+def worst_over_bound(torch, stats: dict, bounds: list, world: int) -> float:
+    """Largest |stat - exact| / ``kernel_tolerance``'s bound on ``world``
+    ranks over the rounds of ``bounds`` (`round_bounds`) and every stat but
+    the histogram counts (held bitwise against host-local instead: a count
+    above 2^24 is no exact float32)."""
+    from repro_torch.kernels import fleet_step as fs
+
+    worst = 0.0
+    for r, b in enumerate(bounds):
+        keys = [k for k in b["exact"] if not k.startswith("hist_")]
+        got = {k: torch.tensor(np.asarray(stats[k], np.float32)[r])
+               for k in keys}
+        ratios = fs.stats_error(got, {k: b["exact"][k] for k in keys},
+                                {k: b["tol"][world][k] for k in keys})
+        worst = max([worst, *ratios.values()])
+    return worst
+
+
+def run_case(torch, run, mesh, keep: bool = False, envs: bool = False
+             ) -> dict:
+    """One case of `sharded_cases`: the kernels' launches and finalizes,
+    the wall seconds, the stats, what else the case returns, and its
+    digest (or, with ``keep``, the result itself and its `RoundTap`); on a
+    mesh, every round's finalize held against its plain version on the
+    round's all-reduced row (`finalize_vs_plain`); with ``envs`` each
+    round's exact stats and bounds on 1 and SHARDED_WORLD ranks
+    (`round_bounds`)."""
+    from repro_torch.kernels import ops
+
+    ops.zero_launches()
+    torch.cuda.synchronize()
+    with RoundTap(env=envs) as tap:
+        t0 = time.perf_counter()
+        res, extra = run(mesh)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    out = {"wall_s": wall_s,
+           "launches": ops.launch_counts(),
+           "finalizes": ops.finalize_counts(),
+           "stats": {k: np.asarray(v).tolist() for k, v in res.stats.items()},
+           **extra}
+    if mesh is not None:
+        out["finalize_vs_plain"] = finalize_vs_plain(torch, tap)
+    if envs:
+        out["bounds"] = round_bounds(torch, tap, SHARDED_WORLD)
+    for rec in tap.rounds:
+        rec.pop("env", None)
+    if keep:
+        out["result"], out["tap"] = res, tap
+    else:
+        out["digest"] = digest(res)
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_all_reduce(torch, dist, row, group, reps: int) -> float:
+    """Host ms per synchronized all-reduce of ``row`` over ``group``."""
+    dist.all_reduce(row, group=group)
+    torch.cuda.synchronize()
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(row, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sharded_child(rank: int, world: int, init: str, out_dir: str,
+                  seed: int) -> None:
+    """A rank of phase 13(b): every case of `sharded_cases` over a
+    ("data",) mesh of gloo ranks on cuda:0, then the all-reduce of a round's
+    row alone; writes out_dir/rank{rank}.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import fleet_step as fs
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=init, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT))
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    record = {name: run_case(torch, run, mesh)
+              for name, (_, run) in sharded_cases(torch, seed).items()}
+    row = torch.zeros(8 + fs.NBINS, dtype=torch.float64, device="cuda")
+    record["collective_ms"] = time_all_reduce(
+        torch, dist, row, mesh.get_group("data"), SHARDED_REPS)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, out_dir: str, seed: int) -> list:
+    """Run `sharded_child` in ``world`` processes (this file with
+    ``--sharded-child``), all started together; their records, or raise if
+    a rank fails or they outlast SHARDED_DEADLINE (every rank is stopped
+    either way)."""
+    init = f"file://{os.path.join(out_dir, 'rendezvous')}"
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+        procs.append((log, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--sharded-child", str(rank), str(world), init, out_dir],
+            stdout=log, stderr=subprocess.STDOUT)))
+    t0 = time.perf_counter()
+    try:
+        for rank, (log, p) in enumerate(procs):
+            left = SHARDED_DEADLINE - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 0.1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"sharded: the {world} ranks outlasted "
+                                     f"their {SHARDED_DEADLINE:.0f} s "
+                                     f"deadline")
+            log.close()
+            if p.returncode != 0:
+                with open(os.path.join(out_dir, f"rank{rank}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"sharded: rank {rank} of {world} "
+                                     f"exited {p.returncode}:\n{tail}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def sharded_phase(torch, fs, seed: int, card: str, fleet=None,
+                  serve_fleet=None) -> dict:
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import Policy
+    from repro_torch.energy import step_ops
+    from repro_torch.launch import fleet as lf
+    from repro_torch.launch import serve_fleet as ls
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    n, rounds, epochs = (SHARDED["clients"], SHARDED["rounds"],
+                         SHARDED["epochs"])
+    out = {"clients": n, "rounds": rounds, "epochs": epochs}
+
+    def launches_ok(rec, kernel, count):
+        others = sum(v for k, v in rec["launches"].items() if k != kernel)
+        fin_others = sum(v for k, v in rec["finalizes"].items()
+                         if k != kernel)
+        return (rec["launches"][kernel] == count
+                and rec["finalizes"][kernel] == count and others == 0
+                and fin_others == 0)
+
+    # (a) one NCCL rank on cuda:0: bitwise to host-local, one step kernel
+    # and one finalize a round or epoch
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'nccl')}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT))
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        process, _, E = lf.scenario(n, seed, "cuda")
+        traffic, harvest, cost, train = ls.scenario(n, "cuda")
+
+        def fleet_run(m):
+            return lf.run_policy(process, E, n, rounds, Policy.SUSTAINABLE,
+                                 1.0, seed, True, "cuda", record_masks=True,
+                                 mesh=m)[0], {}
+
+        def serve_run(m):
+            res, ctrl, _, _ = ls.run("controlled", traffic, harvest, cost,
+                                     train, n, epochs, seed, "cuda",
+                                     hist=True, record_modes=True, mesh=m)
+            return res, {"admit": [t["admit"] for t in ctrl.trace]}
+
+        last = {}
+        for kind, kernel, count, run in (
+                ("fleet", "fleet_step", rounds, fleet_run),
+                ("serve", "serve_step", epochs, serve_run)):
+            host = run_case(torch, run, None, keep=True)
+            shard = run_case(torch, run, mesh, keep=True)
+            same = (bitwise_equal(torch, host.pop("result"),
+                                  shard.pop("result"))
+                    and host.get("admit") == shard.get("admit"))
+            last[kind] = shard.pop("tap").rounds[-1]
+            torch.cuda.empty_cache()
+            fin_same = shard["finalize_vs_plain"] == [count, 0]
+            ok = same and fin_same and launches_ok(shard, kernel, count)
+            unit = "rounds" if kind == "fleet" else "epochs"
+            before = (fleet or {}).get("runs", [{}])[0].get("rounds_per_s") \
+                if kind == "fleet" else next(
+                    (r["epochs_per_s"] for r in (serve_fleet or {}).get(
+                        "runs", []) if r["run"] == "controlled"), None)
+            print(f"sharded (a) one NCCL rank, {kind} "
+                  f"({'sustainable, hist, masks' if kind == 'fleet' else 'controlled, hist, modes'}) "
+                  f"N={n:,} x {count} {unit}: every stat, "
+                  f"{'mask' if kind == 'fleet' else 'mode'}, charge and count "
+                  f"bitwise to host-local {same}; the finalize on each "
+                  f"{unit[:-1]}'s all-reduced row bitwise to step_ops."
+                  f"row_stats on it {fin_same} "
+                  f"({shard['finalize_vs_plain'][0]} compared); {kernel} "
+                  f"launches "
+                  f"{shard['launches'][kernel]}, finalizes "
+                  f"{shard['finalizes'][kernel]} (other kernels "
+                  f"{sum(shard['launches'].values()) - shard['launches'][kernel]}); "
+                  f"{count / shard['wall_s']:.2f} {unit}/s sharded vs "
+                  f"{count / host['wall_s']:.2f} host-local in this phase"
+                  + (f" and {before:.2f} in phase {8 if kind == 'fleet' else 10}"
+                     f" (no {'masks' if kind == 'fleet' else 'modes'})"
+                     if before else "")
+                  + f" on {card} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"sharded (a) {kind}: a check failed: "
+                                     f"bitwise {same}, finalize vs plain "
+                                     f"{shard['finalize_vs_plain']}, "
+                                     f"{shard['launches']}, "
+                                     f"{shard['finalizes']}")
+            out[f"nccl1_{kind}"] = {
+                "per_s": count / shard["wall_s"],
+                "host_local_per_s": count / host["wall_s"],
+                "launches": shard["launches"][kernel],
+                "finalizes": shard["finalizes"][kernel],
+                "finalize_vs_plain": shard["finalize_vs_plain"]}
+
+        # the collective alone, and the finalize launches' device time
+        group = mesh.get_group("data")
+        row = torch.zeros(8 + fs.NBINS, dtype=torch.float64, device="cuda")
+        host_ms = time_all_reduce(torch, dist, row, group, SHARDED_REPS)
+        event_ms = cuda_ms(lambda: dist.all_reduce(row, group=group),
+                           SHARDED_REPS, torch)
+        reps = 10
+        fin, fin_by, fin_plain, fin_bound = {}, {}, {}, {}
+        for kind, name in (("fleet", "fleet_step"), ("serve", "serve_step")):
+            # the last round's (epoch's) all-reduced row, full size
+            prog, r = last[kind]["program"], last[kind]["row"]
+            call = (lambda: fs.fleet_finalize_cuda(prog, r)) \
+                if kind == "fleet" else \
+                (lambda: fs.serve_finalize_cuda(prog, r))
+            try:
+                prof = device_profile(torch, lambda: [
+                    call() for _ in range(reps)],
+                    expect={f"{name}_finalize_kernel": reps})
+                fin[name] = sum(ms for k, ms in prof["all"]
+                                if "finalize" in k) / reps
+                fin_by[name] = "torch.profiler"
+            except ProfileIncomplete as e:
+                print(f"sharded (a) {name} finalize: {e}", flush=True)
+                fin[name] = queued_ms(torch, call, 50)
+                fin_by[name] = ("CUDA events around back-to-back launches "
+                                "(the profiler missed kernels of every "
+                                "window)")
+            fin_plain[name] = cuda_ms(lambda: step_ops.row_stats(prog, r),
+                                      20, torch)
+            # the float64 row read once; the float32 sums (as wide as the
+            # row) and stats (one fewer: the sum of valid is no stat)
+            # written once
+            nbytes = r.numel() * 8 + (2 * r.numel() - 1) * 4
+            fin_bound[name] = nbytes / PEAK_BYTES * 1e3
+        # the kernels of one sharded round and one sharded epoch, by name
+        one_round = lambda: lf.run_policy(
+            process, E, n, 1, Policy.SUSTAINABLE, 1.0, seed, True, "cuda",
+            mesh=mesh)
+        one_epoch = lambda: ls.run("gated", traffic, harvest, cost, train, n,
+                                   1, seed, "cuda", hist=True, mesh=mesh)
+        per_unit = {}
+        for kind, one, names in (
+                ("fleet", one_round, {"step": "fleet_step_kernel",
+                                      "reduce": "fleet_step_reduce",
+                                      "finalize": "fleet_step_finalize"}),
+                ("serve", one_epoch, {"step": "serve_step_kernel",
+                                      "finalize": "serve_step_finalize"})):
+            prof = device_profile(torch, one, launched(torch, one))
+            counts = prof["counts"]
+            per_unit[kind] = {
+                label: sum(c for k, c in counts.items() if sub in k)
+                for label, sub in names.items()}
+            per_unit[kind]["collective"] = sum(
+                c for k, c in counts.items() if "nccl" in k.lower())
+            per_unit[kind]["other"] = (prof["kernels"]
+                                       - sum(per_unit[kind].values()))
+        per_round = per_unit["fleet"]
+        print(f"sharded (a) the collective: all-reduce of a round's row "
+              f"({row.numel()} float64) over one NCCL rank {host_ms:.4f} ms "
+              f"a call on the host clock, {event_ms:.4f} ms between CUDA "
+              f"events; finalize {fin['fleet_step']:.4f} ms (fleet_step, "
+              f"{fin_by['fleet_step']}), {fin['serve_step']:.4f} ms "
+              f"(serve_step, {fin_by['serve_step']}), its "
+              f"plain version (step_ops.row_stats, CUDA events) "
+              f"{fin_plain['fleet_step']:.4f} / {fin_plain['serve_step']:.4f}"
+              f" ms, bound {fin_bound['fleet_step']:.2e} / "
+              f"{fin_bound['serve_step']:.2e} ms (bytes), each on the "
+              f"last all-reduced row of the runs above; the kernels of one "
+              f"sharded round by name (profiler): {per_round}, of one "
+              f"sharded epoch: {per_unit['serve']} ('other': the draws and "
+              f"the rest of the step) on {card}", flush=True)
+        out.update(nccl1_collective_ms=host_ms,
+                   nccl1_collective_event_ms=event_ms, finalize_ms=fin,
+                   finalize_timed_by=fin_by,
+                   finalize_plain_ms=fin_plain, finalize_bound_ms=fin_bound,
+                   round_kernels=per_round, epoch_kernels=per_unit["serve"])
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks sharing cuda:0, against host-local runs on the card
+    cases = sharded_cases(torch, seed)
+    host = {name: run_case(torch, run, None, envs=kind != "exact")
+            for name, (kind, run) in cases.items()}
+    big = host["counts above 2^24"]["stats"]
+    if not all(int(sum(big[k][0])) == SHARDED_BIG
+               for k in ("hist_soc", "hist_spend", "hist_streak")) \
+            or max(big["hist_streak"][0]) <= 2 ** 24:
+        raise AssertionError("sharded: the host-local fleet above 2^24 "
+                             "clients does not count N clients in one bin")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(SHARDED_WORLD, tmp, seed)
+    spawn_s = time.perf_counter() - t0
+    failed = []
+    for name, (kind, _) in cases.items():
+        want = host[name]
+        serve = name.startswith("serve") or name == "scenario serve"
+        kernel = "serve_step" if serve else "fleet_step"
+        count = (SHARDED_SERVE_EPOCHS if name == "serve controlled"
+                 else SHARDED_DYADIC_ROUNDS if kind == "exact"
+                 else SHARDED_FIRST if kind == "scenario" else 1)
+        for rank, rec in enumerate(ranks):
+            got = rec[name]
+            if kind != "exact":
+                bitwise = [k for k in want["digest"]
+                           if not k.startswith("stat/")
+                           or k.startswith("stat/hist_")]
+                per_client = all(got["digest"][k] == want["digest"][k]
+                                 for k in bitwise)
+                worst = worst_over_bound(torch, got["stats"],
+                                         want["bounds"], SHARDED_WORLD)
+                worst_host = worst_over_bound(torch, want["stats"],
+                                              want["bounds"], 1)
+                same = per_client and worst <= 1.0 and worst_host <= 1.0
+                detail = (f"per-client outputs and counts bitwise "
+                          f"{per_client}, other stats within "
+                          f"kernel_tolerance(world={SHARDED_WORLD}) of "
+                          f"exact: worst err/bound {worst:.3f} (host-local "
+                          f"{worst_host:.3f} of world=1's)")
+            else:
+                same = (got["digest"] == want["digest"]
+                        and got.get("admit") == want.get("admit"))
+                detail = (f"every stat, mask or mode, charge and count "
+                          f"bitwise {same}")
+            fin_same = got["finalize_vs_plain"] == [count, 0]
+            detail += (f"; finalize bitwise to row_stats on each all-reduced "
+                       f"row {fin_same}")
+            ok = same and fin_same and launches_ok(got, kernel, count)
+            if rank == 0 or not ok:
+                print(f"sharded (b) {SHARDED_WORLD} gloo ranks on cuda:0, "
+                      f"{name}, rank {rank}: {detail}; {kernel} launches "
+                      f"{got['launches'][kernel]}, finalizes "
+                      f"{got['finalizes'][kernel]} (a rank, {count} "
+                      f"{'epochs' if serve else 'rounds'}) in "
+                      f"{got['wall_s']:.2f} s {'ok' if ok else 'FAIL'}",
+                      flush=True)
+            if not ok:
+                failed.append((name, rank))
+    gloo_ms = [rec["collective_ms"] for rec in ranks]
+    print(f"sharded (b) the collective: all-reduce of a round's row over "
+          f"{SHARDED_WORLD} gloo ranks sharing the card "
+          f"{max(gloo_ms):.4f} ms a call on the host clock (ranks "
+          f"{', '.join(f'{v:.4f}' for v in gloo_ms)}); ranks spawned and "
+          f"run in {spawn_s:.1f} s on {card}", flush=True)
+    if failed:
+        raise AssertionError(f"sharded (b): checks failed for {failed}")
+    out.update(gloo2_collective_ms=max(gloo_ms), gloo2_spawn_s=spawn_s,
+               gloo2_cases={name: {"wall_s": ranks[0][name]["wall_s"]}
+                            for name in cases})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="write the JSON record of the run here")
+    ap.add_argument("--sharded-child", nargs=4,
+                    metavar=("RANK", "WORLD", "INIT", "OUT_DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.sharded_child:
+        rank, world, init, out_dir = args.sharded_child
+        sharded_child(int(rank), int(world), init, out_dir, args.seed)
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -2451,12 +3193,28 @@ def main(argv=None) -> int:
     fleet_kernel["launches"] = fleet["launches"]
     serve_fleet = serve_fleet_phase(torch, fs, args.seed, card)
     serve_kernel["launches"] = serve_fleet["launches"]
+    sharded = sharded_phase(torch, fs, args.seed, card, fleet, serve_fleet)
+    for k, kind, unit in ((fleet_kernel, "fleet", "round"),
+                          (serve_kernel, "serve", "epoch")):
+        name = "fleet_step" if kind == "fleet" else "serve_step"
+        k["sharded"] = {
+            "launches": sharded[f"nccl1_{kind}"]["launches"],
+            "finalize_launches": sharded[f"nccl1_{kind}"]["finalizes"],
+            f"kernels_per_{unit}": sharded[f"{unit}_kernels"],
+            "finalize_vs_plain": sharded[f"nccl1_{kind}"]["finalize_vs_plain"],
+            "finalize_ms": sharded["finalize_ms"][name],
+            "finalize_timed_by": sharded["finalize_timed_by"][name],
+            "finalize_plain_ms": sharded["finalize_plain_ms"][name],
+            "finalize_bound_ms": sharded["finalize_bound_ms"][name],
+            "collective_ms_nccl_1_rank": sharded["nccl1_collective_ms"],
+            "collective_ms_gloo_2_ranks": sharded["gloo2_collective_ms"]}
 
     kernels = [kernel, agg_kernel, fleet_kernel, serve_kernel, ssd_kernel]
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels, "serve": serve,
               "serve_mamba2": mamba, "train": train, "fig1": fig1,
-              "fleet": fleet, "serve_fleet": serve_fleet}
+              "fleet": fleet, "serve_fleet": serve_fleet,
+              "sharded": sharded}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

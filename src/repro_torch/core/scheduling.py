@@ -35,11 +35,14 @@ def _int(x, like: torch.Tensor | None = None) -> torch.Tensor:
     return torch.as_tensor(x, device=dev).to(torch.int64)
 
 
-def sustainable_schedule(seed, rnd, E, phase=None) -> torch.Tensor:
+def sustainable_schedule(seed, rnd, E, phase=None, first: int = 0
+                         ) -> torch.Tensor:
     """Algorithm 1, lines 5-7: within each window of ``E_i`` consecutive
     global rounds, client ``i`` draws ``J ~ Uniform{0..E_i-1}`` once and
     participates only in round ``window_start + J``.  ``phase`` (N,) shifts
     client i's windows to ``rnd + phase_i`` (the paper's footnote 1).
+    ``E`` (and ``phase``) may be a slab of a sharded fleet, clients
+    ``[first, first + N)``: each draws by its global index.
 
     The reference maps one draw per client with ``vmap``; here the clients
     are one batch of keys, which gives the same draws.
@@ -53,7 +56,8 @@ def sustainable_schedule(seed, rnd, E, phase=None) -> torch.Tensor:
     # the reference's key: PRNGKey(0) + seed = (seed, seed) as uint32 words
     key = (torch.zeros(2, dtype=torch.int64, device=E.device)
            + _int(seed, E)) & prng.MASK32
-    clients = torch.arange(E.shape[0], dtype=torch.int64, device=E.device)
+    clients = torch.arange(first, first + E.shape[0], dtype=torch.int64,
+                           device=E.device)
     keys = prng.fold_in(prng.fold_in(key, clients), window)
     j = prng.randint(keys, (), 0, E)
     return (pos == j).to(torch.float32)

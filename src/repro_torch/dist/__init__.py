@@ -1,2 +1,4 @@
-"""Reductions over the fleet's client axis.  One device in this slice; the
-``torch.distributed`` forms wait for ``ROADMAP.md`` Queue 1 item 25."""
+"""The fleet's client axis across ranks: `sharding` (the mesh, each rank's
+slab, the process group over the data axes, gathers) and `collectives`
+(valid-weighted reductions and the all-reduce of a round's row of
+sums)."""

@@ -5,12 +5,16 @@ Every process obeys one functional contract, vectorised over the fleet:
 
     state0  = process.init()                          # (N,) tensors or ()
     harvest, state1 = process.sample(key, t, state0)  # harvest: (N,) float32 J
+    harvest, state1 = process.sample(key, t, state0, first=f)  # a slab
 
 Per-client parameters are float32 tensors, (N,) or broadcast from a scalar
 with ``expand`` (stride 0, no copy).  Randomness is drawn per client
 through `repro_torch.prng`: ``fold_in(key, i)`` and then one scalar draw,
 so client ``i``'s harvest depends only on ``(key, i)`` and is invariant to
-padding the fleet.  The uniforms, `Bernoulli` and `DeterministicRenewal`
+padding the fleet.  A process sized to a slab of a sharded fleet (its
+per-client parameters sliced to clients ``[first, first + N)``) draws
+with ``first=``: client ``first + j`` of the slab draws by its global
+index, bit for bit what the whole fleet draws there.  The uniforms, `Bernoulli` and `DeterministicRenewal`
 harvests and `MarkovSolar`'s regimes are bitwise equal to the reference's.
 The exponential marks (`MarkovSolar`, `CompoundPoisson`) are within a few
 ulp of it (``prng.exponential``), and the truncated-Poisson counts equal
@@ -53,29 +57,34 @@ def map_tensors(obj, fn: Callable[[torch.Tensor], torch.Tensor]):
     return obj
 
 
-def client_keys(key: torch.Tensor, n: int) -> torch.Tensor:
-    """(n, 2) per-client keys ``fold_in(key, i)``."""
-    return prng.fold_in(key, torch.arange(n, dtype=torch.int64,
+def client_keys(key: torch.Tensor, n: int, first: int = 0) -> torch.Tensor:
+    """(n, 2) per-client keys ``fold_in(key, i)`` for the global client
+    indices ``i`` in ``[first, first + n)``."""
+    return prng.fold_in(key, torch.arange(first, first + n,
+                                          dtype=torch.int64,
                                           device=key.device))
 
 
-def client_uniform(key: torch.Tensor, n: int) -> torch.Tensor:
-    """(n,) float32 uniforms; value ``i`` depends only on ``(key, i)``."""
-    return prng.uniform(client_keys(key, n), ())
+def client_uniform(key: torch.Tensor, n: int, first: int = 0
+                   ) -> torch.Tensor:
+    """(n,) float32 uniforms of clients ``[first, first + n)``; client
+    ``i``'s value depends only on ``(key, i)``."""
+    return prng.uniform(client_keys(key, n, first), ())
 
 
-def client_randint(key: torch.Tensor, n: int, bound: int) -> torch.Tensor:
+def client_randint(key: torch.Tensor, n: int, bound: int, first: int = 0
+                   ) -> torch.Tensor:
     """(n,) int32 draws over {0..bound-1}, per client like
     `client_uniform`."""
-    u = client_uniform(key, n)
+    u = client_uniform(key, n, first)
     return torch.clamp_max((u * bound).to(torch.int32), bound - 1)
 
 
-def client_exponential(key: torch.Tensor, n: int, extra_shape: tuple = ()
-                       ) -> torch.Tensor:
-    """(n, *extra_shape) Exp(1) marks; row ``i`` depends only on
-    ``(key, i, extra_shape)``."""
-    return prng.exponential(client_keys(key, n), extra_shape)
+def client_exponential(key: torch.Tensor, n: int, extra_shape: tuple = (),
+                       first: int = 0) -> torch.Tensor:
+    """(n, *extra_shape) Exp(1) marks of clients ``[first, first + n)``;
+    client ``i``'s row depends only on ``(key, i, extra_shape)``."""
+    return prng.exponential(client_keys(key, n, first), extra_shape)
 
 
 def truncated_poisson(u: torch.Tensor, rate: torch.Tensor,
@@ -116,9 +125,9 @@ class Bernoulli:
     def init(self) -> PyTree:
         return ()
 
-    def sample(self, key, t, state):
+    def sample(self, key, t, state, first: int = 0):
         del t
-        u = client_uniform(key, self.num_clients)
+        u = client_uniform(key, self.num_clients, first)
         return torch.where(u < self.prob, self.amount, 0.0), state
 
 
@@ -146,13 +155,13 @@ class CompoundPoisson:
     def init(self) -> PyTree:
         return ()
 
-    def sample(self, key, t, state):
+    def sample(self, key, t, state, first: int = 0):
         del t
         k1, k2 = prng.split(key)
-        u = client_uniform(k1, self.num_clients)
+        u = client_uniform(k1, self.num_clients, first)
         k = truncated_poisson(u, self.rate, self.max_arrivals)
         marks = client_exponential(k2, self.num_clients,
-                                   (self.max_arrivals,))
+                                   (self.max_arrivals,), first)
         active = (torch.arange(self.max_arrivals, device=k.device)[None, :]
                   < k[:, None])
         harvest = self.mean_amount * torch.sum(marks * active, dim=1)
@@ -187,15 +196,16 @@ class MarkovSolar:
         return torch.ones((self.num_clients,), dtype=torch.int32,
                           device=self.day_mean.device)
 
-    def sample(self, key, t, state):
+    def sample(self, key, t, state, first: int = 0):
         del t
         k1, k2 = prng.split(key)
-        u = client_uniform(k1, self.num_clients)
+        u = client_uniform(k1, self.num_clients, first)
         is_day = state == 1
         day_next = torch.where(is_day, u < self.p_stay_day,
                                u >= self.p_stay_night)
         mean = torch.where(day_next, self.day_mean, self.night_mean)
-        harvest = mean * client_exponential(k2, self.num_clients)
+        harvest = mean * client_exponential(k2, self.num_clients,
+                                            first=first)
         return harvest, day_next.to(torch.int32)
 
 
@@ -226,8 +236,8 @@ class DeterministicRenewal:
     def init(self) -> PyTree:
         return ()
 
-    def sample(self, key, t, state):
-        del key
+    def sample(self, key, t, state, first: int = 0):
+        del key, first              # no draw: the phases are per client
         arrives = torch.remainder(int(t) + self.phase, self.E) == 0
         return torch.where(arrives, self.unit, 0.0), state
 
@@ -245,13 +255,13 @@ class Sum:
     def init(self) -> PyTree:
         return tuple(p.init() for p in self.parts)
 
-    def sample(self, key, t, state):
+    def sample(self, key, t, state, first: int = 0):
         keys = prng.split(key, len(self.parts))
         total = torch.zeros((self.num_clients,), dtype=torch.float32,
                             device=key.device)
         out = []
         for i, (p, s) in enumerate(zip(self.parts, state)):
-            h, s1 = p.sample(keys[i], t, s)
+            h, s1 = p.sample(keys[i], t, s, first=first)
             total = total + h
             out.append(s1)
         return total, tuple(out)
@@ -276,8 +286,8 @@ class Scaled:
     def init(self) -> PyTree:
         return self.base.init()
 
-    def sample(self, key, t, state):
-        h, state = self.base.sample(key, t, state)
+    def sample(self, key, t, state, first: int = 0):
+        h, state = self.base.sample(key, t, state, first=first)
         return h * self.gain, state
 
 

@@ -15,8 +15,10 @@ The control law is numpy on the host; the stats it reads come from the
 card once per control period.  Consumers: `run_controlled` (chunked
 `energy.fleet.simulate_fleet` horizons), ``serve.fleet_serve.
 run_serve_controlled`` and ``core.simulate(..., energy=EnergyLoop(...,
-controller=...))``.  Differences from the reference: `run_controlled` has
-no ``mesh=`` (``ROADMAP.md`` Queue 1 item 25), ``obs=`` (item 22) or
+controller=...))``.  Under a ``mesh`` (`run_controlled`, ``run_serve_
+controlled``) the stats are replicated on every rank, so every rank's
+controller takes the same decisions.  Differences from the reference:
+`run_controlled` has no ``obs=`` (``ROADMAP.md`` Queue 1 item 22) or
 ``checkpoint=`` / ``resume=`` (items 23-24); each raises, naming its item.
 """
 from __future__ import annotations
@@ -405,7 +407,9 @@ def run_controlled(process, bat, cost, cfg, num_rounds: int,
     The battery charge and arrival-process state flow across chunks through
     ``FleetResult.final_state`` and the absolute round index through
     ``round_offset``, so a run with a do-nothing controller equals one
-    unchunked `simulate_fleet` call.  A controller with ``groups`` gets
+    unchunked `simulate_fleet` call.  ``mesh`` shards each chunk's client
+    axis over its ranks (`simulate_fleet`); the stats the controller reads
+    are replicated, so every rank takes the same decisions.  A controller with ``groups`` gets
     per-group telemetry (``BudgetRule`` then moves each ``E_k`` from its own
     group).  ``hist=True`` carries the depletion streak and gives
     `Telemetry` its histogram quantiles.

@@ -16,6 +16,15 @@ the step program of `energy.step_ops`, run on the card by the
 ``fleet_step`` kernel and on the CPU by its plain version
 (``kernels.ops.fleet_step``: the device picks, there is no ``backend=``).
 
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, one process a
+rank, every rank calling with the same arguments) the client axis is
+sharded over the mesh's data axes (`dist.sharding`): N is padded to a
+multiple of the data-axis product, each rank holds its slab and draws by
+its clients' global indices, and each round's stats are all-reduced once
+(``fused_step_sharded``) and come back replicated.  The per-client
+results are gathered once, at the end of the run, so every rank's
+`FleetResult` has the host-local shapes.
+
 Battery-gated policies: SUSTAINABLE (Algorithm 1's slot draw gated by
 stored energy), GREEDY (participate whenever the battery covers the round
 cost), THRESHOLD (only when ``available >= threshold * round_cost``) and
@@ -27,9 +36,9 @@ frac_depleted; with ``groups``, (R, G) group_participants and
 group_frac_depleted; with ``hist=True``, (R, bins) histogram counts.
 
 Differences from the reference: rounds are a Python loop (no ``jit``, no
-``use_jit``); ``mesh=`` (multi-GPU) raises, naming ``ROADMAP.md`` Queue 1
-item 25, and ``obs=`` raises, naming item 22; ``device`` picks the card
-(default) or the CPU.
+``use_jit``); a mesh's ranks are processes; histogram counts are
+all-reduced as exact integers; ``obs=`` raises, naming ``ROADMAP.md``
+Queue 1 item 22; ``device`` picks the card (default) or the CPU.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ from repro_torch import prng
 from repro_torch.core import scheduling
 from repro_torch.core.scheduling import Policy
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.energy import battery as battery_lib
 from repro_torch.energy import step_ops
 from repro_torch.energy.arrivals import map_tensors
@@ -55,8 +65,6 @@ PyTree = Any
 FLEET_POLICIES: tuple[Policy, ...] = (
     Policy.SUSTAINABLE, Policy.GREEDY, Policy.THRESHOLD, Policy.ALWAYS)
 
-MESH_NOT_PORTED = ("simulate_fleet(mesh=...): the multi-GPU fleet is not "
-                   "ported yet (ROADMAP.md Queue 1 item 25)")
 OBS_NOT_PORTED = ("simulate_fleet(obs=...): observability is not ported "
                   "yet (ROADMAP.md Queue 1 item 22)")
 
@@ -159,11 +167,14 @@ def _slice_clients(tree: PyTree, n: int, n_pad: int) -> PyTree:
 class _Round:
     """One round of the fleet, shared by `simulate_fleet` and `EnergyLoop`
     so the two paths are the same program: the per-client draws, then one
-    ``fleet_step`` (kernel on the card, plain version on the CPU)."""
+    ``fleet_step`` (kernel on the card, plain version on the CPU).  Under a
+    ``mesh`` the inputs are this rank's slab, clients ``[first, first +
+    n_local)`` of a padded fleet of ``n_pad``."""
 
     def __init__(self, process, bat, policy, round_cost, E, phase, valid,
                  seed: int, threshold: float, groups, num_groups, hist: bool,
-                 emit: bool, device):
+                 emit: bool, device, mesh=None, first: int = 0,
+                 n_pad: int | None = None):
         self.process, self.policy = process, Policy(policy)
         self.E, self.phase, self.seed = E, phase, seed
         self.num_groups = num_groups if groups is not None else None
@@ -176,7 +187,8 @@ class _Round:
                                                device=device))
         if groups is not None:
             self.env["groups"] = groups
-        self.n = valid.shape[0]
+        self.mesh, self.first = mesh, first
+        self.n = valid.shape[0] if n_pad is None else n_pad
 
     def __call__(self, carry, r: int):
         if self.hist:
@@ -184,16 +196,16 @@ class _Round:
         else:
             charge, pstate = carry
         harvest, pstate = self.process.sample(
-            prng.fold_in(self.base_key, r), r, pstate)
+            prng.fold_in(self.base_key, r), r, pstate, first=self.first)
         env = dict(self.env, charge=charge, harvest=harvest)
         if self.hist:
             env["streak"] = streak
         if self.policy == Policy.SUSTAINABLE:
             env["want"] = scheduling.sustainable_schedule(
-                self.seed, r, self.E, self.phase)
+                self.seed, r, self.E, self.phase, first=self.first)
         state, emits, stats = ops.fleet_step(
             self.program, env, n=self.n, emit=self.emit,
-            num_groups=self.num_groups)
+            num_groups=self.num_groups, mesh=self.mesh)
         carry = ((state["charge_out"], state["streak_out"], pstate)
                  if self.hist else (state["charge_out"], pstate))
         return carry, emits.get("mask"), stats
@@ -219,9 +231,16 @@ def simulate_fleet(process, bat: battery_lib.BatteryConfig, cost,
       E: (N,) assumed renewal cycles (SUSTAINABLE slot draw); default 1s.
       phase: optional (N,) per-client start offsets (paper footnote 1).
       record_masks: also return the (R, N) masks (O(R N) memory).
-      pad_to: pad the fleet to this width (>= N) with copies of the last
-        client, excluded from the telemetry by ``valid``; results are those
-        of the unpadded fleet.
+      mesh: a ``torch.distributed.device_mesh.DeviceMesh`` on ``device``'s
+        type: shard the client axis over its data axes (every dim but
+        ``"model"``), one slab a rank; every rank calls with the same
+        arguments and gets the same result.  N is padded up to a multiple
+        of the data-axis product; results equal the host-local run's
+        (bitwise on exact-arithmetic configurations).
+      pad_to: pad the fleet to this width (>= N; a multiple of the
+        data-axis product under ``mesh``) with copies of the last client,
+        excluded from the telemetry by ``valid``; results are those of the
+        unpadded fleet.
       state: ``(charge, process_state)`` (or ``(charge, streak,
         process_state)`` with ``hist``) to resume from, e.g. a previous
         chunk's ``FleetResult.final_state``.
@@ -239,11 +258,11 @@ def simulate_fleet(process, bat: battery_lib.BatteryConfig, cost,
     Returns:
       `FleetResult` with per-round telemetry as host numpy arrays.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     if obs is not None:
         raise NotImplementedError(OBS_NOT_PORTED)
     dev = resolve_device(device)
+    if mesh is not None:
+        sharding.check_device(mesh, dev)
     n = cfg.num_clients
     if process.num_clients != n:
         raise ValueError(f"process is sized for {process.num_clients} "
@@ -277,39 +296,63 @@ def simulate_fleet(process, bat: battery_lib.BatteryConfig, cost,
                               device=dev).contiguous()
     pstate0 = map_tensors(pstate0, lambda t: t.to(dev))
 
-    n_pad = n
-    if pad_to is not None:
-        if pad_to < n:
-            raise ValueError(f"pad_to={pad_to} is below the fleet width {n}")
-        n_pad = pad_to
+    n_pad = padded_width(n, mesh, pad_to)
     valid = (torch.arange(n_pad, device=dev) < n).float()
-    (process, bat, round_cost, E, phase, charge0, streak0, pstate0,
-     groups) = _pad_clients(
-        (process, bat, round_cost, E, phase, charge0, streak0, pstate0,
-         groups), n, n_pad)
+    tree = _pad_clients(
+        (process, bat, round_cost, E, phase, valid, charge0, streak0,
+         pstate0, groups), n, n_pad)
+    first, n_local = 0, n_pad
+    if mesh is not None:
+        tree = sharding.shard_fleet(tree, n_pad, mesh, dev)
+        first, n_local = sharding.slab(n_pad, mesh)
+    (process, bat, round_cost, E, phase, valid, charge0, streak0, pstate0,
+     groups) = tree
 
     step = _Round(process, bat, cfg.policy, round_cost, E, phase, valid,
                   cfg.seed, cfg.threshold, groups, num_groups, hist,
-                  record_masks, dev)
+                  record_masks, dev, mesh=mesh, first=first, n_pad=n_pad)
     carry = (charge0, streak0, pstate0) if hist else (charge0, pstate0)
     outs, masks = [], []
     for r in range(num_rounds):
         carry, mask, s = step(carry, round_offset + r)
         outs.append(s)
         if record_masks:
-            masks.append(mask[:n])
+            masks.append(mask)
+    stats = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+             for k in outs[0]} if outs else {}
+    masks = torch.stack(masks) if record_masks and masks else None
+    if mesh is not None:          # the slabs, once, at the end of the run
+        carry = sharding.gather_fleet(carry, n_local, mesh)
+        if masks is not None:
+            masks = sharding.gather_clients(masks, mesh, dim=1)
     if hist:
         charge, streak, pstate = carry
         streak = streak[:n]
     else:
         (charge, pstate), streak = carry, None
-    stats = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
-             for k in outs[0]} if outs else {}
     return FleetResult(stats=stats, final_charge=charge[:n],
-                       masks=torch.stack(masks) if record_masks and masks
-                       else None,
+                       masks=masks[:, :n] if masks is not None else None,
                        final_pstate=_slice_clients(pstate, n, n_pad),
                        final_streak=streak)
+
+
+def padded_width(n: int, mesh=None, pad_to: int | None = None) -> int:
+    """The fleet's padded width: N, up to a multiple of the mesh's
+    data-axis product, or ``pad_to`` (at least that, and a multiple of the
+    product under a mesh)."""
+    n_pad, axis = n, 1
+    if mesh is not None:
+        axis = sharding.mesh_axis_size(mesh, sharding.data_axes(mesh))
+        n_pad = -(-n // axis) * axis
+    if pad_to is not None:
+        if pad_to < n_pad:
+            raise ValueError(f"pad_to={pad_to} is below the fleet width "
+                             f"{n_pad}")
+        if pad_to % axis:
+            raise ValueError(f"pad_to={pad_to} must be a multiple of the "
+                             f"data-axis product {axis}")
+        n_pad = pad_to
+    return n_pad
 
 
 class EnergyLoop:

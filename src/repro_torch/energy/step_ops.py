@@ -7,9 +7,11 @@ buffer environment) plus a declarative telemetry spec (`StepProgram`'s
 totals, averages, group stats and histograms).  Two executors run it:
 
 * `run_step` — the ops as plain PyTorch on (N,) tensors, reduced through
-  `dist.collectives`: the twin of the reference's ``run_step_lax``, and the
-  plain version of the ``fleet_step`` kernel (`kernels.fleet_step`), which
-  the CPU takes.
+  `dist.collectives` into one row of pre-average sums (`stat_row`) and then
+  averaged (`row_stats`): the twin of the reference's ``run_step_lax``, and
+  the plain version of the ``fleet_step`` kernel (`kernels.fleet_step`),
+  which the CPU takes.  With ``group=`` (a rank's slab of a sharded fleet)
+  the row is all-reduced over the ranks before the averages.
 * the ``fleet_step`` CUDA kernel, which runs the fleet program (checked
   op by op against what `fleet_step_program` builds) in one pass over the
   clients.
@@ -425,28 +427,82 @@ def group_weights(valid: torch.Tensor, groups: torch.Tensor,
     return valid[None] * (groups[None] == g[:, None]).float()
 
 
-def run_step(program: StepProgram, env: dict, *, valid, groups=None,
-             num_groups: int | None = None) -> tuple[dict, dict]:
-    """Plain executor: the ops as PyTorch on (N,) tensors and the stats
-    through `dist.collectives`.  Returns ``(final env, stats)``; stats are
-    0-dim tensors, (G,) per group, (bins,) per histogram."""
-    env = apply_ops(program.ops, env)
-    stats = {}
-    for stat, buf in program.totals:
-        stats[stat] = collectives.masked_total(env[buf], valid)
-    for stat, buf in program.averages:
-        stats[stat] = collectives.masked_average(env[buf], valid)
-    if groups is not None:
+def _group_count(program: StepProgram, grouped: bool,
+                 num_groups: int | None) -> int:
+    """G when the round reduces group stats, else 0."""
+    has = bool(program.group_totals or program.group_averages)
+    return int(num_groups) if grouped and has and num_groups else 0
+
+
+def stat_row(program: StepProgram, env: dict, valid, groups=None,
+             num_groups: int | None = None) -> torch.Tensor:
+    """The round's pre-average sums as one (F + H,) float64 row, in the
+    kernels' layout: the totals, the average numerators and the sum of
+    ``valid``; per group g the group totals, the group average numerators
+    and the group's sum of weights; then the bin counts.  Each float32 sum
+    and each integer count is held exactly, so the rows of the ranks of a
+    sharded fleet add without a rounding of the counts below 2^53."""
+    cols = [collectives.masked_total(env[buf], valid)
+            for _, buf in program.totals + program.averages]
+    ones = torch.ones_like(env[program.averages[0][1]] if program.averages
+                           else valid, dtype=torch.float32)
+    cols.append(collectives.masked_total(ones, valid))
+    out = [torch.stack(cols).double()]
+    if _group_count(program, groups is not None, num_groups):
         gw = group_weights(valid, groups, num_groups)
-        for stat, buf in program.group_totals:
-            stats[stat] = torch.sum(gw * env[buf].float()[None], dim=1)
-        for stat, buf in program.group_averages:
-            num = torch.sum(gw * env[buf].float()[None], dim=1)
-            stats[stat] = num / torch.clamp_min(gw.sum(dim=1), 1.0)
+        per = [torch.sum(gw * env[buf].float()[None], dim=1)
+               for _, buf in program.group_totals + program.group_averages]
+        per.append(gw.sum(dim=1))
+        out.append(torch.stack(per, dim=1).reshape(-1).double())
     for spec in program.hists:
-        stats[spec.name] = hist_lib.masked_bincount(env[spec.buf], valid,
-                                                    spec)
-    return env, stats
+        out.append(hist_lib.masked_bincount(env[spec.buf], valid, spec,
+                                            dtype=torch.float64))
+    return torch.cat(out)
+
+
+def row_stats(program: StepProgram, row: torch.Tensor,
+              num_groups: int | None = None) -> dict:
+    """The stats from a `stat_row` (or the sum of the ranks' rows; pass
+    ``num_groups`` when it holds group columns): each sum rounded to
+    float32 once, then ``num / max(den, 1)`` for the averages.  Stats are
+    0-dim tensors, (G,) per group, (bins,) per histogram."""
+    f = row.float()
+    nt, na = len(program.totals), len(program.averages)
+    stats = {stat: f[i] for i, (stat, _) in enumerate(program.totals)}
+    den = torch.clamp_min(f[nt + na], 1.0)
+    stats.update({stat: f[nt + i] / den
+                  for i, (stat, _) in enumerate(program.averages)})
+    off = nt + na + 1
+    G = _group_count(program, True, num_groups)
+    if G:
+        gt, ga = len(program.group_totals), len(program.group_averages)
+        per = f[off:off + G * (gt + ga + 1)].reshape(G, gt + ga + 1)
+        stats.update({stat: per[:, i]
+                      for i, (stat, _) in enumerate(program.group_totals)})
+        gden = torch.clamp_min(per[:, gt + ga], 1.0)
+        stats.update({stat: per[:, gt + i] / gden
+                      for i, (stat, _) in enumerate(program.group_averages)})
+        off += G * (gt + ga + 1)
+    for spec in program.hists:
+        stats[spec.name] = f[off:off + spec.bins]
+        off += spec.bins
+    return stats
+
+
+def run_step(program: StepProgram, env: dict, *, valid, groups=None,
+             num_groups: int | None = None, group=None) -> tuple[dict, dict]:
+    """Plain executor: the ops as PyTorch on (N,) tensors, their sums in one
+    `stat_row` and the stats from it (`row_stats`).  With ``group`` (the
+    ``torch.distributed`` process group of a sharded fleet's ranks, each
+    holding its slab of clients in ``env``) the row is all-reduced once
+    before the averages.  Returns ``(final env, stats)``; stats are 0-dim
+    tensors, (G,) per group, (bins,) per histogram."""
+    env = apply_ops(program.ops, env)
+    row = stat_row(program, env, valid, groups, num_groups)
+    if group is not None:
+        collectives.all_reduce_row(row, group)
+    return env, row_stats(program, row, num_groups if groups is not None
+                          else None)
 
 
 def bytes_moved(program: StepProgram, env: dict, n: int, *,

@@ -41,10 +41,19 @@
 // * fleet_step_reduce, a second launch of one block, adds every column
 //   over the blocks in a fixed order (lane l of warp w takes rows l, l+32,
 //   ... of its columns, then a shuffle tree), counts as 64-bit integers,
-//   and only then forms the averages as num / max(den, 1).  On dyadic
-//   inputs every partial sum is exact, so the stats equal the reference's
-//   bit for bit; otherwise they lie within the wrapper's kernel_tolerance
-//   of the exact sums.
+//   and only then forms the averages as num / max(den, 1) (write_stats).
+//   On dyadic inputs every partial sum is exact, so the stats equal the
+//   reference's bit for bit; otherwise they lie within the wrapper's
+//   kernel_tolerance of the exact sums.
+// * The sharded fleet (one rank a slab of clients): given a `row`, the
+//   reduce writes the column totals and the counts there as float64 (each
+//   float32 total and each integer count exactly) and forms no stats.  The
+//   caller sums the ranks' rows (one all-reduce), and fleet_step_finalize,
+//   one block, rounds each sum to float32 once and forms the stats through
+//   the same write_stats.  So one rank's stats equal the host-local
+//   launch's bit for bit, counts stay exact integers across ranks (below
+//   2^53), and on dyadic inputs any number of ranks gives the host-local
+//   stats.
 // * Scalar inputs (battery fields, round_cost, threshold, and valid where
 //   the wrapper passes a scalar) are read through a stride of 0; the ragged
 //   tail is masked by a bounds check, so nothing is padded or copied.
@@ -72,6 +81,7 @@ constexpr int MAX_F = BASE + 3 * MAX_GROUPS;  // float columns
 constexpr int BINS_SOC = 32, BINS_SPEND = 32, BINS_STREAK = 64;
 constexpr int NBINS = BINS_SOC + BINS_SPEND + BINS_STREAK;
 constexpr int REDUCE_THREADS = 1024;
+constexpr int FINALIZE_THREADS = 256;       // >= MAX_F and NBINS
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Gate { SUSTAINABLE = 0, THRESHOLD = 1, GREEDY = 2 };
@@ -241,14 +251,38 @@ __global__ void __launch_bounds__(THREADS) fleet_step_kernel(Args a) {
       a.counts[(long long)b * a.blocks + blockIdx.x] = hist[b];
 }
 
-// Adds the blocks' partial rows in a fixed order and forms the stats:
-// sums (F + H): the column totals; stats (7 + 2G + H): participants,
-// harvested, consumed, leaked, overflowed, mean_charge, frac_depleted,
-// group_participants[G], group_frac_depleted[G], then the bin counts.
+// The stats from the column totals fsum (F) and the bin counts csum (H),
+// both in shared memory: sums (F + H), the totals and the counts as
+// float32; stats (7 + 2G + H): participants, harvested, consumed, leaked,
+// overflowed, mean_charge, frac_depleted, group_participants[G],
+// group_frac_depleted[G], then the bin counts.  The one place the averages
+// are formed, for the host-local reduce and the sharded finalize alike.
+// Needs blockDim.x >= max(F, H).
+__device__ void write_stats(const float* fsum, const long long* csum, int F,
+                            int H, int G, float* __restrict__ sums,
+                            float* __restrict__ stats) {
+  const int t = threadIdx.x;
+  if (t < F) sums[t] = fsum[t];
+  if (t < H) sums[F + t] = (float)csum[t];
+  if (t < NT) stats[t] = fsum[t];
+  const float den = fmaxf(fsum[NT + NA], 1.f);
+  if (t < NA) stats[NT + t] = __fdiv_rn(fsum[NT + t], den);
+  if (t < G) {
+    stats[NT + NA + t] = fsum[BASE + 3 * t];
+    stats[NT + NA + G + t] =
+        __fdiv_rn(fsum[BASE + 3 * t + 1], fmaxf(fsum[BASE + 3 * t + 2], 1.f));
+  }
+  if (t < H) stats[NT + NA + 2 * G + t] = (float)csum[t];
+}
+
+// Adds the blocks' partial rows in a fixed order; then either forms the
+// stats (row == nullptr) or writes the rank's row (F + H float64) for the
+// all-reduce and leaves sums and stats alone.
 __global__ void __launch_bounds__(REDUCE_THREADS)
 fleet_step_reduce(const float* __restrict__ partials,
                   const int* __restrict__ counts, int F, int H, int blocks,
-                  int G, float* __restrict__ sums, float* __restrict__ stats) {
+                  int G, float* __restrict__ sums, float* __restrict__ stats,
+                  double* __restrict__ row) {
   __shared__ float fsum[MAX_F];
   __shared__ long long csum[NBINS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -269,17 +303,28 @@ fleet_step_reduce(const float* __restrict__ partials,
   }
   __syncthreads();
   const int t = threadIdx.x;
-  if (t < F) sums[t] = fsum[t];
-  if (t < H) sums[F + t] = (float)csum[t];
-  if (t < NT) stats[t] = fsum[t];
-  const float den = fmaxf(fsum[NT + NA], 1.f);
-  if (t < NA) stats[NT + t] = __fdiv_rn(fsum[NT + t], den);
-  if (t < G) {
-    stats[NT + NA + t] = fsum[BASE + 3 * t];
-    stats[NT + NA + G + t] =
-        __fdiv_rn(fsum[BASE + 3 * t + 1], fmaxf(fsum[BASE + 3 * t + 2], 1.f));
+  if (row == nullptr) {
+    write_stats(fsum, csum, F, H, G, sums, stats);
+  } else {
+    if (t < F) row[t] = (double)fsum[t];
+    if (t < H) row[F + t] = (double)csum[t];
   }
-  if (t < H) stats[NT + NA + 2 * G + t] = (float)csum[t];
+}
+
+// The sharded finalize: the all-reduced row (F + H float64) rounded to
+// float32 once a column, the counts taken back as integers, then the stats
+// as the host-local reduce forms them.
+__global__ void __launch_bounds__(FINALIZE_THREADS)
+fleet_step_finalize_kernel(const double* __restrict__ row, int F, int H,
+                           int G, float* __restrict__ sums,
+                           float* __restrict__ stats) {
+  __shared__ float fsum[MAX_F];
+  __shared__ long long csum[NBINS];
+  const int t = threadIdx.x;
+  if (t < F) fsum[t] = __double2float_rn(row[t]);
+  if (t < H) csum[t] = __double2ll_rn(row[F + t]);
+  __syncthreads();
+  write_stats(fsum, csum, F, H, G, sums, stats);
 }
 
 template <int GATE, bool HIST, bool GROUPED, bool EMIT>
@@ -316,6 +361,9 @@ extern "C" {
 // groups.  partials (F, blocks) float and counts (128, blocks) int are
 // scratch; sums (F + 128) and stats (7 + 2G + 128) the results, with
 // F = 8 + 3 num_groups, and the 128 count entries present only with hist.
+// With a `row` (F + 128 float64; else nullptr) the launch writes the
+// rank's column totals and counts there instead of sums and stats, for
+// the caller to all-reduce and pass to fleet_step_finalize.
 // Returns the cudaError_t of the launches (0 on success), -1 for a bad
 // gate, -2 for n < 1 or num_groups outside [0, 64].
 int fleet_step(const float* charge, long long s_charge,
@@ -330,8 +378,8 @@ int fleet_step(const float* charge, long long s_charge,
                const float* streak, long long s_streak,
                float* charge_out, float* streak_out, float* mask_out,
                float* partials, int* counts, float* sums, float* stats,
-               long long n, int gate, int hist, int emit, int num_groups,
-               void* stream) {
+               double* row, long long n, int gate, int hist, int emit,
+               int num_groups, void* stream) {
   if (n < 1 || num_groups < 0 || num_groups > MAX_GROUPS) return -2;
   if (gate < SUSTAINABLE || gate > GREEDY) return -1;
   Args a{charge, s_charge, harvest, s_harvest, capacity, s_capacity,
@@ -347,7 +395,21 @@ int fleet_step(const float* charge, long long s_charge,
   if (err) return err;
   const int F = BASE + 3 * num_groups;
   fleet_step_reduce<<<1, REDUCE_THREADS, 0, st>>>(
-      partials, counts, F, hist ? NBINS : 0, a.blocks, num_groups, sums, stats);
+      partials, counts, F, hist ? NBINS : 0, a.blocks, num_groups, sums, stats,
+      row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stats from an all-reduced row (F + 128 float64, F = 8 + 3
+// num_groups, the counts present only with hist) into sums and stats as
+// fleet_step lays them out.  One block.  Returns the cudaError_t of the
+// launch, -2 for num_groups outside [0, 64].
+int fleet_step_finalize(const double* row, float* sums, float* stats,
+                        int hist, int num_groups, void* stream) {
+  if (num_groups < 0 || num_groups > MAX_GROUPS) return -2;
+  fleet_step_finalize_kernel<<<1, FINALIZE_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      row, BASE + 3 * num_groups, hist ? NBINS : 0, num_groups, sums, stats);
   return static_cast<int>(cudaGetLastError());
 }
 

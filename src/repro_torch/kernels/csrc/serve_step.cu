@@ -89,6 +89,16 @@
 //   the next call) folds them in the same launch.  The global bin counts
 //   and the ticket live in scratch the wrapper zeroes once; the fold
 //   leaves them at 0.
+//
+// The sharded fleet (one rank a slab of clients): given a `row`, the fold
+// writes the column totals and the counts there as float64 (each float32
+// total and each integer count exactly), still leaving the ticket and the
+// counts at 0, and forms no stats.  The caller sums the ranks' rows (one
+// all-reduce), and serve_step_finalize, one block, rounds each sum to
+// float32 once and forms the stats through the same write_stats as the
+// fold.  So one rank's stats equal the host-local launch's bit for bit,
+// counts stay exact integers across ranks (below 2^53), and on dyadic
+// inputs any number of ranks gives the host-local stats.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -134,6 +144,7 @@ struct Args {
   int* counts;          // [0] the ticket, [1 + b] bin b; 0 between calls
   float* sums;          // (F + H): the column totals
   float* stats;         // (15 + H)
+  double* row;          // (F + H) the rank's row instead, or nullptr
   long long n;
   long long tiles;
   int grid;
@@ -312,11 +323,32 @@ __device__ __forceinline__ void client(const float (&s)[NS], Op op,
   }
 }
 
+// The stats from the column totals fsum (F) and the bin counts csum (H),
+// both in shared memory: sums (F + H), the totals and the counts as
+// float32; stats (15 + H).  The one place the averages are formed, for the
+// fold and the sharded finalize alike.  Run by one block of THREADS
+// threads.
+__device__ void write_stats(const float* fsum, const long long* csum, int H,
+                            float* sums, float* stats) {
+  const int t = threadIdx.x;
+  if (t < F) sums[t] = fsum[t];
+  if (t < NT) stats[t] = fsum[t];
+  const float den = fmaxf(fsum[NT + NA], 1.f);
+  if (t < NA) stats[NT + t] = __fdiv_rn(fsum[NT + t], den);
+  for (int b = t; b < H; b += THREADS) {
+    const float cnt = (float)csum[b];
+    sums[F + b] = cnt;
+    stats[NT + NA + b] = cnt;
+  }
+}
+
 // Adds the rows of partials in a fixed order (lane l: rows l, l + 32, ...,
-// then a shuffle tree), takes the global counts (leaving them at 0) and
-// writes sums and stats.  Run by one block of THREADS threads.
+// then a shuffle tree), takes the global counts (leaving them at 0), and
+// writes sums and stats, or with a.row the rank's row.  Run by one block
+// of THREADS threads.
 __device__ void fold(const Args& a, int H) {
   __shared__ float fsum[F];
+  __shared__ long long csum[NBINS];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   for (int c = warp; c < F; c += WARPS) {
     const float* col = a.partials + (long long)c * a.grid;
@@ -326,16 +358,29 @@ __device__ void fold(const Args& a, int H) {
     s = warp_sum(s);
     if (lane == 0) fsum[c] = s;
   }
+  for (int b = t; b < H; b += THREADS) csum[b] = atomicExch(&a.counts[1 + b], 0);
   __syncthreads();
-  if (t < F) a.sums[t] = fsum[t];
-  if (t < NT) a.stats[t] = fsum[t];
-  const float den = fmaxf(fsum[NT + NA], 1.f);
-  if (t < NA) a.stats[NT + t] = __fdiv_rn(fsum[NT + t], den);
-  for (int b = t; b < H; b += THREADS) {
-    const float cnt = (float)atomicExch(&a.counts[1 + b], 0);
-    a.sums[F + b] = cnt;
-    a.stats[NT + NA + b] = cnt;
+  if (a.row == nullptr) {
+    write_stats(fsum, csum, H, a.sums, a.stats);
+  } else {
+    if (t < F) a.row[t] = (double)fsum[t];
+    for (int b = t; b < H; b += THREADS) a.row[F + b] = (double)csum[b];
   }
+}
+
+// The sharded finalize: the all-reduced row (F + H float64) rounded to
+// float32 once a column, the counts taken back as integers, then the stats
+// as the fold forms them.
+__global__ void __launch_bounds__(THREADS)
+    serve_step_finalize_kernel(const double* __restrict__ row, int H,
+                               float* sums, float* stats) {
+  __shared__ float fsum[F];
+  __shared__ long long csum[NBINS];
+  const int t = threadIdx.x;
+  if (t < F) fsum[t] = __double2float_rn(row[t]);
+  for (int b = t; b < H; b += THREADS) csum[b] = __double2ll_rn(row[F + b]);
+  __syncthreads();
+  write_stats(fsum, csum, H, sums, stats);
 }
 
 // The bits of per_client when exactly the streams the instantiation reads
@@ -553,13 +598,17 @@ extern "C" {
 // partials (16, grid) float is scratch; counts (1 + 128) int is scratch
 // that must hold zeros, and is left holding zeros.  sums (16 + 128) and
 // stats (15 + 128) are the results, the 128 count entries present only
-// with hist.  Returns the cudaError_t of the launches (0 on success), -1
-// for an unknown admission or training gate, -2 for n < 1, -3 for a grid
-// outside [1, tiles].
+// with hist.  With a `row` (16 + 128 float64; else nullptr) the launch
+// writes the rank's column totals and counts there instead of sums and
+// stats, for the caller to all-reduce and pass to serve_step_finalize.
+// Returns the cudaError_t of the launches (0 on success), -1 for an
+// unknown admission or training gate, -2 for n < 1, -3 for a grid outside
+// [1, tiles].
 int serve_step(const float* const* in, unsigned per_client, float* charge_out,
                float* streak_out, int* mode_out, float* partials, int* counts,
-               float* sums, float* stats, long long n, int grid, int vec,
-               int admission, int train, int hist, int emit, void* stream) {
+               float* sums, float* stats, double* row, long long n, int grid,
+               int vec, int admission, int train, int hist, int emit,
+               void* stream) {
   if (n < 1) return -2;
   if (!known(admission, train)) return -1;
   Args a;
@@ -572,6 +621,7 @@ int serve_step(const float* const* in, unsigned per_client, float* charge_out,
   a.counts = counts;
   a.sums = sums;
   a.stats = stats;
+  a.row = row;
   a.n = n;
   a.tiles = (n + TILE - 1) / TILE;
   if (grid < 1 || grid > a.tiles) return -3;
@@ -595,6 +645,17 @@ int serve_step_fold_only(float* partials, int* counts, float* sums,
   a.grid = grid;
   serve_step_fold<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       a, hist ? NBINS : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stats from an all-reduced row (16 + 128 float64, the counts present
+// only with hist) into sums and stats as serve_step lays them out.  One
+// block.  Returns the cudaError_t of the launch.
+int serve_step_finalize(const double* row, float* sums, float* stats,
+                        int hist, void* stream) {
+  serve_step_finalize_kernel<<<1, THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      row, hist ? NBINS : 0, sums, stats);
   return static_cast<int>(cudaGetLastError());
 }
 

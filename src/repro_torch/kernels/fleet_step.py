@@ -24,12 +24,24 @@ and the closures' choices) and raises for any other.
   ``serve_step_cuda.launches`` count the launches of each kernel (one per
   round or epoch).
 * ``fleet_step_plain`` is ``step_ops.run_step``: what the CPU runs.
+* ``fused_step_sharded`` is the reference's form under ``shard_map`` for a
+  fleet sharded over ``torch.distributed`` ranks (`dist.sharding`): each
+  rank runs its program's kernel on its slab with the kernel writing its
+  row of pre-average sums (float64: the float32 totals and the integer
+  counts held exactly) instead of the stats, the row is all-reduced once
+  over the mesh's data group, and a one-block finalize
+  (``fleet_finalize_cuda`` / ``serve_finalize_cuda``) forms the stats by
+  the same device code as the host-local launch.  On the CPU it runs the
+  plain version's arithmetic to the same row (``step_ops.stat_row``),
+  all-reduces it over gloo and averages as ``step_ops.row_stats`` does.
+  One rank's stats equal the host-local ones bit for bit, dyadic inputs'
+  on any number of ranks; ``kernel_tolerance(..., world=)`` bounds the
+  rest.  The finalize launches count on their own wrappers' ``.launches``.
 
 Both take ``env`` holding every buffer of ``program.input_names()`` plus
 ``valid`` (0. or 1. per client) and, with ``num_groups``, ``groups``
 (int32); each is a 0-dim tensor, a scalar expanded to (n,) (stride 0) or
-an (n,) tensor.  Both return ``(state, emits, stats)``.  The sharded form
-(``fused_step_sharded``) waits for ``ROADMAP.md`` Queue 1 item 25.
+an (n,) tensor.  Both return ``(state, emits, stats)``.
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ import functools
 import torch
 
 from repro_torch.core.scheduling import Policy
+from repro_torch.dist import collectives
 from repro_torch.energy import battery as battery_lib
 from repro_torch.energy import step_ops
 from repro_torch.kernels import build
@@ -75,12 +88,15 @@ U32 = 2.0 ** -24               # float32 unit roundoff
 
 
 def fleet_step_plain(program: step_ops.StepProgram, env: dict, *, n: int,
-                     emit: bool = False, num_groups: int | None = None):
-    """Plain PyTorch: ``step_ops.run_step``.  Returns (state, emits,
-    stats)."""
+                     emit: bool = False, num_groups: int | None = None,
+                     group=None):
+    """Plain PyTorch: ``step_ops.run_step`` (its row all-reduced over
+    ``group``, the ranks of a sharded fleet, where one is given).  Returns
+    (state, emits, stats)."""
     out, stats = step_ops.run_step(program, env, valid=env["valid"],
                                    groups=env.get("groups") if num_groups
-                                   else None, num_groups=num_groups)
+                                   else None, num_groups=num_groups,
+                                   group=group)
     state = {nm: out[nm] for nm in program.state_out}
     emits = {nm: out[nm] for nm in program.emit} if emit else {}
     return state, emits, stats
@@ -147,9 +163,11 @@ def _kernel():
     lib = build.load("fleet_step")
     fn = lib.fleet_step
     ptr, s = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = ([ptr, s] * 10 + [ptr] * 7
+    fn.argtypes = ([ptr, s] * 10 + [ptr] * 8
                    + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ptr])
     fn.restype = ctypes.c_int
+    lib.fleet_step_finalize.argtypes = [ptr] * 3 + [ctypes.c_int] * 2 + [ptr]
+    lib.fleet_step_finalize.restype = ctypes.c_int
     lib.fleet_step_error_string.argtypes = [ctypes.c_int]
     lib.fleet_step_error_string.restype = ctypes.c_char_p
     return lib
@@ -174,16 +192,19 @@ def stat_layout(program: step_ops.StepProgram, num_groups: int | None
 
 
 def fleet_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
-                    emit: bool = False, num_groups: int | None = None):
+                    emit: bool = False, num_groups: int | None = None,
+                    row: bool = False):
     """Launch the Hopper kernel for one round over ``n`` clients; returns
-    (state, emits, stats) as new tensors on the card.  Raises on a program
+    (state, emits, stats) as new tensors on the card, or with ``row`` (a
+    rank's slab of a sharded fleet) (state, emits, row): its (F + H,)
+    float64 row of sums for ``fleet_finalize_cuda``.  Raises on a program
     the kernel does not run, on inputs it does not take and on a launch
     error."""
     if program.name == "serve_step":
         if num_groups:
             raise ValueError("fleet_step_cuda: the serve program has no "
                              "group stats")
-        return serve_step_cuda(program, env, n=n, emit=emit)
+        return serve_step_cuda(program, env, n=n, emit=emit, row=row)
     gate, hist = program_variant(program, num_groups)
     G = num_groups or 0
     if n < 1 or not 0 <= G <= MAX_GROUPS:
@@ -227,13 +248,16 @@ def fleet_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
                          device=device)
     sums = torch.empty(F + H, dtype=f32, device=device)
     stats_buf = torch.empty(7 + 2 * G + H, dtype=f32, device=device)
+    row_buf = (torch.empty(F + H, dtype=torch.float64, device=device)
+               if row else None)
     lib = _kernel()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.fleet_step(*args, charge_out.data_ptr(), streak_out.data_ptr(),
                          mask_out.data_ptr(), partials.data_ptr(),
                          counts.data_ptr(), sums.data_ptr(),
-                         stats_buf.data_ptr(), n, gate, int(hist), int(emit),
-                         G, stream)
+                         stats_buf.data_ptr(),
+                         row_buf.data_ptr() if row else None, n, gate,
+                         int(hist), int(emit), G, stream)
     if err != 0:
         msg = lib.fleet_step_error_string(err).decode()
         raise RuntimeError(f"fleet_step kernel launch failed ({err}: {msg}) "
@@ -243,12 +267,52 @@ def fleet_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
     if hist:
         state["streak_out"] = streak_out
     emits = {"mask": mask_out} if emit else {}
+    if row:
+        return state, emits, row_buf
     stats = {k: stats_buf[v] for k, v in stat_layout(program,
                                                      num_groups).items()}
     return state, emits, stats
 
 
 fleet_step_cuda.launches = 0
+
+
+def _row_on_card(row: torch.Tensor, width: int, what: str) -> None:
+    if (row.device.type != "cuda" or row.dtype != torch.float64
+            or row.shape != (width,) or not row.is_contiguous()):
+        raise ValueError(f"{what}: row must be a contiguous ({width},) "
+                         f"float64 CUDA tensor, got {tuple(row.shape)} "
+                         f"{row.dtype} on {row.device}")
+
+
+def fleet_finalize_cuda(program: step_ops.StepProgram, row: torch.Tensor,
+                        num_groups: int | None = None) -> dict:
+    """The stats of a sharded round from the ranks' all-reduced row
+    (``fleet_step_cuda(..., row=True)``'s layout), by one launch of
+    ``fleet_step_finalize``: the host-local reduce's own averaging."""
+    _, hist = program_variant(program, num_groups)
+    G = num_groups or 0
+    F, H = 8 + 3 * G, NBINS if hist else 0
+    _row_on_card(row, F + H, "fleet_finalize_cuda")
+    device = row.device
+    sums = torch.empty(F + H, dtype=torch.float32, device=device)
+    stats_buf = torch.empty(7 + 2 * G + H, dtype=torch.float32,
+                            device=device)
+    lib = _kernel()
+    err = lib.fleet_step_finalize(row.data_ptr(), sums.data_ptr(),
+                                  stats_buf.data_ptr(), int(hist), G,
+                                  torch.cuda.current_stream(device)
+                                  .cuda_stream)
+    if err != 0:
+        msg = lib.fleet_step_error_string(err).decode()
+        raise RuntimeError(f"fleet_step_finalize launch failed ({err}: "
+                           f"{msg})")
+    fleet_finalize_cuda.launches += 1
+    return {k: stats_buf[v] for k, v in stat_layout(program,
+                                                    num_groups).items()}
+
+
+fleet_finalize_cuda.launches = 0
 
 
 @functools.cache
@@ -298,9 +362,11 @@ def serve_program_variant(program: step_ops.StepProgram
 def _serve_kernel():
     lib = build.load("serve_step")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.serve_step.argtypes = ([ptr, ctypes.c_uint] + [ptr] * 7
+    lib.serve_step.argtypes = ([ptr, ctypes.c_uint] + [ptr] * 8
                                + [ctypes.c_longlong] + [i] * 6 + [ptr])
     lib.serve_step.restype = i
+    lib.serve_step_finalize.argtypes = [ptr] * 3 + [i] + [ptr]
+    lib.serve_step_finalize.restype = i
     lib.serve_step_fold_only.argtypes = [ptr] * 4 + [i] * 2 + [ptr]
     lib.serve_step_fold_only.restype = i
     lib.serve_step_occupancy.argtypes = [i] * 3
@@ -335,9 +401,11 @@ def _serve_scratch(device, stream: int):
 
 
 def serve_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
-                    emit: bool = False):
+                    emit: bool = False, row: bool = False):
     """Launch the serve program's Hopper kernel for one epoch over ``n``
-    clients; returns (state, emits, stats) as new tensors on the card.
+    clients; returns (state, emits, stats) as new tensors on the card, or
+    with ``row`` (a rank's slab of a sharded fleet) (state, emits, row):
+    its (16 + H,) float64 row of sums for ``serve_finalize_cuda``.
     Raises on a program the kernel does not run, on inputs it does not take
     and on a launch error.  Per-client inputs that all start on a 16-byte
     boundary are copied 16 bytes at a time, others (views at an offset) 4
@@ -371,6 +439,8 @@ def serve_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
     vec = all(p % 16 == 0 for j, p in enumerate(ptrs) if per_client >> j & 1)
     sums = torch.empty(16 + H, dtype=f32, device=device)
     stats_buf = torch.empty(15 + H, dtype=f32, device=device)
+    row_buf = (torch.empty(16 + H, dtype=torch.float64, device=device)
+               if row else None)
     stream = torch.cuda.current_stream(device).cuda_stream
     partials, counts = _serve_scratch(device, stream)
     grid = serve_grid(n, _sm_count(device))
@@ -378,7 +448,8 @@ def serve_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
     err = lib.serve_step(in_arr, per_client, charge_out.data_ptr(),
                          streak_out.data_ptr(), mode_out.data_ptr(),
                          partials.data_ptr(), counts.data_ptr(),
-                         sums.data_ptr(), stats_buf.data_ptr(), n, grid,
+                         sums.data_ptr(), stats_buf.data_ptr(),
+                         row_buf.data_ptr() if row else None, n, grid,
                          int(vec), adm, train, int(hist), int(emit), stream)
     if err != 0:
         msg = lib.serve_step_error_string(err).decode()
@@ -390,11 +461,81 @@ def serve_step_cuda(program: step_ops.StepProgram, env: dict, *, n: int,
     if hist:
         state["streak_out"] = streak_out
     emits = {"mode": mode_out} if emit else {}
+    if row:
+        return state, emits, row_buf
     stats = {k: stats_buf[v] for k, v in stat_layout(program, None).items()}
     return state, emits, stats
 
 
 serve_step_cuda.launches = 0
+
+
+def serve_finalize_cuda(program: step_ops.StepProgram, row: torch.Tensor
+                        ) -> dict:
+    """The stats of a sharded epoch from the ranks' all-reduced row
+    (``serve_step_cuda(..., row=True)``'s layout), by one launch of
+    ``serve_step_finalize``: the fold's own averaging."""
+    _, _, hist = serve_program_variant(program)
+    H = NBINS if hist else 0
+    _row_on_card(row, 16 + H, "serve_finalize_cuda")
+    device = row.device
+    sums = torch.empty(16 + H, dtype=torch.float32, device=device)
+    stats_buf = torch.empty(15 + H, dtype=torch.float32, device=device)
+    lib = _serve_kernel()
+    err = lib.serve_step_finalize(row.data_ptr(), sums.data_ptr(),
+                                  stats_buf.data_ptr(), int(hist),
+                                  torch.cuda.current_stream(device)
+                                  .cuda_stream)
+    if err != 0:
+        msg = lib.serve_step_error_string(err).decode()
+        raise RuntimeError(f"serve_step_finalize launch failed ({err}: "
+                           f"{msg})")
+    serve_finalize_cuda.launches += 1
+    return {k: stats_buf[v] for k, v in stat_layout(program, None).items()}
+
+
+serve_finalize_cuda.launches = 0
+
+
+def fused_step_sharded(program: step_ops.StepProgram, env: dict, *, n: int,
+                       mesh, emit: bool = False,
+                       num_groups: int | None = None):
+    """One round (or epoch) of a fleet sharded over the ranks of ``mesh``
+    (a ``DeviceMesh``; `dist.sharding`): ``n`` is the padded width of the
+    whole fleet, ``env`` holds this rank's slab of ``n / ranks`` clients.
+    Each rank runs the kernel on its slab and writes its row of sums; the
+    row is all-reduced once over the data group and finalized into the
+    stats, replicated on every rank.  On the CPU the plain version runs
+    to the same row.  Returns (state, emits, stats) as the host-local
+    forms do, state and emits for the slab.  Raises where ``n`` does not
+    divide the data-axis product or the mesh's device type is not the
+    slab's; a failing launch or collective fails the round."""
+    # imported here: dist.sharding imports the energy package, which
+    # imports this module
+    from repro_torch.dist import sharding
+
+    group = sharding.data_group(mesh)
+    world = sharding.mesh_axis_size(mesh, sharding.data_axes(mesh))
+    if n % world:
+        raise ValueError(f"fused_step_sharded: n={n} must divide the "
+                         f"mesh's data-axis product {world}")
+    n_local = n // world
+    device = env["charge"].device
+    sharding.check_device(mesh, device)
+    if device.type == "cpu":
+        return fleet_step_plain(program, env, n=n_local, emit=emit,
+                                num_groups=num_groups, group=group)
+    if device.type != "cuda":
+        raise ValueError(f"fused_step_sharded: no kernel for device "
+                         f"{device}")
+    state, emits, row = fleet_step_cuda(program, env, n=n_local, emit=emit,
+                                        num_groups=num_groups, row=True)
+    collectives.all_reduce_row(row, group)
+    if program.name == "serve_step":
+        stats = serve_finalize_cuda(program, row)
+    else:
+        stats = fleet_finalize_cuda(program, row, num_groups)
+    return state, emits, stats
 
 
 def kernel_bytes(program: step_ops.StepProgram, env: dict, n: int, *,
@@ -408,26 +549,34 @@ def kernel_bytes(program: step_ops.StepProgram, env: dict, n: int, *,
     return step_ops.bytes_moved(program, env, n, emit=emit)["fused_bytes"]
 
 
-def reduction_depth(n: int) -> int:
+def reduction_depth(n: int, world: int = 1) -> int:
     """The most float32 additions on any client's path to a stat in
-    ``csrc/fleet_step.cu``: CPT per thread, 5 in the warp tree, WARPS - 1
-    over the warps, then ceil(blocks / 32) down a lane of the second pass
-    and 5 in its warp tree."""
-    blocks = -(-n // TILE)
-    return CPT + 5 + (WARPS - 1) + -(-blocks // REDUCE_LANES) + 5
+    ``csrc/fleet_step.cu`` for a fleet of ``n`` clients over ``world``
+    ranks (a slab of ceil(n / world) a rank): CPT per thread, 5 in the warp
+    tree, WARPS - 1 over the warps, then ceil(blocks / 32) down a lane of
+    the second pass and 5 in its warp tree; then at most world - 1 more
+    over the ranks' rows (summed in float64 and rounded once: one level
+    where world > 1)."""
+    n_local = -(-n // world)
+    blocks = -(-n_local // TILE)
+    return (CPT + 5 + (WARPS - 1) + -(-blocks // REDUCE_LANES) + 5
+            + world - 1)
 
 
-def serve_reduction_depth(n: int, sms: int = H100_SMS) -> int:
+def serve_reduction_depth(n: int, sms: int = H100_SMS, world: int = 1
+                          ) -> int:
     """The most float32 additions on any client's path to a stat in
-    ``csrc/serve_step.cu`` on a card with ``sms`` SMs: SERVE_CPT a tile
-    over each tile a block walks, 5 in the warp tree, SERVE_THREADS / 32 -
-    1 over the warps, then ceil(grid / 32) down a lane of the fold and 5
-    in its warp tree."""
-    grid = serve_grid(n, sms)
-    tiles = -(-n // SERVE_TILE)
+    ``csrc/serve_step.cu`` on a card with ``sms`` SMs, for a fleet of
+    ``n`` clients over ``world`` ranks: SERVE_CPT a tile over each tile a
+    block of the rank's slab walks, 5 in the warp tree, SERVE_THREADS / 32
+    - 1 over the warps, then ceil(grid / 32) down a lane of the fold and 5
+    in its warp tree; then at most world - 1 more over the ranks' rows."""
+    n_local = -(-n // world)
+    grid = serve_grid(n_local, sms)
+    tiles = -(-n_local // SERVE_TILE)
     steps = -(-tiles // grid)
     return (SERVE_CPT * steps + 5 + (SERVE_THREADS // 32 - 1)
-            + -(-grid // REDUCE_LANES) + 5)
+            + -(-grid // REDUCE_LANES) + 5 + world - 1)
 
 
 def stats_float64(program: step_ops.StepProgram, env: dict, valid,
@@ -453,22 +602,24 @@ def stats_float64(program: step_ops.StepProgram, env: dict, valid,
 
 
 def kernel_tolerance(program: step_ops.StepProgram, env: dict, valid, n: int,
-                     groups=None, num_groups: int | None = None) -> dict:
-    """Per-stat bound on |kernel - exact| for one round, given the final
-    env of ``step_ops.run_step`` on the same inputs.
+                     groups=None, num_groups: int | None = None,
+                     world: int = 1) -> dict:
+    """Per-stat bound on |kernel - exact| for one round over ``n`` clients
+    on ``world`` ranks (``fused_step_sharded``), given the final env of
+    ``step_ops.run_step`` on the whole fleet's inputs.
 
     A float32 sum whose terms each pass through at most d roundings (the
     product valid * x and ``reduction_depth(n)`` additions, or
     ``serve_reduction_depth(n)`` for a serve program) is within
     gamma_d sum |valid x| of the exact sum, gamma_d = d u / (1 - d u),
-    u = 2^-24, in any order.  An average num / max(den, 1) adds the
-    error of den (exact for 0/1 weights) and one rounding of the
-    division.  Histogram counts are exact: their bound is 0."""
+    u = 2^-24, in any order; ``world`` ranks add world - 1 levels.  An
+    average num / max(den, 1) adds the error of den (exact for 0/1
+    weights) and one rounding of the division.  Histogram counts are exact: their bound is 0."""
     if program.name == "serve_step":
         sms = _sm_count(valid.device) if valid.is_cuda else H100_SMS
-        d = serve_reduction_depth(n, sms) + 1
+        d = serve_reduction_depth(n, sms, world) + 1
     else:
-        d = reduction_depth(n) + 1
+        d = reduction_depth(n, world) + 1
     gam = d * U32 / (1 - d * U32)
     v = valid.double().abs()
     absum = lambda buf, w: (w * env[buf].double().abs()).sum(dim=-1)

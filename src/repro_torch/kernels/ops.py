@@ -61,9 +61,15 @@ def fused_agg_tree(w_global, w_stack, s):
 
 
 def fleet_step(program, env, *, n: int, emit: bool = False,
-               num_groups: int | None = None):
+               num_groups: int | None = None, mesh=None):
     """One round of the fleet's step program over ``n`` clients (``env``
-    as ``kernels.fleet_step`` takes it): (state, emits, stats)."""
+    as ``kernels.fleet_step`` takes it): (state, emits, stats).  With a
+    ``mesh`` the fleet is sharded over its ranks: ``n`` is the padded
+    width of the whole fleet and ``env`` this rank's slab
+    (``fused_step_sharded``)."""
+    if mesh is not None:
+        return _fleet.fused_step_sharded(program, env, n=n, mesh=mesh,
+                                         emit=emit, num_groups=num_groups)
     dev = env["charge"].device
     if dev.type == "cuda":
         return _fleet.fleet_step_cuda(program, env, n=n, emit=emit,
@@ -87,11 +93,25 @@ def kernel_wrappers() -> dict:
             "ssd_scan": _ssd.ssd_scan_cuda}
 
 
+def finalize_wrappers() -> dict:
+    """The sharded fleet's finalize wrappers, by the kernel whose library
+    holds them; each counts its one-block launches on ``.launches``, apart
+    from the kernel's main launches."""
+    return {"fleet_step": _fleet.fleet_finalize_cuda,
+            "serve_step": _fleet.serve_finalize_cuda}
+
+
 def launch_counts() -> dict:
     """Each kernel's launches so far, by kernel name."""
     return {name: w.launches for name, w in kernel_wrappers().items()}
 
 
+def finalize_counts() -> dict:
+    """Each finalize's launches so far, by kernel name."""
+    return {name: w.launches for name, w in finalize_wrappers().items()}
+
+
 def zero_launches():
-    for wrapper in kernel_wrappers().values():
+    for wrapper in (list(kernel_wrappers().values())
+                    + list(finalize_wrappers().values())):
         wrapper.launches = 0

@@ -13,6 +13,13 @@ realised harvests.
 
   python -m repro_torch.launch.fleet                       # the card
   python -m repro_torch.launch.fleet --device cpu --clients 2000 --rounds 10
+  torchrun --nproc-per-node K -m repro_torch.launch.fleet  # K cards
+
+Under ``torchrun`` (``WORLD_SIZE`` above 1) the client axis is sharded over
+the ranks (a one-dimensional ``("data",)`` mesh; NCCL, each rank on
+``cuda:LOCAL_RANK``, or gloo with ``--device cpu``), as the example does
+when JAX sees more than one device; rank 0 prints, and the launch counts
+are its own.  The closed loop runs on each rank alone.
 
 Differences from the example: ``--trace`` (replayed day profiles) exits 1
 (``ROADMAP.md`` Queue 1 item 21); ``--backend``, ``--obs-dir`` and the
@@ -31,6 +38,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core import EnergyProfile, FedConfig, Policy, simulate
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.energy.arrivals import (CompoundPoisson, MarkovSolar, Scaled,
                                          Sum)
 from repro_torch.energy.battery import BatteryConfig
@@ -117,34 +125,41 @@ def main(argv=None) -> int:
         print(f"error: {TRACE_NOT_PORTED}", file=sys.stderr)
         return 1
     device = resolve_device(args.device)
+    mesh, device = sharding.mesh_from_env(args.device)
+    say = print if sharding.is_lead(mesh) else (lambda *a, **k: None)
     N, R = args.clients, args.rounds
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     process, _, E = scenario(N, args.seed, device)
-    print(f"fleet: N={N:,} clients, {R} rounds, synthetic solar + RF "
-          f"harvest, seed={args.seed}, device={where}\n")
-    print(f"{'policy':>12} {'part%':>7} {'spent J':>10} {'wasted J':>10} "
-          f"{'leaked J':>9} {'depleted%':>9} {'rounds/s':>9} "
-          f"{'client-rounds/s':>15} {'launches':>8}")
+    if mesh is not None:
+        say(f"sharding the client axis over {mesh.size()} ranks")
+    say(f"fleet: N={N:,} clients, {R} rounds, synthetic solar + RF "
+        f"harvest, seed={args.seed}, device={where}\n")
+    say(f"{'policy':>12} {'part%':>7} {'spent J':>10} {'wasted J':>10} "
+        f"{'leaked J':>9} {'depleted%':>9} {'rounds/s':>9} "
+        f"{'client-rounds/s':>15} {'launches':>8}")
     for policy, thr in POLICIES:
         res, wall, launches = run_policy(process, E, N, R, policy, thr,
-                                         args.seed, args.hist, device)
+                                         args.seed, args.hist, device,
+                                         mesh=mesh)
         s = res.stats
-        print(f"{policy.value:>12} {100 * res.participation_rate.mean():7.2f} "
-              f"{s['consumed'].sum():10.0f} {s['overflowed'].sum():10.0f} "
-              f"{s['leaked'].sum():9.0f} {100 * s['frac_depleted'].mean():9.2f}"
-              f" {R / wall:9.2f} {N * R / wall:15.4g} {launches:8d}",
-              flush=True)
-    print("(rounds/s and client-rounds/s: host clock around each run, the "
-          "first run's includes the kernel build; launches: fleet_step "
-          "kernel launches, 0 on the CPU)")
+        say(f"{policy.value:>12} {100 * res.participation_rate.mean():7.2f} "
+            f"{s['consumed'].sum():10.0f} {s['overflowed'].sum():10.0f} "
+            f"{s['leaked'].sum():9.0f} {100 * s['frac_depleted'].mean():9.2f}"
+            f" {R / wall:9.2f} {N * R / wall:15.4g} {launches:8d}",
+            flush=True)
+    say("(rounds/s and client-rounds/s: host clock around each run, the "
+        "first run's includes the kernel build; launches: fleet_step "
+        "kernel launches, 0 on the CPU)")
 
-    print("\nclosed-loop training (8 clients, threshold policy):")
+    say("\nclosed-loop training (8 clients, threshold policy):")
     res = closed_loop(args.seed, device)
     for h in res.history[::5]:
-        print(f"  round {h['round']:2d}: participants={h['participants']} "
-              f"mean_charge={h['energy_mean_charge']:.2f} "
-              f"loss={h.get('loss', float('nan')):.4f}")
+        say(f"  round {h['round']:2d}: participants={h['participants']} "
+            f"mean_charge={h['energy_mean_charge']:.2f} "
+            f"loss={h.get('loss', float('nan')):.4f}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return 0
 
 

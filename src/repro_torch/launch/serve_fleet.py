@@ -18,6 +18,13 @@ kernel's launch count (0 on the CPU)::
 
   python -m repro_torch.launch.serve_fleet                 # the card
   python -m repro_torch.launch.serve_fleet --device cpu --clients 2000 --epochs 24
+  torchrun --nproc-per-node K -m repro_torch.launch.serve_fleet   # K cards
+
+Under ``torchrun`` (``WORLD_SIZE`` above 1) the client axis is sharded over
+the ranks (a one-dimensional ``("data",)`` mesh; NCCL, each rank on
+``cuda:LOCAL_RANK``, or gloo with ``--device cpu``), as the example does
+when JAX sees more than one device; rank 0 prints, and the launch counts
+are its own.
 
 Differences from the example: ``--trace`` (replayed day profiles) exits 1
 (``ROADMAP.md`` Queue 1 item 21); ``--microbench ARCH`` prices requests
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.energy.arrivals import MarkovSolar
 from repro_torch.energy.battery import BatteryConfig
 from repro_torch.energy.control import (AdmissionRule, ControlBounds,
@@ -158,6 +166,8 @@ def main(argv=None) -> int:
         print(f"error: {TRACE_NOT_PORTED}", file=sys.stderr)
         return 1
     device = resolve_device(args.device)
+    mesh, device = sharding.mesh_from_env(args.device)
+    say = print if sharding.is_lead(mesh) else (lambda *a, **k: None)
     N, E = args.clients, args.epochs
     traffic, harvest, cost, train = scenario(N, device)
     if args.microbench:
@@ -168,51 +178,56 @@ def main(argv=None) -> int:
             return 1
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
+    if mesh is not None:
+        say(f"sharding the client axis over {mesh.size()} ranks")
     full_j = float(QOS.request_cost(cost))
     short_j = float(QOS.request_cost(cost, degraded=True))
-    print(f"fleet: N={N:,}, {E} epochs, synthetic scenario, seed="
-          f"{args.seed}, device={where}; request={full_j:.2f} J full / "
-          f"{short_j:.2f} J degraded; training round={TRAIN_J} J every ~4 "
-          f"epochs\n")
+    say(f"fleet: N={N:,}, {E} epochs, synthetic scenario, seed="
+        f"{args.seed}, device={where}; request={full_j:.2f} J full / "
+        f"{short_j:.2f} J degraded; training round={TRAIN_J} J every ~4 "
+        f"epochs\n")
     runs, ctrl, speed = {}, None, {}
     for name in RUNS:
         res, c, wall, launches = run(name, traffic, harvest, cost, train, N,
                                      E, args.seed, device,
-                                     hist=args.hist and name == "controlled")
+                                     hist=args.hist and name == "controlled",
+                                     mesh=mesh)
         runs[name] = res
         ctrl = c or ctrl
         speed[name] = (wall, launches)
 
-    print(f"{'':>12} {'served%':>8} {'degr%':>6} {'shed%':>6} {'miss%':>6} "
-          f"{'depl%':>6} {'train%':>7} {'J/tok':>8}")
+    say(f"{'':>12} {'served%':>8} {'degr%':>6} {'shed%':>6} {'miss%':>6} "
+        f"{'depl%':>6} {'train%':>7} {'J/tok':>8}")
     for name, res in runs.items():
-        print(table_row(name, res, N))
+        say(table_row(name, res, N))
 
-    print("\nadmission-controller trajectory (per day):")
-    print("  admit :", [round(t["admit"], 2) for t in ctrl.trace])
-    print("  shed% :", [round(100 * t["telemetry"].shed_rate, 1)
-                        for t in ctrl.trace])
-    print("  depl% :", [round(100 * t["telemetry"].frac_depleted, 1)
-                        for t in ctrl.trace])
+    say("\nadmission-controller trajectory (per day):")
+    say("  admit :", [round(t["admit"], 2) for t in ctrl.trace])
+    say("  shed% :", [round(100 * t["telemetry"].shed_rate, 1)
+                      for t in ctrl.trace])
+    say("  depl% :", [round(100 * t["telemetry"].frac_depleted, 1)
+                      for t in ctrl.trace])
 
-    print(f"\n{'run':>12} {'epochs/s':>9} {'client-epochs/s':>16} "
-          f"{'launches':>8}")
+    say(f"\n{'run':>12} {'epochs/s':>9} {'client-epochs/s':>16} "
+        f"{'launches':>8}")
     for name, (wall, launches) in speed.items():
-        print(f"{name:>12} {E / wall:9.2f} {N * E / wall:16.4g} "
-              f"{launches:8d}")
-    print("(host clock around each run, the first run's includes the kernel "
-          "build; launches: serve-program launches of the fleet_step "
-          "kernel, 0 on the CPU)")
+        say(f"{name:>12} {E / wall:9.2f} {N * E / wall:16.4g} "
+            f"{launches:8d}")
+    say("(host clock around each run, the first run's includes the kernel "
+        "build; launches: serve-program launches of the fleet_step "
+        "kernel, 0 on the CPU)")
 
     agn, gated = runs["agnostic"].stats, runs["gated"].stats
     un_a = ((agn["shed"].sum() + agn["deadline_missed"].sum())
             / max(agn["offered"].sum(), 1e-9))
     un_g = ((gated["shed"].sum() + gated["deadline_missed"].sum())
             / max(gated["offered"].sum(), 1e-9))
-    print(f"\nunanswered requests: {100 * un_a:.1f}% (agnostic) -> "
-          f"{100 * un_g:.1f}% (gated), depletion "
-          f"{100 * agn['frac_depleted'].mean():.1f}% -> "
-          f"{100 * gated['frac_depleted'].mean():.1f}%")
+    say(f"\nunanswered requests: {100 * un_a:.1f}% (agnostic) -> "
+        f"{100 * un_g:.1f}% (gated), depletion "
+        f"{100 * agn['frac_depleted'].mean():.1f}% -> "
+        f"{100 * gated['frac_depleted'].mean():.1f}%")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return 0
 
 

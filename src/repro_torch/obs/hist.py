@@ -54,14 +54,15 @@ def bin_index(v: torch.Tensor, lo: float, hi: float, bins: int
     return idx.clamp(0, bins - 1).to(torch.int32)
 
 
-def masked_bincount(v: torch.Tensor, valid: torch.Tensor, spec: HistSpec
-                    ) -> torch.Tensor:
-    """(bins,) float32 validity-weighted counts of ``v`` under ``spec``:
-    padding lanes carry ``valid == 0`` and add nothing.  Summed in float64,
-    so the counts of 0/1 weights are exact integers."""
+def masked_bincount(v: torch.Tensor, valid: torch.Tensor, spec: HistSpec,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(bins,) validity-weighted counts of ``v`` under ``spec`` in
+    ``dtype``: padding lanes carry ``valid == 0`` and add nothing.  Summed
+    in float64, so the counts of 0/1 weights are exact integers (below
+    2^53), rounded once to ``dtype``."""
     idx = bin_index(v, spec.lo, spec.hi, spec.bins).long()
     counts = torch.bincount(idx, weights=valid.double(), minlength=spec.bins)
-    return counts.float()
+    return counts.to(dtype)
 
 
 # dyadic widths (1/32, 1/32, 1) keep the binning arithmetic exact on the

@@ -28,9 +28,16 @@ energy seven of the fleet simulator plus offered, served_full,
 served_short, shed, deadline_missed, tokens_decoded, consumed_serve and
 consumed_train; with ``hist=True`` the (E, bins) histogram counts.
 
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) the client axis is
+sharded over the mesh's ranks as in `energy.fleet.simulate_fleet`: each
+rank holds a slab, draws harvest and traffic by its clients' global
+indices, all-reduces each epoch's row of sums once and gets the stats
+replicated; the per-client results are gathered at the end of the run.
+
 Differences from the reference: epochs are a Python loop (no ``jit``, no
-``use_jit``); ``mesh=`` raises, naming ``ROADMAP.md`` Queue 1 item 25,
-``obs=`` item 22, and `run_serve_controlled`'s ``checkpoint=`` /
+``use_jit``); a mesh's ranks are processes; histogram counts are
+all-reduced as exact integers; ``obs=`` raises, naming ``ROADMAP.md``
+Queue 1 item 22, and `run_serve_controlled`'s ``checkpoint=`` /
 ``resume=`` items 23-24; ``device`` picks the card (default) or the CPU.
 """
 from __future__ import annotations
@@ -45,17 +52,17 @@ from repro_torch import prng
 from repro_torch.core import scheduling
 from repro_torch.core.scheduling import Policy
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.energy import battery as battery_lib
 from repro_torch.energy import step_ops
 from repro_torch.energy.arrivals import map_tensors
 from repro_torch.energy.costs import DecodeCostModel, DeviceCostModel
-from repro_torch.energy.fleet import _pad_clients, _slice_clients
+from repro_torch.energy.fleet import (_pad_clients, _slice_clients,
+                                      padded_width)
 from repro_torch.kernels import ops
 from repro_torch.serve.qos import QoSSpec
 
 
-MESH_NOT_PORTED = ("simulate_serve(mesh=...): the multi-GPU fleet is not "
-                   "ported yet (ROADMAP.md Queue 1 item 25)")
 OBS_NOT_PORTED = ("obs=: observability is not ported yet (ROADMAP.md "
                   "Queue 1 item 22)")
 CHECKPOINT_NOT_PORTED = ("checkpoint= / resume=: run checkpoints are not "
@@ -156,11 +163,14 @@ def _fields_on(obj, fields, device):
 
 class _Epoch:
     """One serving epoch: the per-client draws, then one ``fleet_step`` on
-    the serve program (kernel on the card, plain version on the CPU)."""
+    the serve program (kernel on the card, plain version on the CPU).
+    Under a ``mesh`` the inputs are this rank's slab, clients ``[first,
+    first + n_local)`` of a padded fleet of ``n_pad``."""
 
     def __init__(self, traffic, harvest, bat, cost, qos, policy, train,
                  valid, seed: int, admit: float, hist: bool, emit: bool,
-                 device):
+                 device, mesh=None, first: int = 0,
+                 n_pad: int | None = None):
         self.traffic, self.harvest, self.train = traffic, harvest, train
         self.seed, self.hist, self.emit = seed, hist, emit
         self.base_key = prng.PRNGKey(seed, device)
@@ -170,7 +180,8 @@ class _Epoch:
             float(admit), dtype=torch.float32, device=device))
         self.sustainable = (train is not None
                             and Policy(train.policy) == Policy.SUSTAINABLE)
-        self.n = valid.shape[0]
+        self.mesh, self.first = mesh, first
+        self.n = valid.shape[0] if n_pad is None else n_pad
 
     def __call__(self, carry, t: int):
         if self.hist:
@@ -179,18 +190,18 @@ class _Epoch:
             charge, tstate, hstate = carry
         ekey = prng.fold_in(self.base_key, t)
         harvest, hstate = self.harvest.sample(prng.fold_in(ekey, 0), t,
-                                              hstate)
+                                              hstate, first=self.first)
         requests, tstate = self.traffic.sample(prng.fold_in(ekey, 1), t,
-                                               tstate)
+                                               tstate, first=self.first)
         env = dict(self.env, charge=charge, harvest=harvest,
                    requests=requests.to(torch.float32))
         if self.hist:
             env["streak"] = streak
         if self.sustainable:
             env["twant"] = scheduling.sustainable_schedule(
-                self.seed, t, self.train.E, None)
+                self.seed, t, self.train.E, None, first=self.first)
         state, emits, stats = ops.fleet_step(self.program, env, n=self.n,
-                                             emit=self.emit)
+                                             emit=self.emit, mesh=self.mesh)
         carry = ((state["charge_out"], state["streak_out"], tstate, hstate)
                  if self.hist else (state["charge_out"], tstate, hstate))
         return carry, emits.get("mode"), stats
@@ -221,9 +232,14 @@ def simulate_serve(traffic, harvest, bat: battery_lib.BatteryConfig,
       admit: the admission-threshold scale (the server controller's knob).
       record_modes: also return the (E, N) admission modes (O(E N)
         memory).
-      pad_to: pad the fleet to this width (>= N) with copies of the last
-        client, excluded from the telemetry by ``valid``; results are those
-        of the unpadded fleet.
+      mesh: a ``torch.distributed.device_mesh.DeviceMesh`` on ``device``'s
+        type: shard the client axis over its data axes, one slab a rank,
+        as `energy.fleet.simulate_fleet` does; every rank calls with the
+        same arguments and gets the same result.
+      pad_to: pad the fleet to this width (>= N; a multiple of the
+        data-axis product under ``mesh``) with copies of the last client,
+        excluded from the telemetry by ``valid``; results are those of the
+        unpadded fleet.
       state: ``(charge, traffic_state, harvest_state)`` (or ``(charge,
         streak, traffic_state, harvest_state)`` with ``hist``) to resume
         from, e.g. a previous chunk's ``ServeResult.final_state``.
@@ -239,11 +255,11 @@ def simulate_serve(traffic, harvest, bat: battery_lib.BatteryConfig,
     Returns:
       `ServeResult` with per-epoch telemetry as host numpy arrays.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     if obs is not None:
         raise NotImplementedError(OBS_NOT_PORTED)
     dev = resolve_device(device)
+    if mesh is not None:
+        sharding.check_device(mesh, dev)
     n = cfg.num_clients
     for name, proc in (("traffic", traffic), ("harvest", harvest)):
         if proc.num_clients != n:
@@ -275,19 +291,21 @@ def simulate_serve(traffic, harvest, bat: battery_lib.BatteryConfig,
                               device=dev).contiguous()
     tstate0, hstate0 = to_dev(tstate0), to_dev(hstate0)
 
-    n_pad = n
-    if pad_to is not None:
-        if pad_to < n:
-            raise ValueError(f"pad_to={pad_to} is below the fleet width {n}")
-        n_pad = pad_to
+    n_pad = padded_width(n, mesh, pad_to)
     valid = (torch.arange(n_pad, device=dev) < n).float()
-    (traffic, harvest, bat, cost, qos, policy, train, charge0, streak0,
-     tstate0, hstate0) = _pad_clients(
-        (traffic, harvest, bat, cost, qos, policy, train, charge0, streak0,
-         tstate0, hstate0), n, n_pad)
+    tree = _pad_clients(
+        (traffic, harvest, bat, cost, qos, policy, train, valid, charge0,
+         streak0, tstate0, hstate0), n, n_pad)
+    first, n_local = 0, n_pad
+    if mesh is not None:
+        tree = sharding.shard_fleet(tree, n_pad, mesh, dev)
+        first, n_local = sharding.slab(n_pad, mesh)
+    (traffic, harvest, bat, cost, qos, policy, train, valid, charge0,
+     streak0, tstate0, hstate0) = tree
 
     step = _Epoch(traffic, harvest, bat, cost, qos, policy, train, valid,
-                  cfg.seed, admit, hist, record_modes, dev)
+                  cfg.seed, admit, hist, record_modes, dev, mesh=mesh,
+                  first=first, n_pad=n_pad)
     carry = (charge0, streak0, tstate0, hstate0) if hist \
         else (charge0, tstate0, hstate0)
     outs, modes = [], []
@@ -295,17 +313,21 @@ def simulate_serve(traffic, harvest, bat: battery_lib.BatteryConfig,
         carry, mode, s = step(carry, epoch_offset + t)
         outs.append(s)
         if record_modes:
-            modes.append(mode[:n])
+            modes.append(mode)
+    stats = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+             for k in outs[0]} if outs else {}
+    modes = torch.stack(modes) if record_modes and modes else None
+    if mesh is not None:          # the slabs, once, at the end of the run
+        carry = sharding.gather_fleet(carry, n_local, mesh)
+        if modes is not None:
+            modes = sharding.gather_clients(modes, mesh, dim=1)
     if hist:
         charge, streak, tstate, hstate = carry
         streak = streak[:n]
     else:
         (charge, tstate, hstate), streak = carry, None
-    stats = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
-             for k in outs[0]} if outs else {}
     return ServeResult(stats=stats, final_charge=charge[:n],
-                       modes=torch.stack(modes) if record_modes and modes
-                       else None,
+                       modes=modes[:, :n] if modes is not None else None,
                        final_tstate=_slice_clients(tstate, n, n_pad),
                        final_hstate=_slice_clients(hstate, n, n_pad),
                        final_streak=streak)
@@ -327,7 +349,9 @@ def run_serve_controlled(traffic, harvest, bat, cost: DecodeCostModel,
     traffic and harvest state flow across chunks through
     ``ServeResult.final_state`` and the absolute epoch index through
     ``epoch_offset``.  Each chunk's stats reach the host once, for the
-    controller.
+    controller.  Under a ``mesh`` each chunk is sharded (`simulate_serve`)
+    and its stats are replicated, so every rank's controller takes the
+    same decisions.
 
     Returns ``(ServeResult over the full horizon, controller)``.
     """

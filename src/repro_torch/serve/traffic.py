@@ -6,10 +6,12 @@ fleet::
 
     state0 = traffic.init()                            # (N,) tensors or ()
     requests, state1 = traffic.sample(key, t, state0)  # (N,) float32 counts
+    requests, state1 = traffic.sample(key, t, state0, first=f)  # a slab
 
 Randomness is drawn per client (`energy.arrivals.client_uniform`:
 ``fold_in(key, i)`` and then one scalar draw), so traffic is invariant to
-padding the fleet; Poisson counts go through
+padding the fleet, and a slab of a sharded fleet draws by its clients'
+global indices (``first=``, as `energy.arrivals`); Poisson counts go through
 `energy.arrivals.truncated_poisson`.
 
 * ``DiurnalPoisson`` — Poisson at a sinusoidal diurnal rate ``base_i (1 +
@@ -74,8 +76,8 @@ class DiurnalPoisson:
     def init(self) -> PyTree:
         return ()
 
-    def sample(self, key, t, state):
-        u = client_uniform(key, self.num_clients)
+    def sample(self, key, t, state, first: int = 0):
+        u = client_uniform(key, self.num_clients, first)
         k = truncated_poisson(u, self.rate_at(t), self.max_requests)
         return k.to(torch.float32), state
 
@@ -111,16 +113,16 @@ class MMPP:
         return torch.zeros((self.num_clients,), dtype=torch.int32,
                            device=self.calm_rate.device)
 
-    def sample(self, key, t, state):
+    def sample(self, key, t, state, first: int = 0):
         del t
         k1, k2 = prng.split(key)
-        u = client_uniform(k1, self.num_clients)
+        u = client_uniform(k1, self.num_clients, first)
         is_burst = state == 1
         burst_next = torch.where(is_burst, u < self.p_stay_burst,
                                  u >= self.p_stay_calm)
         rate = torch.where(burst_next, self.burst_rate, self.calm_rate)
-        k = truncated_poisson(client_uniform(k2, self.num_clients), rate,
-                              self.max_requests)
+        k = truncated_poisson(client_uniform(k2, self.num_clients, first),
+                              rate, self.max_requests)
         return k.to(torch.float32), burst_next.to(torch.int32)
 
 
@@ -141,6 +143,6 @@ class Constant:
     def init(self) -> PyTree:
         return ()
 
-    def sample(self, key, t, state):
-        del key, t
+    def sample(self, key, t, state, first: int = 0):
+        del key, t, first
         return self.rate, state

@@ -178,7 +178,7 @@ def test_run_controlled_with_a_holding_controller_equals_one_run():
     with pytest.raises(NotImplementedError, match="items 23-24"):
         tctl.run_controlled(_fleet(ta, n), tb.BatteryConfig(), 1.0, cfg, 1,
                             ctrl, checkpoint="x", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 25"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         tctl.run_controlled(_fleet(ta, n), tb.BatteryConfig(), 1.0, cfg, 1,
                             ctrl, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 22"):
@@ -244,5 +244,5 @@ def test_run_serve_controlled_refuses_unported_options():
         tfs.run_serve_controlled(*args, checkpoint="x", device="cpu")
     with pytest.raises(NotImplementedError, match="item 22"):
         tfs.run_serve_controlled(*args, obs=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 25"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         tfs.run_serve_controlled(*args, mesh=object(), device="cpu")

@@ -210,7 +210,7 @@ def test_fleet_mask_matches_reference(policy):
 def test_unported_options_raise_naming_the_roadmap_item():
     proc = ta.Bernoulli.create(4)
     cfg = tf.FleetConfig(num_clients=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         tf.simulate_fleet(proc, tb.BatteryConfig(), 1.0, cfg, 1,
                           mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 22"):

@@ -212,7 +212,7 @@ def test_train_load_create_and_unported_options():
     assert load.round_cost.stride() == (0,)
     assert load.policy == Policy.GREEDY
     kw = dict(traffic=const, harvest=bern)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         _run(T, "gated", None, 8, 1, mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="Queue 1 item 22"):
         _run(T, "gated", None, 8, 1, obs=object(), **kw)

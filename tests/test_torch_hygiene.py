@@ -43,7 +43,8 @@ def test_package_has_modules():
                  "core/scheduling.py", "core/aggregation.py",
                  "core/round.py", "core/simulate.py", "optim/optimizers.py",
                  "data/synthetic.py", "launch/train.py", "launch/fig1.py",
-                 "obs/hist.py", "dist/collectives.py", "energy/battery.py",
+                 "obs/hist.py", "dist/collectives.py", "dist/sharding.py",
+                 "energy/battery.py",
                  "energy/arrivals.py", "energy/costs.py",
                  "energy/step_ops.py", "energy/fleet.py",
                  "kernels/fleet_step.py", "launch/fleet.py",

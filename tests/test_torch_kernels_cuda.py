@@ -674,3 +674,177 @@ def test_simulate_serve_on_card_matches_cpu(card):
               "mean_charge", "consumed_serve", "consumed_train"):
         np.testing.assert_allclose(a.stats[k], b.stats[k], rtol=1e-5,
                                    err_msg=k)
+
+
+# ------------------------------------------------- the sharded fleet ------
+def _halves(env, n, m):
+    """Two slabs of a round's env: clients [0, m) and [m, n)."""
+    cut = lambda lo, hi: {k: (v[lo:hi] if v.dim() and v.shape[0] == n
+                              else v) for k, v in env.items()}
+    return cut(0, m), cut(m, n)
+
+
+def _dyadic_fleet(n, gate, hist, groups, card, seed=1):
+    """A fleet round on the exact-arithmetic grid: zero leak, charge,
+    harvest, cost and threshold in quarters, so every partial sum is
+    exact in any order."""
+    from repro_torch.energy import battery, step_ops
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
+                               device=card)
+    prog, env = step_ops.fleet_step_program(
+        battery.BatteryConfig(capacity=2.5, leak=0.0), gate, groups,
+        hist=hist, device=card)
+    env.update(charge=t(r.integers(0, 11, n) * 0.25),
+               harvest=t(r.integers(0, 6, n) * 0.25),
+               want=t(r.uniform(size=n) < 0.5), streak=t(r.integers(0, 70, n)),
+               valid=t(np.arange(n) % 7 != 6), round_cost=t(0.75),
+               threshold=t(1.5))
+    if groups:
+        env["groups"] = torch.tensor(r.integers(0, groups, n),
+                                     dtype=torch.int32, device=card)
+    return prog, env
+
+
+def _same_stats(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate,hist,groups", [("sustainable", True, None),
+                                              ("threshold", False, 3),
+                                              ("greedy", True, 3)])
+def test_fleet_step_row_then_finalize(card, gate, hist, groups):
+    """One rank: the kernel's row, finalized, equals the host-local
+    launch's stats bitwise on any inputs.  Two ranks: on dyadic inputs the
+    sum of two half-fleets' rows, finalized, equals the whole fleet's
+    launch bitwise.  A row-mode call counts one main launch, a finalize
+    one finalize launch."""
+    from repro_torch.kernels import fleet_step as fs
+    n = 3 * fs.TILE + 777
+    prog, env = _fleet_round(n, gate, hist, groups, card)
+    _, _, want = fs.fleet_step_cuda(prog, env, n=n, num_groups=groups)
+    before = (fs.fleet_step_cuda.launches, fs.fleet_finalize_cuda.launches)
+    state, _, row = fs.fleet_step_cuda(prog, env, n=n, num_groups=groups,
+                                       row=True)
+    assert row.dtype == torch.float64
+    _same_stats(fs.fleet_finalize_cuda(prog, row, groups), want)
+    assert (fs.fleet_step_cuda.launches,
+            fs.fleet_finalize_cuda.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    prog, env = _dyadic_fleet(n, gate, hist, groups, card)
+    _, _, want = fs.fleet_step_cuda(prog, env, n=n, num_groups=groups)
+    m = fs.TILE + 5
+    rows = [fs.fleet_step_cuda(prog, half, n=len(half["valid"]),
+                               num_groups=groups, row=True)[2]
+            for half in _halves(env, n, m)]
+    _same_stats(fs.fleet_finalize_cuda(prog, rows[0] + rows[1], groups),
+                want)
+
+
+def _dyadic_serve(n, admission, card, seed=1):
+    """A serving epoch on the exact-arithmetic grid (zero leak, integer
+    requests, dyadic prices and charge)."""
+    from repro_torch.energy import BatteryConfig, DecodeCostModel, step_ops
+    from repro_torch.serve import (BatteryGated, ChargeGated, EnergyAgnostic,
+                                   QoSSpec, TrainLoad)
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
+                               device=card)
+    policy = {"agnostic": EnergyAgnostic(),
+              "battery": BatteryGated.create(n, 1.0, 1.0, device=card),
+              "charge": ChargeGated.create(n, 1.0, 0.25, device=card)}[
+                  admission]
+    prog, env = step_ops.serve_step_program(
+        BatteryConfig(capacity=2.5, leak=0.0),
+        DecodeCostModel(2.0 ** -8, 2.0 ** -9, 2.0 ** -6),
+        QoSSpec(64.0, 128.0, 32.0), policy,
+        TrainLoad.create(np.full(n, 4), 0.25, device=card), hist=True,
+        device=card)
+    env.update(charge=t(r.integers(0, 11, n) * 0.25),
+               harvest=t(r.integers(0, 6, n) * 0.25),
+               requests=t(r.integers(0, 4, n)),
+               twant=t(r.uniform(size=n) < .3),
+               streak=t(r.integers(0, 70, n)),
+               valid=t(np.arange(n) % 7 != 6), admit=t(1.0))
+    return prog, env
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admission", ["agnostic", "battery", "charge"])
+def test_serve_step_row_then_finalize(card, admission):
+    """The serve program's kernel: one rank's row, finalized, equals the
+    host-local launch bitwise; two half-fleets' rows summed and finalized
+    equal the whole fleet's launch bitwise on dyadic inputs; the fold in
+    row mode leaves its ticket and counts at 0 for the next call."""
+    from repro_torch.kernels import fleet_step as fs
+    n = 70_001
+    prog, env = _serve_epoch(n, admission, "sustainable", True, card)
+    _, _, want = fs.serve_step_cuda(prog, env, n=n)
+    before = (fs.serve_step_cuda.launches, fs.serve_finalize_cuda.launches)
+    _, _, row = fs.serve_step_cuda(prog, env, n=n, row=True)
+    torch.cuda.synchronize()
+    dev = env["charge"].device
+    scratch = fs._serve_scratch(dev, torch.cuda.current_stream(dev)
+                                .cuda_stream)[1]
+    assert int(scratch.abs().sum()) == 0
+    _same_stats(fs.serve_finalize_cuda(prog, row), want)
+    assert (fs.serve_step_cuda.launches,
+            fs.serve_finalize_cuda.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    _, _, again = fs.serve_step_cuda(prog, env, n=n)
+    _same_stats(again, want)
+    prog, env = _dyadic_serve(n, admission, card)
+    _, _, want = fs.serve_step_cuda(prog, env, n=n)
+    rows = [fs.serve_step_cuda(prog, half, n=len(half["valid"]),
+                               row=True)[2]
+            for half in _halves(env, n, 40_000)]
+    _same_stats(fs.serve_finalize_cuda(prog, rows[0] + rows[1]), want)
+
+
+@pytest.mark.cuda
+def test_one_rank_sharded_fleet_on_card_equals_host_local(card, tmp_path):
+    """A one-rank NCCL mesh: ``simulate_fleet`` and ``simulate_serve`` on
+    the card equal their host-local runs bitwise (a one-rank all-reduce
+    adds nothing), with one main launch and one finalize a round; a mesh
+    on the CPU refuses a fleet on the card."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.energy import BatteryConfig, Bernoulli, FleetConfig
+    from repro_torch.energy import simulate_fleet
+    from repro_torch.kernels import fleet_step as fs
+
+    dist.init_process_group(init_method=f"file://{tmp_path / 'rdzv'}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        n, R = 50_001, 6
+        cfg = FleetConfig(num_clients=n, policy="sustainable", seed=1)
+        kw = dict(E=np.arange(n) % 4 + 1, groups=np.arange(n) % 3,
+                  hist=True, record_masks=True, device=card)
+        bat = BatteryConfig(capacity=2.5, leak=0.02, init_charge=0.5)
+        a = simulate_fleet(Bernoulli.create(n, 0.35, 1.2), bat, 1.0, cfg, R,
+                           **kw)
+        ops.zero_launches()
+        b = simulate_fleet(Bernoulli.create(n, 0.35, 1.2), bat, 1.0, cfg, R,
+                           mesh=mesh, **kw)
+        assert (fs.fleet_step_cuda.launches,
+                fs.fleet_finalize_cuda.launches) == (R, R)
+        assert torch.equal(a.masks, b.masks)
+        assert torch.equal(a.final_charge, b.final_charge)
+        assert torch.equal(a.final_streak, b.final_streak)
+        for k in a.stats:
+            np.testing.assert_array_equal(a.stats[k], b.stats[k], err_msg=k)
+        cpu_mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        with pytest.raises(ValueError, match="the mesh is on 'cpu'"):
+            simulate_fleet(Bernoulli.create(8), bat, 1.0,
+                           FleetConfig(num_clients=8), 1, mesh=cpu_mesh,
+                           device=card)
+    finally:
+        dist.destroy_process_group()
