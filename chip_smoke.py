@@ -16,12 +16,13 @@ without either.  Phases, each of which raises on a failed check:
    granite-3-2b prefill shapes (B=1, H=32, K=8, D=64; S in {1, 127, 128,
    777, 2048}), D=128 at S=1024 (granite-8b), recurrentgemma-2b's
    attention (H=10, K=1, D=256; S in {1, 127, 2048}, also with its window
-   2048), B=2 at S=777 for each head dim, and q, k, v as views of one
-   fused (B, S, H+2K, D) projection.  Times the bf16 kernel (device time
-   from ``torch.profiler``, and CUDA events), its plain version and one
-   library call (``scaled_dot_product_attention``, timed here only, never
-   called by the port) at S=2048, causal, at the three models' shapes,
-   beside the card's bound.
+   2048), B=2 at S=777 for each head dim, olmoe-1b-7b's (H = K = 16) and
+   internvl2-76b's (H=64, K=8) at D=128, S=777, and q, k, v as views of
+   one fused (B, S, H+2K, D) projection.  Times the bf16 kernel (device
+   time from ``torch.profiler``, and CUDA events), its plain version and
+   one library call (``scaled_dot_product_attention``, timed here only,
+   never called by the port) at S=2048, causal, at the five models'
+   shapes, beside the card's bound.
 3. fused_agg kernel: ``fused_agg_cuda`` against ``fused_agg_plain`` within
    ``fused_agg.kernel_tolerance``, on every leaf of the CIFAR CNN at C=40
    with s = mask p E from a sustainable round (p = 1/40, E in {1, 5, 10,
@@ -146,7 +147,6 @@ without either.  Phases, each of which raises on a failed check:
    against the plain chunked path (``impl="ref"``), in bf16 and with the
    weights upcast to fp32; then tok/s, the engine's per-stage
    microbenchmark and a profile of one S=2048 prefill and one decode step.
-
 13. Sharded fleet (run after phases 8 and 10): the client axis over
    ``torch.distributed`` ranks (``simulate_fleet`` / ``run_serve_
    controlled`` with ``mesh=``).  (a) One NCCL rank on cuda:0 at full
@@ -173,6 +173,34 @@ without either.  Phases, each of which raises on a failed check:
    round's inputs, recorded in the host-local run); on each rank every
    round's finalize bitwise equal to ``step_ops.row_stats`` on its
    all-reduced row.
+
+14. Serve MoE: olmoe-1b-7b at full width and depth (16 layers, 64 experts
+   top-8, H = K = 16, head dim 128, bf16, ``moe_mode="dense"`` as
+   configured, random weights from ``--seed``) through
+   ``DecodeEngine.run`` on phase 4's workload (6 x 16 = 96 flash
+   launches, counts set to 0 just before and read just after); prefill
+   logits kernel vs plain in bf16 and fp32 (``LOGIT_ATOL``), the bf16
+   kernel on the served q, k, v of every layer, the per-stage
+   microbenchmark and flash's share of one S=2048 prefill.  Then the same
+   workload with ``moe_mode="sorted"`` (96 launches again): its batched
+   engine's tokens against a slot-by-slot decode (batch 1), reported in
+   bf16 and held in fp32 (they may part only at a near-tie, ``NEAR_TIE``).
+15. Serve VLM: internvl2-76b's trunk at full width (d_model 8192, H = 64,
+   K = 8, head dim 128, d_ff 28672, vocab 128256, bf16), its 80 layers cut
+   to 8; 3 requests with 256 vision rows each through ``Request.extras``,
+   prompts {2048, 777, 300}, 16 tokens each (3 x 8 = 24 flash launches);
+   the same checks as phase 14, and the vision rows must move the logits.
+16. Train LM: ``repro_torch.launch.train``'s path on granite-3-2b at full
+   width (its 40 layers cut to 4, or to 2 if 4 peak above 70 GB), 8
+   clients, taus (1, 2, 4, 8), T = 5 Adam steps of 4 x 512 tokens, 3
+   sustainable rounds after a warm-up: two fused_agg launches a round (one
+   a dtype: fp32 norms, bf16 weights) and no other kernel, every leaf the
+   kernel wrote within ``kernel_tolerance`` of ``fused_agg_plain`` on the
+   round's own stacked tree, the loss falls; the kernel's device time on
+   that tree beside its bytes bound, its plain version and one addmv a
+   leaf.  Then round 0 of granite-3-2b's smoke config and of olmoe-1b-7b's
+   in each MoE mode, fp32, on the card against the CPU from the card's
+   params (phase 5's bounds; MoE losses within 1e-5).
 
 Every profile must record the kernels its window launched (the port's
 launch counts say how many), or it is taken again, and after ten the
@@ -476,9 +504,13 @@ FLASH_CASES = (
      # recurrentgemma-2b: MQA, head dim 256, local window 2048
      (1, 10, 1, 256, (1, 127, 2048), FLASH_MASKS + ((True, 2048),))]
     + [(2, H, K, D, (777,), FLASH_MASKS)
-       for H, K, D in ((32, 8, 64), (32, 8, 128), (10, 1, 256))])
+       for H, K, D in ((32, 8, 64), (32, 8, 128), (10, 1, 256))]
+    # olmoe-1b-7b (MHA) and internvl2-76b (H = 64, K = 8) at head dim 128
+    + [(1, 16, 16, 128, (777,), FLASH_MASKS),
+       (1, 64, 8, 128, (777,), FLASH_MASKS)])
 FLASH_TIMED = (("granite-3-2b", 32, 8, 64, 0), ("granite-8b", 32, 8, 128, 0),
-               ("recurrentgemma-2b", 10, 1, 256, 2048))
+               ("recurrentgemma-2b", 10, 1, 256, 2048),
+               ("olmoe-1b-7b", 16, 16, 128, 0), ("internvl2-76b", 64, 8, 128, 0))
 
 
 def flash_inputs(torch, gen, B, S, H, K, D, dtype, fused=False):
@@ -583,11 +615,12 @@ def kernel_phase(torch, fa, seed: int) -> dict:
 
 
 def served_kernel_check(torch, fa, model, params, prompts, cache_len,
-                        device="cuda"):
+                        device="cuda", extras=None, label="serve"):
     """The bf16 kernel on the served path's own inputs: record the q, k, v
-    that every layer's prefill hands the kernel, for every prompt, and
-    hold the kernel against its plain version on each within
-    ``kernel_tolerance``.  Returns the largest error / bound per prompt."""
+    that every layer's prefill hands the kernel, for every prompt (with
+    its ``extras[i]`` in the batch, if given), and hold the kernel against
+    its plain version on each within ``kernel_tolerance``.  Returns the
+    largest error / bound per prompt."""
     from repro_torch.kernels import ops
 
     real = ops.flash_attention
@@ -600,7 +633,9 @@ def served_kernel_check(torch, fa, model, params, prompts, cache_len,
             return real(q, k, v, **kw)
 
         batch = {"tokens": torch.tensor(p, dtype=torch.long,
-                                        device=device)[None]}
+                                        device=device)[None],
+                 **{k: v[None] for k, v in (extras[i] if extras else
+                                            {}).items()}}
         ops.flash_attention = record
         try:
             model.prefill(params, batch, cache_len=cache_len, impl="flash")
@@ -614,7 +649,7 @@ def served_kernel_check(torch, fa, model, params, prompts, cache_len,
                             f"{q.dtype}", show=False)
                for layer, (q, k, v, kw) in enumerate(calls)]
         worst.append(max(r for _, r in res))
-        print(f"serve: request {i} S={len(p)}: bf16 kernel vs plain on the "
+        print(f"{label}: request {i} S={len(p)}: bf16 kernel vs plain on the "
               f"served q, k, v of all {len(res)} layers: max_abs_err "
               f"{max(e for e, _ in res):.3e}, worst err/bound {worst[-1]:.3f}"
               f" ok", flush=True)
@@ -3129,6 +3164,736 @@ def sharded_phase(torch, fs, seed: int, card: str, fleet=None,
     return out
 
 
+# the MoE and VLM serve phases: phase 4's workload on olmoe-1b-7b at full
+# width and depth, and 3 requests with vision embeddings on internvl2-76b's
+# trunk at full width, its 80 layers cut to 8 (~18 GB in bf16: the whole
+# trunk, 141 GB, does not fit one 80 GB card)
+MOE_ARCH = "olmoe-1b-7b"
+VLM_ARCH, VLM_LAYERS = "internvl2-76b", 8
+VLM_PROMPT_LENS = (2048, 777, 300)
+VLM_GEN = 16
+# ``moe_mode="sorted"``: the engine's batched decode routes each slot's row
+# alone, so its greedy tokens equal a slot-by-slot decode (batch 1).  Held
+# in fp32 (TF32 off), where the two differ by summation order only: a
+# request's tokens may part only at a step whose top-2 logit margin in the
+# slot-by-slot run is within LOGIT_ATOL["float32"], a near-tie.  A capacity
+# shared by the slots (cap = 1 at olmoe's k = 8 of E = 64 over 4 slots)
+# would drop experts and move the logits by far more.
+NEAR_TIE = LOGIT_ATOL["float32"]
+# ... or after a decode step of the slot-by-slot run whose router had a
+# near-tie: its k-th and (k+1)-th logits within ROUTER_TIE, 100x the fp32
+# noise that a batch of 4 against a batch of 1 leaves there, so that the
+# two runs may route a token to different experts
+ROUTER_TIE = 1e-4
+
+
+class RouteTap:
+    """Wraps ``models.moe._route`` (every MoE mode routes through it), one
+    evaluation at a time: ``record()`` keeps each call's expert ids,
+    ``replay()`` hands a later evaluation the recorded ids call by call
+    (the layers route in the same order), so that two evaluations that
+    differ by rounding route every token alike, as phase 5 replays the
+    CNN's max-pool decisions; ``gaps()`` keeps each call's smallest margin
+    between the k-th and (k+1)-th router logits.  Passes through
+    otherwise."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe._route
+        self.mode, self.calls, self.at = None, [], 0
+
+    def __enter__(self):
+        self.moe._route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+
+    def record(self):
+        self.mode, self.calls = "record", []
+
+    def replay(self):
+        self.mode, self.at = "replay", 0
+
+    def gaps(self):
+        self.mode, self.calls = "gaps", []
+
+    def route(self, cfg, p, x, idx=None):
+        if self.mode == "replay":
+            self.at += 1
+            return self.real(cfg, p, x, self.calls[self.at - 1])
+        out = self.real(cfg, p, x)
+        if self.mode == "record":
+            self.calls.append(out[1])
+        elif self.mode == "gaps":
+            top = (x.float() @ p["router"]).topk(cfg.experts_per_token + 1,
+                                                 dim=-1).values
+            self.calls.append((top[..., -2] - top[..., -1]).min().item())
+        return out
+
+
+def routes_differ(a, b) -> tuple:
+    """(token-layers whose top-k expert sets differ, token-layers) between
+    two recordings of the same evaluation's routes."""
+    n = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+            for x, y in zip(a, b))
+    return n, sum(x[..., 0].numel() for x in a)
+
+
+def serve_workload(torch, model, params, prompts, gen, cache_len,
+                   extras=None) -> tuple:
+    """Phase 4's drive: ``DecodeEngine.run`` over ``prompts`` (greedy,
+    ``SLOTS`` slots, arrivals ``STAGGER`` steps apart), every kernel's
+    count set to 0 just before and read just after.  Returns (finished
+    requests, wall seconds, launch counts, engine)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
+
+    config = EngineConfig(slots=SLOTS, cache_len=cache_len, max_new=gen)
+    engine = DecodeEngine(model, params, config)
+    reqs = [Request(rid=i, tokens=p, max_new=gen,
+                    extras=extras[i] if extras else None)
+            for i, p in enumerate(prompts)]
+    arrivals = [i * STAGGER for i in range(len(reqs))]
+    ops.zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run(reqs, arrivals=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return done, wall, ops.launch_counts(), engine
+
+
+def check_serve_launches(label, counts, want):
+    if counts != {**dict.fromkeys(counts, 0), "flash_attention": want}:
+        raise AssertionError(f"{label}: kernel launches {counts}, expected "
+                             f"{want} of flash_attention and no other")
+
+
+def prefill_batch(torch, p, extras=None) -> dict:
+    return {"tokens": torch.tensor(p, dtype=torch.long, device="cuda")[None],
+            **{k: v[None] for k, v in (extras or {}).items()}}
+
+
+def prefill_logit_checks(torch, label, models, params, prompts, cache_len,
+                         done, extras=None) -> tuple:
+    """Each request's last-position prefill logits through the kernel
+    (``impl="flash"``) against the plain attention path (``impl="ref"``)
+    on the same weights, in bf16 (``models[0]``, ``params[0]``) and fp32
+    (``models[1]``, ``params[1]``): within ``LOGIT_ATOL``; the engine's
+    first token must be the kernel prefill's argmax.  With experts, the
+    plain path takes the kernel path's routes (``RouteTap``): a router
+    near-tie, of which 2048 tokens x 16 layers hold many, sends a token to
+    other experts on a rounding difference and moves the logits by more
+    than the bound; the paths running free, and how many token-layers
+    they route apart, are printed beside.  Returns (checks, bf16
+    kernel-path prefill ms per request)."""
+    (model, model32), (p16, p32) = models, params
+    moe = model.cfg.family == "moe"
+    checks, prefill_ms = [], []
+    for i, p in enumerate(prompts):
+        batch = prefill_batch(torch, p, extras[i] if extras else None)
+        batch32 = {k: v.float() if v.is_floating_point() else v
+                   for k, v in batch.items()}
+        free = {}
+        with RouteTap() as tap:
+            tap.record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lk, _ = model.prefill(p16, batch, cache_len=cache_len,
+                                  impl="flash")
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            if moe:
+                tap.replay()
+            lp, _ = model.prefill(p16, batch, cache_len=cache_len, impl="ref")
+            if moe:
+                routes = tap.calls
+                tap.record()
+                lf, _ = model.prefill(p16, batch, cache_len=cache_len,
+                                      impl="ref")
+                free["bf16"] = ((lf[0, -1] - lk[0, -1]).abs().max().item(),
+                                routes_differ(routes, tap.calls))
+            tap.record()
+            lk32, _ = model32.prefill(p32, batch32, impl="flash")
+            if moe:
+                tap.replay()
+            lp32, _ = model32.prefill(p32, batch32, impl="ref")
+            if moe:
+                routes = tap.calls
+                tap.record()
+                lf, _ = model32.prefill(p32, batch32, impl="ref")
+                free["fp32"] = ((lf[0, -1] - lk32[0, -1]).abs().max().item(),
+                                routes_differ(routes, tap.calls))
+        if free:
+            print(f"{label}: request {i} S={len(p)}, the plain path routing "
+                  f"freely: logits vs the kernel path's max_abs_err "
+                  + ", ".join(f"{k} {e:.4g} ({n} of {m} token-layers routed "
+                              f"apart)" for k, (e, (n, m)) in free.items()),
+                  flush=True)
+        lk, lp, lk32, lp32 = (t[0, -1] for t in (lk, lp, lk32, lp32))
+        for name, t in (("bf16", lk), ("fp32", lk32)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{label} request {i}: non-finite "
+                                     f"{name} logits")
+        err = (lk - lp).abs().max().item()
+        err32 = (lk32 - lp32).abs().max().item()
+        noise = (lp - lp32).abs().max().item()
+        top2 = lp.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        agree = int(lk.argmax()) == int(lp.argmax())
+        tol, tol32 = LOGIT_ATOL["bfloat16"], LOGIT_ATOL["float32"]
+        print(f"{label}: request {i} S={len(p)} prefill {prefill_ms[-1]:.2f}"
+              f" ms; logits kernel vs plain: bf16 max_abs_err {err:.4f} (tol "
+              f"{tol}; noise: plain bf16 vs fp32 {noise:.4f}), fp32 "
+              f"{err32:.3e} (tol {tol32}); top-2 margin {margin:.4f}, argmax "
+              f"{'agrees' if agree else 'differs'}", flush=True)
+        if err > tol or err32 > tol32:
+            raise AssertionError(f"{label} request {i}: prefill logits "
+                                 f"through the kernel differ from the plain "
+                                 f"path by {err} (bf16) / {err32} (fp32)")
+        if margin > tol and not agree:
+            raise AssertionError(f"{label} request {i}: argmax differs with "
+                                 f"top-2 margin {margin} > {tol}")
+        if int(done[i].tokens[0]) != int(lk.argmax()):
+            raise AssertionError(f"{label} request {i}: the engine's first "
+                                 f"token is not the kernel prefill's argmax")
+        checks.append({"S": len(p), "bf16_max_abs_err": err,
+                       "fp32_max_abs_err": err32, "bf16_plain_vs_fp32": noise,
+                       "top2_margin": margin, "argmax_agrees": agree,
+                       "routes_replayed": moe, "free_routing": free})
+    return checks, prefill_ms
+
+
+def solo_decode(torch, model, params, p, gen, cache_len) -> tuple:
+    """One request decoded alone (batch 1), greedy: (tokens, the top-2
+    logit margin at each token, the smallest router gap of the decode step
+    that gave each token (``RouteTap.gaps``; inf for the prefill's))."""
+    logits, cache = model.prefill(params, prefill_batch(torch, p),
+                                  cache_len=cache_len)
+    logits, S = logits[:, -1], len(p)
+    toks, margins, gaps = [], [], [math.inf]
+    with RouteTap() as tap:
+        for i in range(gen):
+            top2 = logits[0].topk(2).values
+            margins.append((top2[0] - top2[1]).item())
+            tok = logits.argmax(-1)
+            toks.append(int(tok))
+            if i + 1 < gen:
+                tap.gaps()
+                logits, cache = model.decode_step(params, tok, cache, S + i)
+                gaps.append(min(tap.calls))
+    return np.asarray(toks, np.int32), margins, gaps
+
+
+def parting(a, b):
+    """Index of the first token where ``a`` and ``b`` differ, or None."""
+    diff = np.nonzero(np.asarray(a) != np.asarray(b))[0]
+    return int(diff[0]) if len(diff) else None
+
+
+def sorted_vs_solo(torch, label, model, params, prompts, done, cache_len,
+                   held: bool) -> list:
+    """Each request of an engine run against its slot-by-slot decode: the
+    first token where they part, that step's top-2 margin alone and the
+    smallest router gap of the decode steps up to it.  With ``held``,
+    raises where they part with neither a logit near-tie (``NEAR_TIE``)
+    there nor a router near-tie (``ROUTER_TIE``) before."""
+    res = []
+    for i, p in enumerate(prompts):
+        solo, margins, gaps = solo_decode(torch, model, params, p, GEN,
+                                          cache_len)
+        at = parting(done[i].tokens, solo)
+        margin = None if at is None else margins[at]
+        gap = None if at is None else min(gaps[:at + 1])
+        res.append({"S": len(p), "parts_at": at, "margin_there": margin,
+                    "router_gap_before": gap, "min_margin": min(margins),
+                    "min_router_gap": min(gaps)})
+        if at is not None:
+            tie = margin <= NEAR_TIE or gap <= ROUTER_TIE
+            print(f"{label}: request {i} S={len(p)} parts from its "
+                  f"slot-by-slot decode at token {at}: top-2 margin there "
+                  f"{margin:.3e} (near-tie {NEAR_TIE}), smallest router gap "
+                  f"up to it {gap:.3e} (near-tie {ROUTER_TIE}): "
+                  f"{'a near-tie' if tie else 'no near-tie'}", flush=True)
+            if held and not tie:
+                raise AssertionError(f"{label} request {i}: the batched "
+                                     f"engine's tokens part from a "
+                                     f"slot-by-slot decode at token {at} "
+                                     f"with no near-tie")
+    equal = sum(r["parts_at"] is None for r in res)
+    print(f"{label}: {equal} of {len(res)} requests' {GEN} greedy tokens "
+          f"equal their slot-by-slot decode (batch 1); smallest top-2 "
+          f"margin {min(r['min_margin'] for r in res):.3e}, smallest router "
+          f"gap {min(r['min_router_gap'] for r in res):.3e}", flush=True)
+    return res
+
+
+def flash_share(torch, model, params, batch, cache_len) -> dict:
+    """A profile of one prefill at ``batch`` and flash's share of its
+    device time."""
+    prefill = lambda: model.prefill(params, batch, cache_len=cache_len)
+    prof = device_profile(torch, prefill, launched(torch, prefill))
+    flash_ms = sum(ms for n, ms in prof["all"] if "flash_fwd" in n)
+    return {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+            "device_share": prof["device_share"], "kernels": prof["kernels"],
+            "flash_device_ms": flash_ms,
+            "top": prof["top"][:5]}
+
+
+def moe_serve_phase(torch, fa, seed: int, card: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import seeded_generators
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
+    from repro_torch.serve.microbench import engine_microbench
+
+    cfg = get_config(MOE_ARCH)
+    model = get_model(cfg)
+    g_params, g_prompt, _ = seeded_generators(seed, torch.device("cuda"))
+    t0 = time.perf_counter()
+    params = model.init_params(g_params)
+    torch.cuda.synchronize()
+    print(f"serve moe: {cfg.name} {cfg.num_layers} layers d_model="
+          f"{cfg.d_model}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, H={cfg.num_heads} K={cfg.num_kv_heads} "
+          f"D={cfg.head_dim}, {cfg.dtype}, moe_mode={cfg.moe_mode}, "
+          f"{model.num_params(params) / 1e9:.3f} B params made on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = [torch.randint(0, cfg.vocab_size, (S,), generator=g_prompt,
+                             device="cuda").cpu().numpy()
+               for S in PROMPT_LENS]
+    cache_len = max(PROMPT_LENS) + GEN + 1
+    want = len(prompts) * cfg.num_layers
+    DecodeEngine(model, params, EngineConfig(
+        slots=SLOTS, cache_len=cache_len, max_new=GEN)).run(
+        [Request(rid="warm", tokens=prompts[4], max_new=2)])    # warm-up
+
+    runs = {}
+    done, wall, counts, engine = serve_workload(torch, model, params,
+                                                prompts, GEN, cache_len)
+    print(f"serve moe ({cfg.moe_mode}): DecodeEngine.run {len(prompts)} "
+          f"requests x {GEN} tokens in {wall:.3f} s = "
+          f"{len(prompts) * GEN / wall:.1f} tok/s ({engine.stats['steps']} "
+          f"decode steps); launches {counts}", flush=True)
+    check_serve_launches("serve moe", counts, want)
+    runs[cfg.moe_mode] = {"wall_s": wall, "tok_s": len(prompts) * GEN / wall,
+                          "flash_launches": counts["flash_attention"],
+                          "stats": engine.stats}
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = get_model(cfg32)
+    params32 = _tree_map(params, lambda t: t.float())
+    checks, prefill_ms = prefill_logit_checks(
+        torch, "serve moe", (model, model32), (params, params32), prompts,
+        cache_len, done)
+    served_ratio = served_kernel_check(torch, fa, model, params, prompts,
+                                       cache_len, label="serve moe")
+    rec = engine_microbench(model, params, slots=SLOTS,
+                            prompt_len=max(PROMPT_LENS), gen=GEN, reps=3,
+                            seed=seed)
+    print(f"serve moe microbench on {card}: prefill (S={rec['prompt_len']}) "
+          f"{rec['prefill_ms']:.3f} ms = {rec['prefill_tok_s']:.0f} tok/s; "
+          f"decode step ({SLOTS} slots) {rec['decode_step_ms']:.3f} ms = "
+          f"{rec['decode_tok_s']:.1f} tok/s", flush=True)
+    share = flash_share(torch, model, params, prefill_batch(torch, prompts[0]),
+                        cache_len)
+    print(f"serve moe: flash_attention in one S=2048 prefill: "
+          f"{share['flash_device_ms']:.3f} ms of {share['device_ms']:.3f} ms "
+          f"of device time ({share['flash_device_ms'] / share['device_ms']:.1%}"
+          f"), {share['kernels']} kernels, wall {share['wall_ms']:.3f} ms",
+          flush=True)
+
+    # the same workload with sorted dispatch: bf16 (counted, timed, its
+    # tokens against a slot-by-slot decode reported), then fp32 (held)
+    sorted_cfg = dataclasses.replace(cfg, moe_mode="sorted")
+    model_s = get_model(sorted_cfg)
+    done_s, wall_s, counts_s, engine_s = serve_workload(
+        torch, model_s, params, prompts, GEN, cache_len)
+    print(f"serve moe (sorted): DecodeEngine.run {len(prompts)} requests x "
+          f"{GEN} tokens in {wall_s:.3f} s = {len(prompts) * GEN / wall_s:.1f}"
+          f" tok/s ({engine_s.stats['steps']} decode steps); launches "
+          f"{counts_s}", flush=True)
+    check_serve_launches("serve moe (sorted)", counts_s, want)
+    runs["sorted"] = {"wall_s": wall_s,
+                      "tok_s": len(prompts) * GEN / wall_s,
+                      "flash_launches": counts_s["flash_attention"],
+                      "stats": engine_s.stats}
+    runs["sorted"]["bf16_vs_solo"] = sorted_vs_solo(
+        torch, "serve moe (sorted, bf16)", model_s, params, prompts, done_s,
+        cache_len, held=False)
+    model_s32 = get_model(dataclasses.replace(sorted_cfg, dtype="float32"))
+    done32, _, _, _ = serve_workload(torch, model_s32, params32, prompts, GEN,
+                                     cache_len)
+    runs["sorted"]["fp32_vs_solo"] = sorted_vs_solo(
+        torch, "serve moe (sorted, fp32)", model_s32, params32, prompts,
+        done32, cache_len, held=True)
+    del params32, params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+            "prompt_lens": list(PROMPT_LENS), "gen": GEN, "slots": SLOTS,
+            "stagger": STAGGER, "runs": runs,
+            "flash_launches": sum(r["flash_launches"] for r in runs.values()),
+            "prefill_ms": prefill_ms, "prefill_logit_checks": checks,
+            "served_kernel_worst_err_over_bound": served_ratio,
+            "microbench": rec, "prefill_2048_profile": share}
+
+
+def vlm_serve_phase(torch, fa, seed: int, card: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import seeded_generators
+    from repro_torch.models import get_model
+    from repro_torch.serve.microbench import engine_microbench
+
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    model = get_model(cfg)
+    g_params, g_prompt, _ = seeded_generators(seed, torch.device("cuda"))
+    t0 = time.perf_counter()
+    params = model.init_params(g_params)
+    torch.cuda.synchronize()
+    print(f"serve vlm: {cfg.name} trunk, {cfg.num_layers} of "
+          f"{full.num_layers} layers, d_model={cfg.d_model} H="
+          f"{cfg.num_heads} K={cfg.num_kv_heads} D={cfg.head_dim} d_ff="
+          f"{cfg.d_ff} vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{model.num_params(params) / 1e9:.3f} B params made on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = [torch.randint(0, cfg.vocab_size, (S,), generator=g_prompt,
+                             device="cuda").cpu().numpy()
+               for S in VLM_PROMPT_LENS]
+    extras = [{"vision_embeds": torch.randn(
+        (min(cfg.vision_tokens, S), cfg.d_model), generator=g_prompt,
+        device="cuda").to(torch.bfloat16)} for S in VLM_PROMPT_LENS]
+    cache_len = max(VLM_PROMPT_LENS) + VLM_GEN + 1
+    serve_workload(torch, model, params, prompts[2:], 2, cache_len,
+                   extras[2:])                                  # warm-up
+    done, wall, counts, engine = serve_workload(
+        torch, model, params, prompts, VLM_GEN, cache_len, extras)
+    want = len(prompts) * cfg.num_layers
+    print(f"serve vlm: DecodeEngine.run {len(prompts)} requests (each "
+          f"{cfg.vision_tokens} vision rows through Request.extras) x "
+          f"{VLM_GEN} tokens in {wall:.3f} s = "
+          f"{len(prompts) * VLM_GEN / wall:.1f} tok/s "
+          f"({engine.stats['steps']} decode steps); launches {counts}",
+          flush=True)
+    check_serve_launches("serve vlm", counts, want)
+
+    model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = _tree_map(params, lambda t: t.float())
+    checks, prefill_ms = prefill_logit_checks(
+        torch, "serve vlm", (model, model32), (params, params32), prompts,
+        cache_len, done, extras)
+    del params32
+    torch.cuda.empty_cache()
+    # the vision rows reach the logits: the same prompt without them
+    bare, _ = model.prefill(params, prefill_batch(torch, prompts[0]),
+                            cache_len=cache_len)
+    moved = (bare[0, -1] - model.prefill(
+        params, prefill_batch(torch, prompts[0], extras[0]),
+        cache_len=cache_len)[0][0, -1]).abs().max().item()
+    print(f"serve vlm: request 0's logits move by {moved:.4f} without its "
+          f"vision rows", flush=True)
+    if not moved > LOGIT_ATOL["bfloat16"]:
+        raise AssertionError("serve vlm: the vision embeddings do not reach "
+                             "the logits")
+    served_ratio = served_kernel_check(torch, fa, model, params, prompts,
+                                       cache_len, extras=extras,
+                                       label="serve vlm")
+    rec = engine_microbench(model, params, slots=SLOTS,
+                            prompt_len=max(VLM_PROMPT_LENS), gen=VLM_GEN,
+                            reps=3, seed=seed)
+    print(f"serve vlm microbench on {card}: prefill (S={rec['prompt_len']}) "
+          f"{rec['prefill_ms']:.3f} ms = {rec['prefill_tok_s']:.0f} tok/s; "
+          f"decode step ({SLOTS} slots) {rec['decode_step_ms']:.3f} ms = "
+          f"{rec['decode_tok_s']:.1f} tok/s", flush=True)
+    share = flash_share(torch, model, params,
+                        prefill_batch(torch, prompts[0], extras[0]),
+                        cache_len)
+    print(f"serve vlm: flash_attention in one S=2048 prefill: "
+          f"{share['flash_device_ms']:.3f} ms of {share['device_ms']:.3f} ms "
+          f"of device time ({share['flash_device_ms'] / share['device_ms']:.1%}"
+          f"), {share['kernels']} kernels, wall {share['wall_ms']:.3f} ms",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "layers_full": full.num_layers, "dtype": cfg.dtype,
+            "prompt_lens": list(VLM_PROMPT_LENS), "gen": VLM_GEN,
+            "vision_rows": cfg.vision_tokens, "wall_s": wall,
+            "tok_s": len(prompts) * VLM_GEN / wall, "stats": engine.stats,
+            "flash_launches": counts["flash_attention"],
+            "prefill_ms": prefill_ms, "prefill_logit_checks": checks,
+            "logits_moved_without_vision": moved,
+            "served_kernel_worst_err_over_bound": served_ratio,
+            "microbench": rec, "prefill_2048_profile": share}
+
+
+# the LM train phase: granite-3-2b at full width through the train
+# launcher's path, 8 clients, T = 5 Adam steps of 4 x 512 tokens, 3
+# sustainable rounds; its 40 layers cut to 4, or to 2 where 4 take more
+# than LM_PEAK_LIMIT of the card (8 stacked clients' bf16 params, grads and
+# new params and their fp32 Adam moments)
+LM_TRAIN = dict(clients=8, local_steps=5, batch=4, seq=512,
+                taus=(1, 2, 4, 8), lr=1e-3)
+LM_TRAIN_ROUNDS = 3
+LM_LAYERS = (4, 2)
+LM_PEAK_LIMIT = 70e9
+# card vs CPU: one round of a smoke config from the card's params, held as
+# phase 5 holds the CNN's (LOSS_RTOL, BULK_TOL, the Adam bound); the MoE
+# smoke rounds' losses within the fp32 tolerance of the CPU tests
+LM_SMOKE = dict(clients=4, local_steps=2, batch=2, seq=32, taus=(1, 2, 4, 8),
+                lr=1e-3)
+MOE_LOSS_RTOL = 1e-5
+
+
+class AggTap:
+    """Records the inputs and output of every ``ops.fused_agg_tree`` call
+    of a round, for the check of each leaf against the plain version."""
+
+    def __init__(self, ops):
+        self.ops, self.real, self.calls = ops, ops.fused_agg_tree, []
+
+    def __enter__(self):
+        def record(w, ws, s):
+            out = self.real(w, ws, s)
+            self.calls.append((w, ws, s, out))
+            return out
+        self.ops.fused_agg_tree = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_agg_tree = self.real
+
+
+def flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in flat_leaves(v, f"{prefix}.{k}" if prefix else k)]
+    return [(prefix, tree)]
+
+
+def agg_tree_check(torch, agg, call) -> float:
+    """Every leaf a round's ``fused_agg_tree`` wrote against
+    ``fused_agg_plain`` on the same inputs within ``kernel_tolerance``;
+    returns the largest error / bound."""
+    w, ws, s, out = call
+    worst = 0.0
+    for (name, wl), (_, wsl), (_, ol) in zip(flat_leaves(w), flat_leaves(ws),
+                                             flat_leaves(out)):
+        a, b = wl.reshape(-1), wsl.reshape(wsl.shape[0], -1)
+        want = agg.fused_agg_plain(a, b, s)
+        err = (ol.reshape(-1).float() - want.float()).abs()
+        ratio = (err / agg.kernel_tolerance(a, b, s, want)).max().item()
+        if not (bool(torch.isfinite(ol).all()) and ratio <= 1.0):
+            raise AssertionError(f"fused_agg on the LM tree: leaf {name} "
+                                 f"{tuple(wl.shape)} {wl.dtype} at "
+                                 f"{ratio:.3f} of kernel_tolerance")
+        worst = max(worst, ratio)
+        del want, err
+    return worst
+
+
+def lm_round_vs_cpu(torch, train, label, cfg, seed) -> dict:
+    """Round 0 of ``cfg`` (a smoke config) on the card, and on the CPU from
+    the card's params: loss within LOSS_RTOL (MoE: MOE_LOSS_RTOL), 90% of
+    the params within BULK_TOL (1 + |w|), every param within one round's
+    Adam bound."""
+    from repro_torch.core import scheduling
+
+    card = train.make_run(cfg=cfg, seed=seed, device="cuda", **LM_SMOKE)
+    cpu = train.make_run(cfg=cfg, seed=seed, device="cpu", **LM_SMOKE)
+    w0 = card.params
+    w_card, m_card = train.train_round(card, w0, 0)
+    w_cpu, m_cpu = train.train_round(
+        cpu, _tree_map(w0, lambda t: t.cpu()), 0)
+    d = torch.cat([(a.cpu() - b).abs().reshape(-1) for (_, a), (_, b) in
+                   zip(flat_leaves(w_card), flat_leaves(w_cpu))])
+    w = torch.cat([b.abs().reshape(-1) for _, b in flat_leaves(w_cpu)])
+    C, T = card.fed.num_clients, card.fed.local_steps
+    mask = scheduling.participation_mask("sustainable", seed, 0, cpu.E)
+    bound = (2.0 * adam_step_bound(T) * LM_SMOKE["lr"] * T
+             * float((mask * (1.0 / C) * cpu.E.float()).sum()))
+    rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    bulk = torch.quantile(d / (1 + w), BULK_Q).item()
+    loss_tol = MOE_LOSS_RTOL if cfg.family == "moe" else LOSS_RTOL
+    ok = (m_card["participants"] == m_cpu["participants"] > 0
+          and rel <= loss_tol and bulk <= BULK_TOL
+          and d.max().item() <= bound)
+    print(f"train lm {label} round 0, card vs CPU from the card's params "
+          f"(fp32): loss {m_card['loss']:.6f} vs {m_cpu['loss']:.6f}, rel "
+          f"diff {rel:.2e} (tol {loss_tol:.0e}); {BULK_Q:.0%} quantile of "
+          f"|d|/(1+|w|) {bulk:.2e} (tol {BULK_TOL:.0e}); max |d| "
+          f"{d.max().item():.3e} (Adam bound {bound:.3e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"train lm {label}: the card's round differs "
+                             f"from the CPU's beyond the stated bounds")
+    return {"loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
+            "loss_rel_diff": rel, "bulk": bulk, "max_diff": d.max().item(),
+            "adam_bound": bound}
+
+
+def lm_train_rounds(torch, agg, train, layers, seed, last: bool) -> dict:
+    """``LM_TRAIN_ROUNDS`` sustainable rounds of granite-3-2b at full width
+    cut to ``layers`` layers, after a warm-up round: each round's kernel
+    launches (counts set to 0 before it, read after it), its fused_agg
+    leaves against the plain version, wall time and peak memory.  Unless
+    ``last``, returns no rounds where the warm-up peaks above
+    ``LM_PEAK_LIMIT`` or runs out of memory (the peak is then the
+    allocation when it did)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.make_run(cfg=cfg, policy="sustainable", seed=seed,
+                         device="cuda", **LM_TRAIN)
+    C, T = run.fed.num_clients, run.fed.local_steps
+    w, hist, worst, tap, oom = run.params, [], [], None, False
+    try:
+        train.train_round(run, w, 0)           # warm-up (allocator, cuBLAS)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        if last:
+            raise
+        print(f"train lm: {layers} layers do not fit the card: "
+              f"{str(e).splitlines()[0]}", flush=True)
+        oom = True
+    peak = torch.cuda.max_memory_allocated()
+    if not oom and (last or peak <= LM_PEAK_LIMIT):
+        for r in range(LM_TRAIN_ROUNDS):
+            ops.zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            with AggTap(ops) as tap:
+                t0 = time.perf_counter()
+                w, m = train.train_round(run, w, r)
+                dt = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            if counts != {**dict.fromkeys(counts, 0), "fused_agg": 2} \
+                    or len(tap.calls) != 1:
+                raise AssertionError(f"train lm round {r}: launches {counts} "
+                                     f"in {len(tap.calls)} aggregations, "
+                                     f"expected 2 of fused_agg (one a "
+                                     f"dtype) in one")
+            worst.append(agg_tree_check(torch, agg, tap.calls[0]))
+            hist.append({"round": r, **m, "round_ms": dt * 1e3,
+                         "client_steps_per_s": C * T / dt,
+                         "fused_agg_launches": counts["fused_agg"],
+                         "agg_worst_err_over_bound": worst[-1]})
+            print(f"train lm round {r}: loss {m['loss']:.4f} participants "
+                  f"{m['participants']:.0f} {dt * 1e3:.1f} ms "
+                  f"({C * T / dt:.2f} client-steps/s); launches {counts}; "
+                  f"fused_agg leaves vs plain: worst err/bound "
+                  f"{worst[-1]:.3f} ok", flush=True)
+            if r + 1 < LM_TRAIN_ROUNDS:
+                tap.calls.clear()
+    return {"cfg": cfg, "run": run, "params": w, "history": hist,
+            "peak_bytes": peak, "oom": oom,
+            "last_agg": tap.calls[0] if tap else None}
+
+
+def lm_train_phase(torch, agg, seed: int, card: str) -> dict:
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    # the stacked trees are large and their sizes vary round to round:
+    # growable segments keep the allocator's cache from fragmenting
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    tried = {}
+    for layers in LM_LAYERS:
+        res = lm_train_rounds(torch, agg, train, layers, seed,
+                              last=layers == LM_LAYERS[-1])
+        tried[layers] = {"peak_bytes": res["peak_bytes"], "oom": res["oom"]}
+        taken = bool(res["history"])
+        print(f"train lm: granite-3-2b at full width, {layers} layers: peak "
+              f"torch.cuda.max_memory_allocated {res['peak_bytes'] / 1e9:.2f}"
+              f" GB{' when it ran out of memory' if res['oom'] else ''} "
+              f"(limit {LM_PEAK_LIMIT / 1e9:.0f} GB): "
+              f"{'taken' if taken else 'cut further'}", flush=True)
+        if taken:
+            break
+        del res
+        torch.cuda.empty_cache()
+    cfg, run, hist, peak = (res["cfg"], res["run"], res["history"],
+                            res["peak_bytes"])
+    n_params = run.model.num_params(run.params)
+    live = [h["loss"] for h in hist if h["participants"] > 0]
+    if not (all(math.isfinite(x) for x in live) and live[-1] < live[0]):
+        raise AssertionError(f"train lm: loss did not fall: {live}")
+    C, T = run.fed.num_clients, run.fed.local_steps
+    wall = sum(h["round_ms"] for h in hist) / 1e3
+    print(f"train lm: {cfg.name} {cfg.num_layers} layers (cut from 40; "
+          f"{n_params:,} params), C={C} T={T} batch {LM_TRAIN['batch']} x "
+          f"{LM_TRAIN['seq']} tokens: {len(hist)} rounds in {wall:.3f} s = "
+          f"{len(hist) * C * T / wall:.2f} client-steps/s on {card}; loss "
+          f"{live[0]:.4f} -> {live[-1]:.4f}", flush=True)
+
+    # the kernel on the round's own tree: device time, bound, plain, library
+    w, ws, s, _ = res["last_agg"]
+    leaves = [(a.reshape(-1), b.reshape(b.shape[0], -1)) for (_, a), (_, b)
+              in zip(flat_leaves(w), flat_leaves(ws))]
+    del res
+    launches, n_leaves = len({a.dtype for a, _ in leaves}), len(leaves)
+    reps = 10
+    tree = lambda: ops.fused_agg_tree(w, ws, s)
+    try:
+        prof = device_profile(torch, lambda: [tree() for _ in range(reps)],
+                              expect={"fused_agg_kernel": reps * launches})
+        kernel_ms = sum(ms for n, ms in prof["all"]
+                        if "fused_agg" in n) / reps
+        timed_by = "torch.profiler"
+    except ProfileIncomplete as e:
+        # as phase 13 times a finalize the profiler misses: the launches
+        # queued behind a sleeping kernel, so that the card runs them back
+        # to back (host time is ~0.1% of a 2 ms tree)
+        print(f"train lm: fused_agg tree: {e}", flush=True)
+        kernel_ms = queued_ms(torch, tree, reps)
+        timed_by = ("CUDA events around back-to-back launches (the "
+                    "profiler missed kernels of every window)")
+    nbytes = (sum((C + 2) * a.numel() * a.element_size() for a, _ in leaves)
+              + s.numel() * 4)
+    bound = nbytes / PEAK_BYTES * 1e3
+    plain_ms = cuda_ms(lambda: [agg.fused_agg_plain(a, b, s)
+                                for a, b in leaves], 3, torch)
+    s_of = {torch.float32: s, torch.bfloat16: s.bfloat16()}
+    beta = 1.0 - float(s.sum())
+    library = lambda: [torch.addmv(a, b.t(), s_of[a.dtype], beta=beta)
+                       for a, b in leaves]
+    library_ms = cuda_ms(library, 10, torch)
+    print(f"train lm: fused_agg on the round's tree ({len(leaves)} leaves, "
+          f"C={C}, {sum(a.numel() for a, _ in leaves):,} params, fp32 norms "
+          f"and bf16 weights): kernel {kernel_ms:.4f} ms ({timed_by}) in "
+          f"{launches} launches, plain {plain_ms:.4f} ms, library addmv "
+          f"{library_ms:.4f} ms ({len(leaves)} calls, one a leaf); bound "
+          f"{bound:.4f} ms ({nbytes / 1e9:.3f} GB at {PEAK_BYTES / 1e12} "
+          f"TB/s), {bound / kernel_ms:.1%} of it", flush=True)
+    del w, ws, leaves, run
+    torch.cuda.empty_cache()
+
+    smoke = {"granite-3-2b": lm_round_vs_cpu(
+        torch, train, "granite-3-2b smoke", get_smoke_config("granite-3-2b"),
+        seed)}
+    for mode in ("dense", "dispatch", "sorted", "sorted_local"):
+        smoke[f"olmoe-1b-7b {mode}"] = lm_round_vs_cpu(
+            torch, train, f"olmoe-1b-7b smoke {mode}", dataclasses.replace(
+                get_smoke_config("olmoe-1b-7b"), moe_mode=mode), seed)
+    return {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+            **LM_TRAIN, "rounds": len(hist), "history": hist,
+            "peak_bytes": peak, "layers_tried": tried,
+            "wall_s": wall, "client_steps_per_s": len(hist) * C * T / wall,
+            "fused_agg_launches": sum(h["fused_agg_launches"] for h in hist),
+            "agg_tree": {"leaves": n_leaves, "kernel_ms": kernel_ms,
+                         "timed_by": timed_by,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "library_calls": n_leaves, "bytes": nbytes,
+                         "bound_ms": bound, "launches_per_call": launches},
+            "card_vs_cpu": smoke}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3194,6 +3959,20 @@ def main(argv=None) -> int:
     serve_fleet = serve_fleet_phase(torch, fs, args.seed, card)
     serve_kernel["launches"] = serve_fleet["launches"]
     sharded = sharded_phase(torch, fs, args.seed, card, fleet, serve_fleet)
+    serve_moe = moe_serve_phase(torch, fa, args.seed, card)
+    serve_vlm = vlm_serve_phase(torch, fa, args.seed, card)
+    train_lm = lm_train_phase(torch, agg, args.seed, card)
+    kernel["launches_by_path"] = {
+        "serve granite-3-2b": serve["flash_launches"],
+        **{f"serve olmoe-1b-7b {mode}": r["flash_launches"]
+           for mode, r in serve_moe["runs"].items()},
+        "serve internvl2-76b (8 layers)": serve_vlm["flash_launches"]}
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
+    agg_kernel["launches_by_path"] = {
+        "train cifar-cnn": agg_kernel["launches"],
+        "train granite-3-2b": train_lm["fused_agg_launches"]}
+    agg_kernel["launches"] = sum(agg_kernel["launches_by_path"].values())
+    agg_kernel["lm_tree"] = train_lm["agg_tree"]
     for k, kind, unit in ((fleet_kernel, "fleet", "round"),
                           (serve_kernel, "serve", "epoch")):
         name = "fleet_step" if kind == "fleet" else "serve_step"
@@ -3214,7 +3993,8 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda, "kernels": kernels, "serve": serve,
               "serve_mamba2": mamba, "train": train, "fig1": fig1,
               "fleet": fleet, "serve_fleet": serve_fleet,
-              "sharded": sharded}
+              "sharded": sharded, "serve_moe": serve_moe,
+              "serve_vlm": serve_vlm, "train_lm": train_lm}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,5 +1,8 @@
-"""Serving launcher: continuous-batching decode over a registered dense or
-state-space architecture (port of the JAX package's ``launch/serve.py``).
+"""Serving launcher: continuous-batching decode over a registered dense,
+MoE, VLM or state-space architecture (port of the JAX package's
+``launch/serve.py``).  A VLM prompt carries ``vision_embeds`` of
+``min(vision_tokens, prompt_len)`` rows drawn from the prompt generator,
+handed to the engine per request through ``Request.extras``.
 
 The default path drives `repro_torch.serve.engine.DecodeEngine` over a batch
 of requests with staggered arrivals (``--stagger`` steps apart);
@@ -17,7 +20,9 @@ the nominal device wattage) next to the *analytic* ``from_params`` pricing
 
   python -m repro_torch.launch.serve                       # mamba2-1.3b, card
   python -m repro_torch.launch.serve --arch granite-3-2b
+  python -m repro_torch.launch.serve --arch olmoe-1b-7b
   python -m repro_torch.launch.serve --smoke --device cpu
+  python -m repro_torch.launch.serve --arch internvl2-76b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -85,9 +90,15 @@ def _decode_shape(cfg, prompt_len: int, gen: int):
 
 def _make_prompt(cfg, generator: torch.Generator, batch: int,
                  prompt_len: int) -> dict:
-    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                                    generator=generator,
-                                    device=generator.device)}
+    dev = generator.device
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                      generator=generator, device=dev)}
+    if cfg.family == "vlm":
+        nv = min(cfg.vision_tokens, prompt_len)
+        prompt["vision_embeds"] = torch.randn(
+            (batch, nv, cfg.d_model), generator=generator, device=dev
+        ).to(getattr(torch, cfg.dtype))
+    return prompt
 
 
 def seeded_generators(seed: int, device: torch.device, n: int = 3):
@@ -106,7 +117,9 @@ def _run_engine(model, params, prompt, args, cache_len, ring, window,
     request finishes, so the clock covers materialized results."""
     B = args.batch
     toks = prompt["tokens"].cpu().numpy()
-    reqs = [Request(rid=i, tokens=toks[i], max_new=args.gen)
+    extras = [k for k in prompt if k != "tokens"]
+    reqs = [Request(rid=i, tokens=toks[i], max_new=args.gen,
+                    extras={k: prompt[k][i] for k in extras} or None)
             for i in range(B)]
     arrivals = [i * args.stagger for i in range(B)]
     engine = DecodeEngine(model, params,

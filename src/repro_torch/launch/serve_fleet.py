@@ -122,7 +122,8 @@ def microbench_cost(arch: str, device) -> DecodeCostModel:
     if model.decode_step is None:
         raise NotImplementedError(f"--microbench {arch}: family "
                                   f"{mcfg.family!r} has no decode path; the "
-                                  f"port serves families 'dense' and 'ssm'")
+                                  f"port serves families 'dense', 'moe', "
+                                  f"'vlm' and 'ssm'")
     gen = torch.Generator(device=device).manual_seed(0)
     rec = engine_microbench(model, model.init_params(gen), device=device)
     print(f"microbench pricing ({mcfg.name}, {rec['device_watts']:.1f} W "

@@ -1,28 +1,37 @@
 """Federated training launcher (port of the JAX package's
-``launch/train.py`` for the paper's CIFAR CNN).
+``launch/train.py``).
 
-Trains ``--arch cifar-cnn`` (1,702,794 parameters, float32, full width)
-with any of the paper's four schedules through the client-stacked round
-engine (``core.round.parallel_round``): every client's local Adam steps at
-once, then the server's aggregation on the ``fused_agg`` kernel.  Data is
-the deterministic synthetic CIFAR-shaped image set (``data.synthetic``),
-split iid over the clients.  Prints each round's loss, participants, wall
-time and client-steps/s (clients x local steps per second of the round).
+Trains any registered architecture the port trains, with any of the
+paper's four schedules, through the client-stacked round engine
+(``core.round.parallel_round``): every client's local steps at once
+(``torch.func.vmap``), then the server's aggregation on the ``fused_agg``
+kernel (one launch a dtype a round).
 
-On the card, TF32 is turned off for matmuls and convolutions (cuDNN
-defaults to it for float32), so the run computes in float32 as the
-reference does; the CNN's convolutions are float32 matmuls
-(``models.cnn.conv_same``).
+* LMs (``dense``, ``moe``, ``vlm``, ``ssm``; the default is the
+  reference's, granite-3-2b): per-client synthetic Markov token streams
+  (``data.SyntheticTokens``, ``--seq`` tokens a row), the reference's
+  ``token_batch_fn``; a VLM batch carries zero ``vision_embeds``.  The
+  local update runs on the plain attention and scan paths (``loss_fn``'s
+  ``impl="ref"``): the kernels have no backward.  ``--smoke`` takes the
+  reduced smoke config.
+* ``--arch cifar-cnn``: the paper's CNN (1,702,794 parameters, float32),
+  on the deterministic synthetic CIFAR-shaped image set split iid.
 
-  python -m repro_torch.launch.train --arch cifar-cnn --rounds 20   # card
-  python -m repro_torch.launch.train --rounds 3 --device cpu
+Prints each round's loss, participants, wall time and client-steps/s
+(clients x local steps per second of the round) and the fused_agg launch
+count, 0 on the CPU.  On the card, TF32 is turned off for matmuls and
+convolutions (cuDNN defaults to it for float32), so a float32 run
+computes in float32 as the reference does; the CNN's convolutions are
+float32 matmuls (``models.cnn.conv_same``).
 
-Differences from the reference's launcher: the default ``--arch`` is
-``cifar-cnn`` (the reference's default, a granite-3-2b smoke run, needs the
-LM local update, ``ROADMAP.md`` Queue 1 item 10), ``--device`` chooses the
-card or the CPU, and checkpointing and observability (``--ckpt``,
-``--checkpoint-dir``, ``--resume``, ``--obs-dir``) are not ported yet
-(slice 5); ``--smoke`` and ``--seq`` have no meaning for the CNN.
+  python -m repro_torch.launch.train --arch granite-3-2b --smoke   # card
+  python -m repro_torch.launch.train --smoke --device cpu --rounds 2
+  python -m repro_torch.launch.train --arch cifar-cnn --rounds 3 --device cpu
+
+Differences from the reference's launcher: ``--device`` chooses the card
+or the CPU, and checkpointing and observability (``--ckpt``,
+``--checkpoint-dir``, ``--resume``, ``--checkpoint-every``, ``--obs-dir``;
+``ROADMAP.md`` Queue 1 items 22-24) are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,18 +46,14 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import EnergyProfile, FedConfig, parallel_round
-from repro_torch.data import FederatedLoader, SyntheticImages, iid_partition
+from repro_torch.data import (FederatedLoader, SyntheticImages,
+                              SyntheticTokens, iid_partition)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import fused_agg
 from repro_torch.models import Model, get_model
 from repro_torch.optim import Optimizer, OptimizerConfig, make_optimizer
-
-ARCH_NOT_PORTED = ("--arch {!r}: training family {!r} is not ported yet "
-                   "(ROADMAP.md Queue 1 item 10: LM local update); the port "
-                   "trains --arch cifar-cnn")
-
 
 def disable_tf32() -> None:
     """Float32 matmuls and cuDNN convolutions in full float32."""
@@ -79,30 +84,55 @@ class TrainRun:
         return self.model.loss_fn(params, batch)
 
 
+def token_batch_fn(cfg, source: SyntheticTokens, C: int, T: int, bc: int,
+                   device) -> Callable[[int], dict]:
+    """Round r -> {tokens (C, T, bc, S)} from ``source`` (client c's step t
+    reads ``source.batch(c, bc, 131 r + t)``, as the reference does); a VLM
+    batch adds zero ``vision_embeds`` (C, T, bc, vision_tokens, d)."""
+    def fn(rnd):
+        toks = np.stack([
+            np.stack([source.batch(c, bc, rnd * 131 + t) for t in range(T)])
+            for c in range(C)])
+        batch = {"tokens": torch.from_numpy(toks.astype(np.int64)).to(device)}
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = torch.zeros(
+                (C, T, bc, cfg.vision_tokens, cfg.d_model),
+                dtype=getattr(torch, cfg.dtype), device=device)
+        return batch
+    return fn
+
+
 def make_run(arch: str = "cifar-cnn", clients: int = 8, local_steps: int = 5,
              batch: int = 4, taus: tuple[int, ...] = (1, 2, 4, 8),
              policy: str = "sustainable", optimizer: str = "adam",
-             lr: float = 1e-3, seed: int = 0, device: Any = "cuda"
-             ) -> TrainRun:
-    """A run of the CNN on ``device``: params drawn from ``seed`` on that
-    device, data weights p = 1/C, cycles from ``taus`` round-robin.  On the
-    card this turns TF32 off (``disable_tf32``)."""
+             lr: float = 1e-3, seed: int = 0, device: Any = "cuda",
+             smoke: bool = False, seq: int = 64, cfg=None) -> TrainRun:
+    """A run of ``arch`` (its smoke config with ``smoke``; ``cfg``, if
+    given, in place of both) on ``device``: params drawn from ``seed`` on
+    that device, data weights p = 1/C, cycles from ``taus`` round-robin.
+    An LM reads ``seq``-token rows.  On the card this turns TF32 off
+    (``disable_tf32``).  Raises NotImplementedError for a family the port
+    does not train yet."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         disable_tf32()
-    cfg = get_config(arch)
-    if cfg.family != "cnn":
-        raise NotImplementedError(ARCH_NOT_PORTED.format(arch, cfg.family))
+    if cfg is None:
+        cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = get_model(cfg)
-    data = SyntheticImages(num_train=2000, num_test=512, seed=seed)
-    imgs, labels = data.train_set()
-    loader = FederatedLoader({"images": imgs, "labels": labels},
-                             iid_partition(labels, clients, seed), batch,
-                             local_steps, seed)
+    if cfg.family == "cnn":
+        data = SyntheticImages(num_train=2000, num_test=512, seed=seed)
+        imgs, labels = data.train_set()
+        loader = FederatedLoader({"images": imgs, "labels": labels},
+                                 iid_partition(labels, clients, seed), batch,
+                                 local_steps, seed)
 
-    def batch_fn(r):
-        return {k: torch.from_numpy(v).to(dev)
-                for k, v in loader.round_batch(r).items()}
+        def batch_fn(r):
+            return {k: torch.from_numpy(v).to(dev)
+                    for k, v in loader.round_batch(r).items()}
+    else:
+        source = SyntheticTokens(cfg.vocab_size, seq, clients, seed=seed)
+        batch_fn = token_batch_fn(cfg, source, clients, local_steps, batch,
+                                  dev)
 
     return TrainRun(
         model=model,
@@ -129,7 +159,9 @@ def train_round(run: TrainRun, w, r: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="cifar-cnn")
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config (CPU-runnable)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--policy", default="sustainable",
                     choices=["sustainable", "greedy", "wait_all", "always"])
@@ -137,6 +169,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--local-steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="tokens a row (LM archs)")
     ap.add_argument("--taus", default="1,2,4,8",
                     help="energy renewal cycles, assigned round-robin")
     ap.add_argument("--optimizer", default="adam",
@@ -151,7 +185,7 @@ def main(argv=None) -> int:
     try:
         run = make_run(args.arch, args.clients, args.local_steps, args.batch,
                        taus, args.policy, args.optimizer, args.lr, args.seed,
-                       device=args.device)
+                       device=args.device, smoke=args.smoke, seq=args.seq)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

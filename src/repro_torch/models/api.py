@@ -9,8 +9,9 @@ Every family exposes, with ``cfg`` bound:
   prefill(params, batch, cache_len, impl, window) -> (logits, cache)
   decode_step(params, token, cache, pos, ring, window) -> (logits, cache)
 
-Registered: ``dense`` and ``ssm`` (served; their ``loss_fn`` raises until
-the LM local update is ported) and ``cnn`` (trained).
+Registered: ``dense``, ``moe``, ``vlm`` and ``ssm`` (served and trained)
+and ``cnn`` (trained).  ``hybrid`` and ``encdec`` raise until they are
+ported.
 """
 from __future__ import annotations
 
@@ -21,10 +22,12 @@ from typing import Callable
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn, ssm, transformer
 
-LM_LOSS_NOT_PORTED = (
-    "loss_fn of family {!r} is not ported yet (ROADMAP.md Queue 1 item 10: "
-    "LM local update, which needs a flash backward); the training slice "
-    "trains family 'cnn'")
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer,
+                   "vlm": transformer, "ssm": ssm}
+NOT_PORTED = {"hybrid": "20b", "encdec": "20c"}
+NOT_PORTED_MSG = ("family {!r} is not ported yet (ROADMAP.md Queue 1 item "
+                  "{}); the port serves and trains families 'dense', 'moe', "
+                  "'vlm' and 'ssm' and trains family 'cnn'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,23 +46,19 @@ class Model:
         return params.numel()
 
 
-def _lm_loss_not_ported(cfg: ModelConfig, *args, **kwargs):
-    raise NotImplementedError(LM_LOSS_NOT_PORTED.format(cfg.family))
-
-
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family == "cnn":
         return Model(cfg=cfg, init_params=partial(cnn.init_params, cfg),
                      forward=partial(cnn.forward, cfg),
                      loss_fn=partial(cnn.loss_fn, cfg))
-    mods = {"dense": transformer, "ssm": ssm}
-    if cfg.family not in mods:
-        raise NotImplementedError(transformer.NOT_PORTED.format(cfg.family))
-    mod = mods[cfg.family]
+    if cfg.family in NOT_PORTED:
+        raise NotImplementedError(NOT_PORTED_MSG.format(
+            cfg.family, NOT_PORTED[cfg.family]))
+    mod = _FAMILY_MODULES[cfg.family]
     return Model(cfg=cfg,
                  init_params=partial(mod.init_params, cfg),
                  forward=partial(mod.forward, cfg),
-                 loss_fn=partial(_lm_loss_not_ported, cfg),
+                 loss_fn=partial(mod.loss_fn, cfg),
                  init_cache=partial(mod.init_cache, cfg),
                  prefill=partial(mod.prefill, cfg),
                  decode_step=partial(mod.decode_step, cfg))

@@ -152,3 +152,24 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------- losses ----
+def softmax_xent(logits, labels, mask=None, valid_vocab: int | None = None):
+    """Mean token cross-entropy; logits fp32 (B, S, Vp), labels int (B, S).
+
+    ``valid_vocab``: the true vocab size when the logits carry the 128
+    padding columns, which are set to -1e30 before the logsumexp.  With a
+    token ``mask`` the mean runs over the unmasked tokens, with the
+    reference's ``max(sum(mask), 1)`` denominator.
+    """
+    if valid_vocab is not None and logits.shape[-1] != valid_vocab:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(col < valid_vocab, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -174,6 +174,15 @@ def forward(cfg: ModelConfig, params, batch, impl: str | None = None,
     return L.unembed(cfg, params["embed"], x, padded=padded_logits), aux
 
 
+def loss_fn(cfg: ModelConfig, params, batch, rng=None, impl: str = "ref"):
+    """Next-token cross-entropy over the padded vocab.  ``impl="ref"`` (the
+    reference's default) keeps the ssd_scan kernel, which has no backward,
+    off the training path."""
+    logits, _ = forward(cfg, params, batch, impl=impl, padded_logits=True)
+    return L.softmax_xent(logits[:, :-1], batch["tokens"][:, 1:],
+                          valid_vocab=cfg.vocab_size)
+
+
 # ------------------------------------------------------------- serving -----
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int = 0,
                device="cuda"):

@@ -62,6 +62,8 @@ class Request:
     rid: Any                        # caller's request id (dict key of result)
     tokens: Any                     # (S,) int prompt tokens
     max_new: int                    # tokens to generate (incl. the prefill's)
+    extras: dict | None = None      # modality extras, unbatched (e.g.
+    #                                 vision_embeds (n_vis, d)); prefill only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,10 +146,11 @@ class DecodeEngine:
         return int(self._active.sum())
 
     # ------------------------------------------------------------ stages ---
-    def _prefill(self, tokens):
-        """(1, S) prompt -> ((1, V) logits, the request's cache)."""
+    def _prefill(self, batch):
+        """A batch-1 prompt {tokens (1, S), extras (1, ...)} -> ((1, V)
+        logits, the request's cache)."""
         logits, pcache = self.model.prefill(
-            self.params, {"tokens": tokens}, cache_len=self.config.cache_len,
+            self.params, batch, cache_len=self.config.cache_len,
             window=self.config.window)
         return (logits[:, -1] if logits.dim() == 3 else logits), pcache
 
@@ -210,8 +213,11 @@ class DecodeEngine:
                 f"prompt ({S}) + max_new ({request.max_new}) exceeds "
                 f"cache_len ({cfg.cache_len}) for a non-ring cache")
 
-        tok = torch.tensor(tokens, dtype=torch.long, device=self.device)
-        logits, pcache = self._prefill(tok[None])
+        batch = {"tokens": torch.tensor(tokens, dtype=torch.long,
+                                        device=self.device)[None]}
+        for k, v in (request.extras or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)[None]
+        logits, pcache = self._prefill(batch)
         gen = self._new_generator()
         first = pick_tokens(logits, cfg.greedy, cfg.temperature, [gen])[0]
 

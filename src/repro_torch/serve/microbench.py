@@ -60,10 +60,11 @@ def engine_microbench(model, params, *, slots: int = 4, prompt_len: int = 32,
         generator=torch.Generator(device=dev).manual_seed(seed + 1))
 
     # --- prefill: (1, S) prompt -> logits + cache ---------------------------
-    prefill_s = _timed(lambda: engine._prefill(prompts[:1]), reps, dev)
+    batch1 = {"tokens": prompts[:1]}
+    prefill_s = _timed(lambda: engine._prefill(batch1), reps, dev)
 
     # --- insert: one prefilled request into a running cache ----------------
-    logits, pcache = engine._prefill(prompts[:1])
+    logits, pcache = engine._prefill(batch1)
     first = logits[0].argmax()
     insert_s = _timed(lambda: engine._insert(pcache, first, 0), reps, dev)
 

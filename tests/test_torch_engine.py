@@ -303,3 +303,95 @@ def test_ssm_microbench_prices_the_chunked_prefill():
     for key in ("prefill_ms", "insert_ms", "decode_step_ms",
                 "joules_per_decode_token_measured"):
         assert rec[key] > 0, key
+
+
+_MOE = {}
+
+
+def _moe_setup(mode):
+    """olmoe-1b-7b smoke in ``mode``: the params do not depend on it."""
+    import dataclasses
+    if "jp" not in _MOE:
+        _MOE["jp"] = jax_model(jax_smoke("olmoe-1b-7b")).init_params(
+            jax.random.PRNGKey(0))
+        _MOE["tp"] = params_from_numpy(_MOE["jp"], device="cpu")
+    jm = jax_model(dataclasses.replace(jax_smoke("olmoe-1b-7b"),
+                                       moe_mode=mode))
+    tm = get_model(dataclasses.replace(get_smoke_config("olmoe-1b-7b"),
+                                       moe_mode=mode))
+    return jm, _MOE["jp"], tm, _MOE["tp"]
+
+
+@pytest.mark.parametrize("mode", ["dense", "dispatch", "sorted",
+                                  "sorted_local"])
+def test_moe_engine_identical_to_jax_engine(mode):
+    """olmoe-1b-7b in each MoE mode, 3 slots, staggered mixed prompts: the
+    greedy tokens equal the JAX engine's, which decodes each slot alone.
+    The port decodes the slots in one batch; in ``sorted`` mode it routes
+    each slot's row on its own, as a batch-1 decode does."""
+    jm, jp, tm, tp = _moe_setup(mode)
+    specs = [(12, 6), (16, 4), (12, 7), (16, 5)]     # two prefill shapes
+    arrivals = [0, 0, 1, 4]
+    kw = dict(slots=3, cache_len=16 + 7 + 1, max_new=7)
+    prompts = [_prompt(S, 50 + i, 512) for i, (S, _) in enumerate(specs)]
+    jdone = JaxEngine(jm, jp, JaxConfig(**kw)).run(
+        [JaxRequest(rid=i, tokens=prompts[i], max_new=g)
+         for i, (_, g) in enumerate(specs)], arrivals=arrivals)
+    tdone = _engine(tm, tp, **kw).run(
+        [Request(rid=i, tokens=prompts[i], max_new=g)
+         for i, (_, g) in enumerate(specs)], arrivals=arrivals)
+    assert set(tdone) == set(jdone) == set(range(len(specs)))
+    for i, (S, g) in enumerate(specs):
+        np.testing.assert_array_equal(tdone[i].tokens, jdone[i].tokens,
+                                      err_msg=f"{mode} request {i}")
+        assert tdone[i].slot == jdone[i].slot
+
+
+def test_sorted_moe_decode_routes_each_slot_alone():
+    """``moe_mode="sorted"``: one batched decode step of 3 slots equals each
+    slot decoded alone (batch 1), even where a capacity shared by the 3
+    slots' tokens would drop some."""
+    _, _, tm, tp = _moe_setup("sorted")
+    cache_len = 12
+    rows = []
+    for i, S in enumerate((5, 9, 7)):
+        _, c = tm.prefill(tp, {"tokens": torch.tensor(
+            _prompt(S, 60 + i, 512), dtype=torch.long)[None]},
+            cache_len=cache_len)
+        rows.append((S, c))
+    cache = {n: torch.cat([c[n] for _, c in rows], dim=1) for n in ("k", "v")}
+    tok = torch.tensor([3, 3, 3])           # one token: the same experts
+    batched, _ = tm.decode_step(tp, tok, cache, torch.tensor([5, 9, 7]))
+    for b, (S, c) in enumerate(rows):
+        alone, _ = tm.decode_step(tp, tok[b:b + 1], c, S)
+        torch.testing.assert_close(batched[b], alone[0], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_vlm_engine_with_extras_identical_to_jax_engine():
+    """internvl2-76b smoke: each request carries its own ``vision_embeds``
+    (n_vis, d) through ``Request.extras``; the greedy tokens equal the JAX
+    engine's, and differ from a run without them."""
+    jm, jp, tm, tp = _setup("internvl2-76b")
+    n_vis, d = tm.cfg.vision_tokens, tm.cfg.d_model
+    specs = [(12, 5), (16, 6), (12, 4)]
+    kw = dict(slots=2, cache_len=16 + 6 + 1, max_new=6)
+    prompts = [_prompt(S, 70 + i, 512) for i, (S, _) in enumerate(specs)]
+    vis = [np.random.default_rng(80 + i).standard_normal(
+        (n_vis, d)).astype(np.float32) for i in range(len(specs))]
+    jdone = JaxEngine(jm, jp, JaxConfig(**kw)).run(
+        [JaxRequest(rid=i, tokens=prompts[i], max_new=g,
+                    extras={"vision_embeds": vis[i]})
+         for i, (_, g) in enumerate(specs)], arrivals=[0, 1, 2])
+    tdone = _engine(tm, tp, **kw).run(
+        [Request(rid=i, tokens=prompts[i], max_new=g,
+                 extras={"vision_embeds": vis[i]})
+         for i, (_, g) in enumerate(specs)], arrivals=[0, 1, 2])
+    plain = _engine(tm, tp, **kw).run(
+        [Request(rid=i, tokens=prompts[i], max_new=g)
+         for i, (_, g) in enumerate(specs)], arrivals=[0, 1, 2])
+    for i in range(len(specs)):
+        np.testing.assert_array_equal(tdone[i].tokens, jdone[i].tokens,
+                                      err_msg=f"request {i}")
+    assert any((tdone[i].tokens != plain[i].tokens).any()
+               for i in range(len(specs)))

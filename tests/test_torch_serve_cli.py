@@ -49,7 +49,21 @@ def test_cli_rejects_unported_family():
     out = _run("--device", "cpu", "--arch", "recurrentgemma-2b", "--smoke")
     assert out.returncode != 0
     assert "not ported yet" in out.stderr
-    assert "Queue 1 item 20" in out.stderr
+    assert "Queue 1 item 20b" in out.stderr
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b",
+                                  "internvl2-76b"])
+def test_cli_serves_moe_and_vlm_on_cpu(arch):
+    """The MoE family (mixtral with its ring cache: prompts past the
+    smoke config's 64-token window) and the VLM backbone, whose prompts
+    carry vision embeddings through ``Request.extras``."""
+    plen = "70" if arch == "mixtral-8x7b" else "12"
+    out = _run("--device", "cpu", "--arch", arch, "--smoke", "--batch", "3",
+               "--gen", "4", "--prompt-len", plen, "--skip-microbench")
+    assert out.returncode == 0, out.stderr
+    assert f"arch={arch} batch=3 prompt={plen} generated=4" in out.stdout
+    assert "kernel launches (both passes): flash_attention 0" in out.stdout
 
 
 def test_cli_serves_mamba2_by_default_on_cpu():

@@ -100,7 +100,7 @@ def test_serve_fleet_cli_refuses_trace_and_unported_archs():
     out = _run("--device", "cpu", "--clients", "10", "--epochs", "1",
                "--microbench", "recurrentgemma-2b")
     assert out.returncode == 1
-    assert "Queue 1 item 20" in out.stderr and "'hybrid'" in out.stderr
+    assert "Queue 1 item 20b" in out.stderr and "'hybrid'" in out.stderr
     out = _run("--device", "cpu", "--clients", "10", "--epochs", "1",
                "--microbench", "cifar-cnn")
     assert out.returncode == 1

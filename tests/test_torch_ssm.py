@@ -91,8 +91,7 @@ def test_full_config_registers_serving():
     model = get_model(cfg)
     assert model.prefill is not None and model.decode_step is not None
     assert model.init_cache is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        model.loss_fn({}, {})
+    assert model.loss_fn.func is ssm.loss_fn          # trained too
 
 
 def test_softplus_is_jax_softplus():

@@ -1,6 +1,6 @@
-"""``python -m repro_torch.launch.train`` and ``repro_torch.launch.fig1``:
-they run on the CPU when asked, refuse to run without a card otherwise,
-and refuse the architectures whose training is not ported."""
+"""``python -m repro_torch.launch.train``, ``repro_torch.launch.fig1``
+and ``repro_torch.launch.quickstart``: they run on the CPU when asked and
+refuse to run without a card otherwise."""
 import json
 import os
 import subprocess
@@ -25,8 +25,8 @@ def _run(module, *args):
 @pytest.mark.parametrize("policy", ["sustainable", "wait_all"])
 def test_train_cli_runs_on_cpu(policy, tmp_path):
     log = tmp_path / "history.json"
-    out = _run("repro_torch.launch.train", "--device", "cpu", "--policy",
-               policy, "--clients", "4", "--rounds", "3", "--local-steps",
+    out = _run("repro_torch.launch.train", "--arch", "cifar-cnn", "--device",
+               "cpu", "--policy", policy, "--clients", "4", "--rounds", "3", "--local-steps",
                "2", "--batch", "2", "--log", str(log))
     assert out.returncode == 0, out.stderr
     assert "arch=cifar-cnn family=cnn params=1,702,794 clients=4 T=2" in (
@@ -50,13 +50,36 @@ def test_train_cli_without_card_exits_nonzero_with_clear_message():
     assert "torch.cuda.is_available() is False" in out.stderr
     assert "--device cpu" in out.stderr
     assert "client-steps/s" not in out.stdout
-
-
-def test_train_cli_rejects_lm_arch():
-    out = _run("repro_torch.launch.train", "--device", "cpu", "--arch",
-               "granite-3-2b")
+    out = _run("repro_torch.launch.quickstart", "--rounds", "1")
     assert out.returncode == 1
-    assert "Queue 1 item 10" in out.stderr
+    assert "torch.cuda.is_available() is False" in out.stderr
+    assert "loss:" not in out.stdout
+
+
+def test_train_cli_trains_lm_arch_on_cpu(tmp_path):
+    """The reference's default run, granite-3-2b's smoke config, for two
+    rounds: the LM local update on the plain path, and the loss falls."""
+    log = tmp_path / "history.json"
+    out = _run("repro_torch.launch.train", "--arch", "granite-3-2b",
+               "--smoke", "--device", "cpu", "--rounds", "2", "--log",
+               str(log))
+    assert out.returncode == 0, out.stderr
+    assert "arch=granite-3-2b family=dense params=1,476,608 clients=8 T=5" \
+        in out.stdout
+    assert "fused_agg kernel launches 0" in out.stdout
+    history = json.loads(log.read_text())
+    assert [h["participants"] for h in history] == [3.0, 4.0]
+    assert history[1]["loss"] < history[0]["loss"]
+
+
+def test_quickstart_cli_runs_on_cpu():
+    """The twin of ``examples/quickstart.py``: Algorithm 1 on granite-3-2b's
+    smoke config through ``core.simulate``; exits 0 only if the loss fell."""
+    out = _run("repro_torch.launch.quickstart", "--device", "cpu",
+               "--rounds", "2")
+    assert out.returncode == 0, out.stderr
+    assert "round    1 |S|= 4" in out.stdout
+    assert "over 2 rounds (1,476,608 params" in out.stdout
 
 
 def test_fig1_cli_runs_on_cpu(tmp_path):

@@ -168,8 +168,42 @@ def test_per_slot_positions_equal_separate_scalar_decodes():
         torch.testing.assert_close(batched[b], alone[0], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid"])
-def test_unported_families_raise(family):
+@pytest.mark.parametrize("family,item", [("hybrid", "20b"),
+                                         ("encdec", "20c")])
+def test_unported_families_raise(family, item):
     cfg = dataclasses.replace(get_smoke_config("granite-3-2b"), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         get_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b",
+                                  "internvl2-76b"])
+def test_moe_and_vlm_families_match_reference(arch):
+    """The ``moe`` and ``vlm`` branches: forward logits and the summed aux,
+    prefill logits and caches (a VLM batch with its vision embeddings
+    spliced in), and one decode step, against the reference."""
+    jm = jax_model(jax_smoke(arch))
+    tm = get_model(get_smoke_config(arch))
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jp, device="cpu")
+    assert ("moe" in tp["layers"]) == (tm.cfg.family == "moe")
+    toks = _tokens(1, 14, tm.cfg.vocab_size)
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.tensor(toks)}
+    if tm.cfg.family == "vlm":
+        vis = np.random.default_rng(3).standard_normal(
+            (1, tm.cfg.vision_tokens, tm.cfg.d_model)).astype(np.float32)
+        jb["vision_embeds"], tb["vision_embeds"] = (jnp.asarray(vis),
+                                                    torch.tensor(vis))
+    want, jaux = jm.forward(jp, jb)
+    got, aux = tm.forward(tp, tb)
+    _close(got, want)
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
+    assert (float(aux) > 0) == (tm.cfg.family == "moe")
+    jl, jc = jm.prefill(jp, jb, cache_len=20)
+    tl, tc = tm.prefill(tp, tb, cache_len=20)
+    _close(tl, jl)
+    for n in ("k", "v"):
+        _close(tc[n], jc[n])
+    jd, _ = jm.decode_step(jp, jnp.asarray([5]), jc, 14)
+    td, _ = tm.decode_step(tp, torch.tensor([5]), tc, 14)
+    _close(td, jd)
