@@ -15,14 +15,17 @@ without either.  Phases, each of which raises on a failed check:
    fp32, causal, causal with window 256 and non-causal: at the
    granite-3-2b prefill shapes (B=1, H=32, K=8, D=64; S in {1, 127, 128,
    777, 2048}), D=128 at S=1024 (granite-8b), recurrentgemma-2b's
-   attention (H=10, K=1, D=256; S in {1, 127, 2048}, also with its window
-   2048), B=2 at S=777 for each head dim, olmoe-1b-7b's (H = K = 16) and
-   internvl2-76b's (H=64, K=8) at D=128, S=777, and q, k, v as views of
-   one fused (B, S, H+2K, D) projection.  Times the bf16 kernel (device
+   attention (H=10, K=1, D=256; S in {1, 127, 2048, 4096}, also with its
+   window 2048), B=2 at S=777 for each head dim, olmoe-1b-7b's (H = K =
+   16) and internvl2-76b's (H=64, K=8) at D=128, S=777, whisper-tiny's
+   (H = K = 6, D=64, S=1500, non-causal and causal), and q, k, v as views
+   of one fused (B, S, H+2K, D) projection.  Times the bf16 kernel (device
    time from ``torch.profiler``, and CUDA events), its plain version and
    one library call (``scaled_dot_product_attention``, timed here only,
    never called by the port) at S=2048, causal, at the five models'
-   shapes, beside the card's bound.
+   shapes, at whisper-tiny's encoder (S=1500, non-causal) and at
+   recurrentgemma-2b's S=4096 with window 2048 (sdpa given the window as
+   a boolean mask), beside the card's bound.
 3. fused_agg kernel: ``fused_agg_cuda`` against ``fused_agg_plain`` within
    ``fused_agg.kernel_tolerance``, on every leaf of the CIFAR CNN at C=40
    with s = mask p E from a sustainable round (p = 1/40, E in {1, 5, 10,
@@ -201,6 +204,35 @@ without either.  Phases, each of which raises on a failed check:
    leaf.  Then round 0 of granite-3-2b's smoke config and of olmoe-1b-7b's
    in each MoE mode, fp32, on the card against the CPU from the card's
    params (phase 5's bounds; MoE losses within 1e-5).
+17. Serve hybrid: recurrentgemma-2b at full width and depth (26 layers =
+   8 x (R, R, A) + 2 R, LRU width 2560, H=10, K=1, D=256, window 2048,
+   bf16, random weights from ``--seed``) through ``DecodeEngine.run`` with
+   a ring of 2048 a slot: 4 slots, 6 greedy requests of 32 tokens, prompts
+   {4096, 3001, 2048, 777, 129, 2049} (three past the window: the ring
+   rolled by S mod W, decode past its wrap); 6 x 8 = 48 flash launches
+   (counts set to 0 just before and read just after).  Prefill logits
+   kernel vs plain in bf16 and fp32 (``LOGIT_ATOL``), the prefilled RG-LRU
+   states of the S=4096 request (fp32 within ``SSM_STATE_RTOL_FP32`` of a
+   layer's largest |h|), the bf16 kernel on the served q, k, v of every
+   attention layer, the engine microbenchmark, a profile of one S=4096
+   prefill and one decode step, flash's share and the linear scan's (the
+   scan alone at the prefill's shape, times its 18 layers).
+18. Serve encdec: whisper-tiny at full width and depth (4 encoder + 4
+   decoder layers, 1500 frames, d_model 384, bf16) through
+   ``DecodeEngine.run``: 6 greedy requests of 32 tokens, each with its own
+   (1500, 384) frames through ``Request.extras``, prompts {448, 300, 129,
+   64, 17, 1}; 6 x (4 non-causal encoder + 4 causal decoder) = 48 flash
+   launches.  The same checks as phase 17 (no states), and another
+   request's frames must move the fp32 logits (``FRAMES_MOVE_MIN``).
+19. Train the new families: whisper-tiny at full width and depth through
+   ``make_run`` (phase 16's federation: 8 clients, taus (1, 2, 4, 8), T =
+   5, 2 rows of 128 tokens and 1500 frames a step, 3 sustainable rounds
+   after a warm-up): one fused_agg launch a dtype a round, every leaf
+   within ``kernel_tolerance`` of ``fused_agg_plain``, the loss falls.
+   Then round 0 of the smoke configs of recurrentgemma-2b and whisper-tiny,
+   fp32, on the card against the CPU from the card's params (phase 5's
+   bounds).  recurrentgemma-2b does not train at full width on one card
+   (its two 256000 x 2560 embeddings alone are 1.31 B params).
 
 Every profile must record the kernels its window launched (the port's
 launch counts say how many), or it is taken again, and after ten the
@@ -496,21 +528,29 @@ def check_kernel(torch, fa, q, k, v, causal, window, label,
 
 
 # the flash checks: (B, H, K, D, sequence lengths, masks); the timed
-# shapes: (name, H, K, D, window), B=1, S=2048, bf16, causal
+# shapes: (name, S, causal, H, K, D, window), B=1, bf16
 FLASH_MASKS = ((True, 0), (True, 256), (False, 0))
 FLASH_CASES = (
     [(1, 32, 8, 64, (1, 127, 128, 777, 2048), FLASH_MASKS),   # granite-3-2b
      (1, 32, 8, 128, (1024,), FLASH_MASKS),                    # granite-8b
-     # recurrentgemma-2b: MQA, head dim 256, local window 2048
-     (1, 10, 1, 256, (1, 127, 2048), FLASH_MASKS + ((True, 2048),))]
+     # recurrentgemma-2b: MQA, head dim 256, local window 2048 (at S =
+     # 4096 the window masks keys that causal does not)
+     (1, 10, 1, 256, (1, 127, 2048, 4096), FLASH_MASKS + ((True, 2048),))]
     + [(2, H, K, D, (777,), FLASH_MASKS)
        for H, K, D in ((32, 8, 64), (32, 8, 128), (10, 1, 256))]
     # olmoe-1b-7b (MHA) and internvl2-76b (H = 64, K = 8) at head dim 128
     + [(1, 16, 16, 128, (777,), FLASH_MASKS),
-       (1, 64, 8, 128, (777,), FLASH_MASKS)])
-FLASH_TIMED = (("granite-3-2b", 32, 8, 64, 0), ("granite-8b", 32, 8, 128, 0),
-               ("recurrentgemma-2b", 10, 1, 256, 2048),
-               ("olmoe-1b-7b", 16, 16, 128, 0), ("internvl2-76b", 64, 8, 128, 0))
+       (1, 64, 8, 128, (777,), FLASH_MASKS),
+       # whisper-tiny: the encoder's 1500 frames (not a multiple of the
+       # 64-row tile), non-causal, and the decoder's causal self-attention
+       (1, 6, 6, 64, (1500,), ((False, 0), (True, 0)))])
+FLASH_TIMED = (("granite-3-2b", 2048, True, 32, 8, 64, 0),
+               ("granite-8b", 2048, True, 32, 8, 128, 0),
+               ("recurrentgemma-2b", 2048, True, 10, 1, 256, 2048),
+               ("olmoe-1b-7b", 2048, True, 16, 16, 128, 0),
+               ("internvl2-76b", 2048, True, 64, 8, 128, 0),
+               ("whisper-tiny encoder", 1500, False, 6, 6, 64, 0),
+               ("recurrentgemma-2b", 4096, True, 10, 1, 256, 2048))
 
 
 def flash_inputs(torch, gen, B, S, H, K, D, dtype, fused=False):
@@ -544,35 +584,46 @@ def kernel_phase(torch, fa, seed: int) -> dict:
                 worst[dname] = max(worst[dname], err)
                 worst_ratio[dname] = max(worst_ratio[dname], ratio)
 
-    # timing at S=2048, bf16, causal: the kernel and one library call
-    # (scaled_dot_product_attention, timed here only), each by device time
-    # from torch.profiler and by CUDA events, its plain version (events)
-    # and the bound
-    S, reps, shapes = 2048, 10, []
-    for name, H, K, D, window in FLASH_TIMED:
+    # timing in bf16 at the models' prefill shapes: the kernel and one
+    # library call (scaled_dot_product_attention, timed here only), each by
+    # device time from torch.profiler and by CUDA events, its plain version
+    # (events) and the bound
+    reps, shapes = 10, []
+    for name, S, causal, H, K, D, window in FLASH_TIMED:
         q, k, v = flash_inputs(torch, gen, 1, S, H, K, D, torch.bfloat16)
-        run = lambda: fa.flash_attention_cuda(q, k, v, window=window)
+        run = lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window)
         event_ms = cuda_ms(run, 20, torch)
         prof = device_profile(torch, lambda: [run() for _ in range(reps)],
                               expect={"flash_fwd_bf16": reps})
         kernel_ms = sum(ms for n, ms in prof["all"] if "flash_fwd" in n) / reps
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
-            q, k, v, window=window), 3, torch)
+            q, k, v, causal=causal, window=window), 3, torch)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, heads, S, D)
-        sdpa = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+        if window and window < S:
+            # a window shorter than S masks keys that causal does not:
+            # sdpa takes the mask explicitly (a window of S or more masks
+            # nothing more than causal)
+            pos = torch.arange(S, device="cuda")
+            gap = pos[:, None] - pos[None, :]
+            mask = (gap >= 0) & (gap < window)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         library_event_ms = cuda_ms(sdpa, 20, torch)
         lprof = device_profile(torch, lambda: [sdpa() for _ in range(reps)],
                                calls=reps)
         library_ms = lprof["device_ms"] / reps
-        # window 2048 at S = 2048 masks nothing that causal does not
         lib_err = (sdpa().transpose(1, 2).float()
                    - run().float()).abs().max().item()
-        flops, nbytes = attention_work(1, S, H, K, D, True, window, 2)
+        flops, nbytes = attention_work(1, S, H, K, D, causal, window, 2)
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
-        print(f"flash_attention {name} S={S} H={H} K={K} D={D} bf16 causal "
+        print(f"flash_attention {name} S={S} H={H} K={K} D={D} bf16 "
+              f"{'causal' if causal else 'non-causal'} "
               f"window={window}: kernel {kernel_ms:.4f} ms of device time, "
               f"{event_ms:.4f} ms between CUDA events; plain {plain_ms:.4f} "
               f"ms; library sdpa {library_ms:.4f} ms of device time, "
@@ -581,7 +632,8 @@ def kernel_phase(torch, fa, seed: int) -> dict:
               f"{nbytes:.4g} B): kernel at {bound / kernel_ms:.1%} of it",
               flush=True)
         shapes.append({"shape": name, "B": 1, "S": S, "H": H, "K": K, "D": D,
-                       "dtype": "bfloat16", "causal": True, "window": window,
+                       "dtype": "bfloat16", "causal": causal,
+                       "window": window,
                        "ms": kernel_ms, "event_ms": event_ms,
                        "plain_ms": plain_ms, "library_ms": library_ms,
                        "library_event_ms": library_event_ms,
@@ -614,6 +666,35 @@ def kernel_phase(torch, fa, seed: int) -> dict:
     }
 
 
+def flash_per_prefill(cfg) -> int:
+    """Flash launches in one prefill: one per self-attention layer (the
+    hybrid's every third layer; the encoder's and the decoder's)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // 3
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + cfg.num_layers
+    return cfg.num_layers
+
+
+def flash_calls(model, params, batch, cache_len) -> list:
+    """The (q, k, v, kwargs) that one prefill at ``batch`` hands the
+    kernel, in order."""
+    from repro_torch.kernels import ops
+
+    real, calls = ops.flash_attention, []
+
+    def record(q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        return real(q, k, v, **kw)
+
+    ops.flash_attention = record
+    try:
+        model.prefill(params, batch, cache_len=cache_len, impl="flash")
+    finally:
+        ops.flash_attention = real
+    return calls
+
+
 def served_kernel_check(torch, fa, model, params, prompts, cache_len,
                         device="cuda", extras=None, label="serve"):
     """The bf16 kernel on the served path's own inputs: record the q, k, v
@@ -621,29 +702,17 @@ def served_kernel_check(torch, fa, model, params, prompts, cache_len,
     its ``extras[i]`` in the batch, if given), and hold the kernel against
     its plain version on each within ``kernel_tolerance``.  Returns the
     largest error / bound per prompt."""
-    from repro_torch.kernels import ops
-
-    real = ops.flash_attention
     worst = []
     for i, p in enumerate(prompts):
-        calls = []
-
-        def record(q, k, v, **kw):
-            calls.append((q, k, v, kw))
-            return real(q, k, v, **kw)
-
         batch = {"tokens": torch.tensor(p, dtype=torch.long,
                                         device=device)[None],
                  **{k: v[None] for k, v in (extras[i] if extras else
                                             {}).items()}}
-        ops.flash_attention = record
-        try:
-            model.prefill(params, batch, cache_len=cache_len, impl="flash")
-        finally:
-            ops.flash_attention = real
-        if len(calls) != model.cfg.num_layers:
+        calls = flash_calls(model, params, batch, cache_len)
+        if len(calls) != flash_per_prefill(model.cfg):
             raise AssertionError(f"request {i}: recorded {len(calls)} "
-                                 f"kernel calls, expected one per layer")
+                                 f"kernel calls, expected one per "
+                                 f"attention layer")
         res = [check_kernel(torch, fa, q, k, v, kw["causal"], kw["window"],
                             f"served request {i} S={len(p)} layer {layer} "
                             f"{q.dtype}", show=False)
@@ -846,9 +915,10 @@ def served_ssd_check(torch, ssd, model, params, prompts):
             model.prefill(params, batch)
         finally:
             ops.ssd_scan = real
-        if len(calls) != model.cfg.num_layers:
+        if len(calls) != flash_per_prefill(model.cfg):
             raise AssertionError(f"request {i}: recorded {len(calls)} "
-                                 f"kernel calls, expected one per layer")
+                                 f"kernel calls, expected one per "
+                                 f"attention layer")
         res = [ssd_check(torch, ssd, args, chunk,
                          f"served request {i} S={len(p)} layer {layer} "
                          f"{args[0].dtype}", show=False)
@@ -3241,7 +3311,7 @@ def routes_differ(a, b) -> tuple:
 
 
 def serve_workload(torch, model, params, prompts, gen, cache_len,
-                   extras=None) -> tuple:
+                   extras=None, ring=False) -> tuple:
     """Phase 4's drive: ``DecodeEngine.run`` over ``prompts`` (greedy,
     ``SLOTS`` slots, arrivals ``STAGGER`` steps apart), every kernel's
     count set to 0 just before and read just after.  Returns (finished
@@ -3249,7 +3319,8 @@ def serve_workload(torch, model, params, prompts, gen, cache_len,
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
 
-    config = EngineConfig(slots=SLOTS, cache_len=cache_len, max_new=gen)
+    config = EngineConfig(slots=SLOTS, cache_len=cache_len, max_new=gen,
+                          ring=ring)
     engine = DecodeEngine(model, params, config)
     reqs = [Request(rid=i, tokens=p, max_new=gen,
                     extras=extras[i] if extras else None)
@@ -3429,15 +3500,31 @@ def sorted_vs_solo(torch, label, model, params, prompts, done, cache_len,
     return res
 
 
-def flash_share(torch, model, params, batch, cache_len) -> dict:
+def flash_share(torch, fa, model, params, batch, cache_len) -> dict:
     """A profile of one prefill at ``batch`` and flash's share of its
-    device time."""
+    device time.  Where the profiler misses flash kernels in every try (it
+    has, late in a run), flash's time comes from CUDA events around its
+    calls on the prefill's own q, k, v, queued (as phase 16 times the LM
+    tree), in place of the flash kernels the profile did record."""
     prefill = lambda: model.prefill(params, batch, cache_len=cache_len)
-    prof = device_profile(torch, prefill, launched(torch, prefill))
-    flash_ms = sum(ms for n, ms in prof["all"] if "flash_fwd" in n)
+    timed_by = "torch.profiler"
+    try:
+        prof = device_profile(torch, prefill, launched(torch, prefill))
+        flash_ms = sum(ms for n, ms in prof["all"] if "flash_fwd" in n)
+    except ProfileIncomplete as e:
+        print(f"flash share: {e}", flush=True)
+        prof = device_profile(torch, prefill)
+        seen = sum(ms for n, ms in prof["all"] if "flash_fwd" in n)
+        flash_ms = sum(queued_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, **kw), 10) for q, k, v, kw in flash_calls(
+                model, params, batch, cache_len))
+        prof["device_ms"] += flash_ms - seen
+        prof["device_share"] = prof["device_ms"] / prof["wall_ms"]
+        timed_by = ("flash by CUDA events around queued calls (the profiler "
+                    "missed flash kernels in every try)")
     return {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
             "device_share": prof["device_share"], "kernels": prof["kernels"],
-            "flash_device_ms": flash_ms,
+            "flash_device_ms": flash_ms, "timed_by": timed_by,
             "top": prof["top"][:5]}
 
 
@@ -3496,8 +3583,8 @@ def moe_serve_phase(torch, fa, seed: int, card: str) -> dict:
           f"{rec['prefill_ms']:.3f} ms = {rec['prefill_tok_s']:.0f} tok/s; "
           f"decode step ({SLOTS} slots) {rec['decode_step_ms']:.3f} ms = "
           f"{rec['decode_tok_s']:.1f} tok/s", flush=True)
-    share = flash_share(torch, model, params, prefill_batch(torch, prompts[0]),
-                        cache_len)
+    share = flash_share(torch, fa, model, params,
+                        prefill_batch(torch, prompts[0]), cache_len)
     print(f"serve moe: flash_attention in one S=2048 prefill: "
           f"{share['flash_device_ms']:.3f} ms of {share['device_ms']:.3f} ms "
           f"of device time ({share['flash_device_ms'] / share['device_ms']:.1%}"
@@ -3606,7 +3693,7 @@ def vlm_serve_phase(torch, fa, seed: int, card: str) -> dict:
           f"{rec['prefill_ms']:.3f} ms = {rec['prefill_tok_s']:.0f} tok/s; "
           f"decode step ({SLOTS} slots) {rec['decode_step_ms']:.3f} ms = "
           f"{rec['decode_tok_s']:.1f} tok/s", flush=True)
-    share = flash_share(torch, model, params,
+    share = flash_share(torch, fa, model, params,
                         prefill_batch(torch, prompts[0], extras[0]),
                         cache_len)
     print(f"serve vlm: flash_attention in one S=2048 prefill: "
@@ -3733,23 +3820,24 @@ def lm_round_vs_cpu(torch, train, label, cfg, seed) -> dict:
             "adam_bound": bound}
 
 
-def lm_train_rounds(torch, agg, train, layers, seed, last: bool) -> dict:
-    """``LM_TRAIN_ROUNDS`` sustainable rounds of granite-3-2b at full width
-    cut to ``layers`` layers, after a warm-up round: each round's kernel
-    launches (counts set to 0 before it, read after it), its fused_agg
+def lm_train_rounds(torch, agg, train, cfg, seed, last: bool,
+                    settings=None) -> dict:
+    """``LM_TRAIN_ROUNDS`` sustainable rounds of ``cfg`` through
+    ``make_run`` with ``settings`` (default ``LM_TRAIN``), after a warm-up
+    round: each round's kernel launches (counts set to 0 before it, read
+    after it: one fused_agg launch a dtype of the params), its fused_agg
     leaves against the plain version, wall time and peak memory.  Unless
     ``last``, returns no rounds where the warm-up peaks above
     ``LM_PEAK_LIMIT`` or runs out of memory (the peak is then the
     allocation when it did)."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
-    cfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     run = train.make_run(cfg=cfg, policy="sustainable", seed=seed,
-                         device="cuda", **LM_TRAIN)
+                         device="cuda", **(settings or LM_TRAIN))
     C, T = run.fed.num_clients, run.fed.local_steps
+    dtypes = len({t.dtype for _, t in flat_leaves(run.params)})
     w, hist, worst, tap, oom = run.params, [], [], None, False
     try:
         train.train_round(run, w, 0)           # warm-up (allocator, cuBLAS)
@@ -3757,7 +3845,7 @@ def lm_train_rounds(torch, agg, train, layers, seed, last: bool) -> dict:
     except torch.cuda.OutOfMemoryError as e:
         if last:
             raise
-        print(f"train lm: {layers} layers do not fit the card: "
+        print(f"train lm: {cfg.num_layers} layers do not fit the card: "
               f"{str(e).splitlines()[0]}", flush=True)
         oom = True
     peak = torch.cuda.max_memory_allocated()
@@ -3771,18 +3859,19 @@ def lm_train_rounds(torch, agg, train, layers, seed, last: bool) -> dict:
                 dt = time.perf_counter() - t0
             counts = ops.launch_counts()
             peak = max(peak, torch.cuda.max_memory_allocated())
-            if counts != {**dict.fromkeys(counts, 0), "fused_agg": 2} \
+            if counts != {**dict.fromkeys(counts, 0), "fused_agg": dtypes} \
                     or len(tap.calls) != 1:
-                raise AssertionError(f"train lm round {r}: launches {counts} "
-                                     f"in {len(tap.calls)} aggregations, "
-                                     f"expected 2 of fused_agg (one a "
-                                     f"dtype) in one")
+                raise AssertionError(f"train {cfg.name} round {r}: launches "
+                                     f"{counts} in {len(tap.calls)} "
+                                     f"aggregations, expected {dtypes} of "
+                                     f"fused_agg (one a dtype) in one")
             worst.append(agg_tree_check(torch, agg, tap.calls[0]))
             hist.append({"round": r, **m, "round_ms": dt * 1e3,
                          "client_steps_per_s": C * T / dt,
                          "fused_agg_launches": counts["fused_agg"],
                          "agg_worst_err_over_bound": worst[-1]})
-            print(f"train lm round {r}: loss {m['loss']:.4f} participants "
+            print(f"train {cfg.name} round {r}: loss {m['loss']:.4f} "
+                  f"participants "
                   f"{m['participants']:.0f} {dt * 1e3:.1f} ms "
                   f"({C * T / dt:.2f} client-steps/s); launches {counts}; "
                   f"fused_agg leaves vs plain: worst err/bound "
@@ -3795,7 +3884,7 @@ def lm_train_rounds(torch, agg, train, layers, seed, last: bool) -> dict:
 
 
 def lm_train_phase(torch, agg, seed: int, card: str) -> dict:
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
@@ -3805,7 +3894,9 @@ def lm_train_phase(torch, agg, seed: int, card: str) -> dict:
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     tried = {}
     for layers in LM_LAYERS:
-        res = lm_train_rounds(torch, agg, train, layers, seed,
+        cfg = dataclasses.replace(get_config("granite-3-2b"),
+                                  num_layers=layers)
+        res = lm_train_rounds(torch, agg, train, cfg, seed,
                               last=layers == LM_LAYERS[-1])
         tried[layers] = {"peak_bytes": res["peak_bytes"], "oom": res["oom"]}
         taken = bool(res["history"])
@@ -3894,6 +3985,298 @@ def lm_train_phase(torch, agg, seed: int, card: str) -> dict:
             "card_vs_cpu": smoke}
 
 
+# the hybrid and encoder-decoder serve phases (17, 18): phase 4's engine
+# workload on recurrentgemma-2b and whisper-tiny at full width and depth
+HYBRID_ARCH = "recurrentgemma-2b"
+# three prompts longer than the 2048-token local window: the windowed
+# prefill, the ring rolled by S mod W (0 at 4096, 953 at 3001, 1 at 2049)
+# and decode past the ring's wrap all run
+HYBRID_PROMPT_LENS = (4096, 3001, 2048, 777, 129, 2049)
+ENCDEC_ARCH = "whisper-tiny"
+ENCDEC_PROMPT_LENS = (448, 300, 129, 64, 17, 1)
+# another request's frames must move the fp32 prefill logits of whisper by
+# ten times the fp32 path-to-path bound
+FRAMES_MOVE_MIN = 10 * LOGIT_ATOL["float32"]
+# whisper-tiny's training phase (19): phase 16's federation on the whole
+# model, 2 rows of 128 tokens and 1500 frames a step (the frames are drawn
+# on the host each round, as the reference's batch function draws them)
+ENCDEC_TRAIN = dict(clients=8, local_steps=5, batch=2, seq=128,
+                    taus=(1, 2, 4, 8), lr=1e-3)
+
+
+def rec_state_gap(torch, a, b) -> float:
+    """The largest |a - b| of a recurrent layer's prefilled h over that
+    layer's largest |h| in ``b``, the worst layer of the hybrid's cache."""
+    worst = 0.0
+    for role in ("r1", "r2", "tail"):
+        for x, y in zip(a[role]["h"], b[role]["h"]):
+            worst = max(worst, ((x - y).abs().max()
+                                / y.abs().max().clamp_min(1e-30)).item())
+    return worst
+
+
+def scan_time(torch, cfg, S, gen) -> dict:
+    """``rglru._linear_scan`` alone at the prefill's shape (B=1, S, LRU
+    width, fp32; decays as the gates give them), ms a call: CUDA events
+    around calls queued behind a sleeping kernel (device time: the
+    profiler misses some of the scan's ~70 small kernels, and no launch
+    count says how many it should see) and around back-to-back calls."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import rglru
+
+    w = cfg.lru_width or cfg.d_model
+    r = torch.rand((1, S, w), generator=gen, device="cuda")
+    log_a = -8.0 * L.softplus(torch.tensor(0.5, device="cuda")) * r
+    b = torch.randn((1, S, w), generator=gen, device="cuda")
+    scan = lambda: rglru._linear_scan(log_a, b)
+    return {"device_ms": queued_ms(torch, scan, 10),
+            "event_ms": cuda_ms(scan, 10, torch)}
+
+
+def hybrid_serve_phase(torch, fa, seed: int, card: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import seeded_generators
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
+    from repro_torch.serve.microbench import engine_microbench
+
+    cfg = get_config(HYBRID_ARCH)
+    model = get_model(cfg)
+    g_params, g_prompt, _ = seeded_generators(seed, torch.device("cuda"))
+    t0 = time.perf_counter()
+    params = model.init_params(g_params)
+    torch.cuda.synchronize()
+    print(f"serve hybrid: {cfg.name} {cfg.num_layers} layers ("
+          f"{cfg.num_layers // 3} x (R, R, A) + {cfg.num_layers % 3} R) "
+          f"d_model={cfg.d_model} LRU width {cfg.lru_width} H="
+          f"{cfg.num_heads} K={cfg.num_kv_heads} D={cfg.head_dim} local "
+          f"window {cfg.local_window}, {cfg.dtype}, "
+          f"{model.num_params(params) / 1e9:.3f} B params made on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = [torch.randint(0, cfg.vocab_size, (S,), generator=g_prompt,
+                             device="cuda").cpu().numpy()
+               for S in HYBRID_PROMPT_LENS]
+    W = cfg.local_window
+    want = len(prompts) * flash_per_prefill(cfg)
+    serve_workload(torch, model, params, prompts[4:5], 2, W,
+                   ring=True)                                   # warm-up
+    done, wall, counts, engine = serve_workload(torch, model, params,
+                                                prompts, GEN, W, ring=True)
+    print(f"serve hybrid: DecodeEngine.run {len(prompts)} requests x {GEN} "
+          f"tokens (a ring of {W} a slot) in {wall:.3f} s = "
+          f"{len(prompts) * GEN / wall:.1f} tok/s ({engine.stats['steps']} "
+          f"decode steps); launches {counts}", flush=True)
+    check_serve_launches("serve hybrid", counts, want)
+    check_tokens("serve hybrid", cfg, done, HYBRID_PROMPT_LENS, GEN)
+
+    model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = _tree_map(params, lambda t: t.float())
+    checks, prefill_ms = prefill_logit_checks(
+        torch, "serve hybrid", (model, model32), (params, params32), prompts,
+        W, done)
+    # the prefilled RG-LRU states of the longest request, kernel path vs
+    # plain path on the same weights: held in fp32 to phase 12's bound for
+    # the Mamba2 states (the paths differ by the attention's sum order
+    # only); bf16 reported
+    batch = prefill_batch(torch, prompts[0])
+    states = {}
+    for name, m, p in (("bf16", model, params), ("fp32", model32, params32)):
+        _, ck = m.prefill(p, batch, impl="flash")
+        _, cp = m.prefill(p, batch, impl="ref")
+        states[name] = rec_state_gap(torch, ck, cp)
+        del ck, cp
+    del params32
+    torch.cuda.empty_cache()
+    print(f"serve hybrid: request 0 S={len(prompts[0])}: prefilled RG-LRU "
+          f"states, kernel path vs plain, worst layer's max |diff| / max |h|"
+          f": fp32 {states['fp32']:.3e} (tol {SSM_STATE_RTOL_FP32}), bf16 "
+          f"{states['bf16']:.3e}", flush=True)
+    if not states["fp32"] <= SSM_STATE_RTOL_FP32:
+        raise AssertionError("serve hybrid: the prefilled states through the "
+                             "kernel differ from the plain path's")
+    served_ratio = served_kernel_check(torch, fa, model, params, prompts, W,
+                                       label="serve hybrid")
+    S = max(HYBRID_PROMPT_LENS)
+    rec = engine_microbench(model, params, slots=SLOTS, prompt_len=S,
+                            gen=GEN, cache_len=W, ring=True, reps=3,
+                            seed=seed)
+    print(f"serve hybrid microbench on {card}: prefill (S={S}) "
+          f"{rec['prefill_ms']:.3f} ms = {rec['prefill_tok_s']:.0f} tok/s; "
+          f"decode step ({SLOTS} slots) {rec['decode_step_ms']:.3f} ms = "
+          f"{rec['decode_tok_s']:.1f} tok/s; insert {rec['insert_ms']:.3f} "
+          f"ms", flush=True)
+    # where the time goes: one prefill at S = 4096 and one decode step
+    busy = DecodeEngine(model, params, EngineConfig(
+        slots=SLOTS, cache_len=W, max_new=GEN, ring=True))
+    for i in range(SLOTS):
+        busy.prefill_request(Request(rid=i, tokens=prompts[i], max_new=GEN))
+    pos, active, gen_idx = (busy._host_vector(a) for a in
+                            (busy._pos, busy._active, busy._gen))
+    step = lambda: busy._step(pos, active, gen_idx)
+    profiles = {
+        f"prefill_{S}": flash_share(torch, fa, model, params, batch, W),
+        "decode_step_4_slots": device_profile(torch, step,
+                                              launched(torch, step))}
+    for name, prof in profiles.items():
+        print(f"serve hybrid profile {name}: wall {prof['wall_ms']:.3f} ms, "
+              f"device busy {prof['device_ms']:.3f} ms "
+              f"({prof['device_share']:.1%}), {prof['kernels']} kernels; "
+              f"top: " + "; ".join(f"{n} {ms:.3f} ms"
+                                   for n, ms in prof["top"][:5]), flush=True)
+    busy_ms = profiles[f"prefill_{S}"]["device_ms"]
+    flash_ms = profiles[f"prefill_{S}"]["flash_device_ms"]
+    n_rec = cfg.num_layers - cfg.num_layers // 3
+    scan = scan_time(torch, cfg, S, g_prompt)
+    scan_ms = n_rec * scan["device_ms"]
+    print(f"serve hybrid: in one S={S} prefill, flash_attention "
+          f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.1%}) and the linear scan "
+          f"{n_rec} x {scan['device_ms']:.3f} ms = {scan_ms:.3f} ms "
+          f"({scan_ms / busy_ms:.1%}; timed alone by CUDA events around "
+          f"queued calls, {scan['event_ms']:.3f} ms a call back to back) of "
+          f"{busy_ms:.3f} ms of device time", flush=True)
+    del params, busy
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+            "prompt_lens": list(HYBRID_PROMPT_LENS), "gen": GEN,
+            "slots": SLOTS, "stagger": STAGGER, "ring": W, "wall_s": wall,
+            "tok_s": len(prompts) * GEN / wall, "stats": engine.stats,
+            "flash_launches": counts["flash_attention"],
+            "prefill_ms": prefill_ms, "prefill_logit_checks": checks,
+            "state_gap": states,
+            "served_kernel_worst_err_over_bound": served_ratio,
+            "microbench": rec, "profiles": profiles,
+            "flash_device_ms": flash_ms, "scan": scan,
+            "scan_device_ms": scan_ms, "scan_share": scan_ms / busy_ms}
+
+
+def check_tokens(label, cfg, done, prompt_lens, gen):
+    for i, S in enumerate(prompt_lens):
+        toks = done[i].tokens
+        if (toks.shape != (gen,) or toks.min() < 0
+                or toks.max() >= cfg.vocab_size or done[i].prompt_len != S):
+            raise AssertionError(f"{label} request {i}: bad tokens {toks} or "
+                                 f"prompt_len {done[i].prompt_len}")
+
+
+def encdec_serve_phase(torch, fa, seed: int, card: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import seeded_generators
+    from repro_torch.models import get_model
+    from repro_torch.serve.microbench import engine_microbench
+
+    cfg = get_config(ENCDEC_ARCH)
+    model = get_model(cfg)
+    g_params, g_prompt, _ = seeded_generators(seed, torch.device("cuda"))
+    params = model.init_params(g_params)
+    print(f"serve encdec: {cfg.name} {cfg.encoder_layers} encoder + "
+          f"{cfg.num_layers} decoder layers d_model={cfg.d_model} H="
+          f"{cfg.num_heads} D={cfg.head_dim}, {cfg.encoder_seq} frames, "
+          f"{cfg.dtype}, {model.num_params(params) / 1e6:.1f} M params",
+          flush=True)
+    prompts = [torch.randint(0, cfg.vocab_size, (S,), generator=g_prompt,
+                             device="cuda").cpu().numpy()
+               for S in ENCDEC_PROMPT_LENS]
+    extras = [{"frames": torch.randn(
+        (cfg.encoder_seq, cfg.d_model), generator=g_prompt,
+        device="cuda").to(torch.bfloat16)} for _ in ENCDEC_PROMPT_LENS]
+    cache_len = max(ENCDEC_PROMPT_LENS) + GEN + 1
+    want = len(prompts) * flash_per_prefill(cfg)
+    serve_workload(torch, model, params, prompts[4:5], 2, cache_len,
+                   extras[4:5])                                 # warm-up
+    done, wall, counts, engine = serve_workload(
+        torch, model, params, prompts, GEN, cache_len, extras)
+    print(f"serve encdec: DecodeEngine.run {len(prompts)} requests (each "
+          f"with its own frames through Request.extras) x {GEN} tokens in "
+          f"{wall:.3f} s = {len(prompts) * GEN / wall:.1f} tok/s "
+          f"({engine.stats['steps']} decode steps); launches {counts}",
+          flush=True)
+    check_serve_launches("serve encdec", counts, want)
+    check_tokens("serve encdec", cfg, done, ENCDEC_PROMPT_LENS, GEN)
+
+    model32 = get_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = _tree_map(params, lambda t: t.float())
+    checks, prefill_ms = prefill_logit_checks(
+        torch, "serve encdec", (model, model32), (params, params32), prompts,
+        cache_len, done, extras)
+    # the frames reach the logits: request 0 with request 1's frames
+    logits = [model32.prefill(params32, {
+        k: v.float() if v.is_floating_point() else v for k, v in
+        prefill_batch(torch, prompts[0], extras[j]).items()},
+        cache_len=cache_len)[0][0, -1] for j in (0, 1)]
+    moved = (logits[0] - logits[1]).abs().max().item()
+    del params32, logits
+    print(f"serve encdec: request 0's fp32 logits move by {moved:.4f} with "
+          f"request 1's frames (must exceed {FRAMES_MOVE_MIN})", flush=True)
+    if not moved > FRAMES_MOVE_MIN:
+        raise AssertionError("serve encdec: the frames do not reach the "
+                             "logits")
+    served_ratio = served_kernel_check(torch, fa, model, params, prompts,
+                                       cache_len, extras=extras,
+                                       label="serve encdec")
+    rec = engine_microbench(model, params, slots=SLOTS,
+                            prompt_len=max(ENCDEC_PROMPT_LENS), gen=GEN,
+                            reps=3, seed=seed)
+    print(f"serve encdec microbench on {card}: prefill (S="
+          f"{rec['prompt_len']}, {cfg.encoder_seq} frames) "
+          f"{rec['prefill_ms']:.3f} ms = {rec['prefill_tok_s']:.0f} tok/s; "
+          f"decode step ({SLOTS} slots) {rec['decode_step_ms']:.3f} ms = "
+          f"{rec['decode_tok_s']:.1f} tok/s", flush=True)
+    share = flash_share(torch, fa, model, params,
+                        prefill_batch(torch, prompts[0], extras[0]),
+                        cache_len)
+    print(f"serve encdec: flash_attention in one S={len(prompts[0])} "
+          f"prefill ({cfg.encoder_seq} frames): {share['flash_device_ms']:.3f}"
+          f" ms of {share['device_ms']:.3f} ms of device time "
+          f"({share['flash_device_ms'] / share['device_ms']:.1%}), "
+          f"{share['kernels']} kernels, wall {share['wall_ms']:.3f} ms",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": [cfg.encoder_layers, cfg.num_layers],
+            "dtype": cfg.dtype, "frames": cfg.encoder_seq,
+            "prompt_lens": list(ENCDEC_PROMPT_LENS), "gen": GEN,
+            "wall_s": wall, "tok_s": len(prompts) * GEN / wall,
+            "stats": engine.stats,
+            "flash_launches": counts["flash_attention"],
+            "prefill_ms": prefill_ms, "prefill_logit_checks": checks,
+            "logits_moved_by_frames": moved,
+            "served_kernel_worst_err_over_bound": served_ratio,
+            "microbench": rec, "prefill_profile": share}
+
+
+def new_families_train_phase(torch, agg, seed: int, card: str) -> dict:
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import train
+
+    cfg = get_config(ENCDEC_ARCH)
+    res = lm_train_rounds(torch, agg, train, cfg, seed, last=True,
+                          settings=ENCDEC_TRAIN)
+    run, hist, peak = res["run"], res["history"], res["peak_bytes"]
+    n_params = run.model.num_params(run.params)
+    live = [h["loss"] for h in hist if h["participants"] > 0]
+    if not (all(math.isfinite(x) for x in live) and live[-1] < live[0]):
+        raise AssertionError(f"train {cfg.name}: loss did not fall: {live}")
+    C, T = run.fed.num_clients, run.fed.local_steps
+    wall = sum(h["round_ms"] for h in hist) / 1e3
+    print(f"train {cfg.name}: full width and depth ({n_params:,} params), "
+          f"C={C} T={T} batch {ENCDEC_TRAIN['batch']} x "
+          f"{ENCDEC_TRAIN['seq']} tokens and {cfg.encoder_seq} frames: "
+          f"{len(hist)} rounds in {wall:.3f} s = "
+          f"{len(hist) * C * T / wall:.2f} client-steps/s on {card}; peak "
+          f"torch.cuda.max_memory_allocated {peak / 1e9:.2f} GB; loss "
+          f"{live[0]:.4f} -> {live[-1]:.4f}", flush=True)
+    del res, run
+    torch.cuda.empty_cache()
+    smoke = {arch: lm_round_vs_cpu(torch, train, f"{arch} smoke",
+                                   get_smoke_config(arch), seed)
+             for arch in (HYBRID_ARCH, ENCDEC_ARCH)}
+    return {"arch": cfg.name, "params": n_params, **ENCDEC_TRAIN,
+            "rounds": len(hist), "history": hist, "peak_bytes": peak,
+            "wall_s": wall, "client_steps_per_s": len(hist) * C * T / wall,
+            "fused_agg_launches": sum(h["fused_agg_launches"] for h in hist),
+            "card_vs_cpu": smoke}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3962,15 +4345,21 @@ def main(argv=None) -> int:
     serve_moe = moe_serve_phase(torch, fa, args.seed, card)
     serve_vlm = vlm_serve_phase(torch, fa, args.seed, card)
     train_lm = lm_train_phase(torch, agg, args.seed, card)
+    serve_hybrid = hybrid_serve_phase(torch, fa, args.seed, card)
+    serve_encdec = encdec_serve_phase(torch, fa, args.seed, card)
+    train_new = new_families_train_phase(torch, agg, args.seed, card)
     kernel["launches_by_path"] = {
         "serve granite-3-2b": serve["flash_launches"],
         **{f"serve olmoe-1b-7b {mode}": r["flash_launches"]
            for mode, r in serve_moe["runs"].items()},
-        "serve internvl2-76b (8 layers)": serve_vlm["flash_launches"]}
+        "serve internvl2-76b (8 layers)": serve_vlm["flash_launches"],
+        "serve recurrentgemma-2b": serve_hybrid["flash_launches"],
+        "serve whisper-tiny": serve_encdec["flash_launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     agg_kernel["launches_by_path"] = {
         "train cifar-cnn": agg_kernel["launches"],
-        "train granite-3-2b": train_lm["fused_agg_launches"]}
+        "train granite-3-2b": train_lm["fused_agg_launches"],
+        "train whisper-tiny": train_new["fused_agg_launches"]}
     agg_kernel["launches"] = sum(agg_kernel["launches_by_path"].values())
     agg_kernel["lm_tree"] = train_lm["agg_tree"]
     for k, kind, unit in ((fleet_kernel, "fleet", "round"),
@@ -3994,7 +4383,9 @@ def main(argv=None) -> int:
               "serve_mamba2": mamba, "train": train, "fig1": fig1,
               "fleet": fleet, "serve_fleet": serve_fleet,
               "sharded": sharded, "serve_moe": serve_moe,
-              "serve_vlm": serve_vlm, "train_lm": train_lm}
+              "serve_vlm": serve_vlm, "train_lm": train_lm,
+              "serve_hybrid": serve_hybrid, "serve_encdec": serve_encdec,
+              "train_new_families": train_new}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

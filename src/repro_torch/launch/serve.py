@@ -1,8 +1,11 @@
-"""Serving launcher: continuous-batching decode over a registered dense,
-MoE, VLM or state-space architecture (port of the JAX package's
+"""Serving launcher: continuous-batching decode over any registered
+architecture with a decode path: dense, MoE, VLM, state-space, the RG-LRU
+hybrid and the encoder-decoder (port of the JAX package's
 ``launch/serve.py``).  A VLM prompt carries ``vision_embeds`` of
-``min(vision_tokens, prompt_len)`` rows drawn from the prompt generator,
-handed to the engine per request through ``Request.extras``.
+``min(vision_tokens, prompt_len)`` rows, an encoder-decoder prompt
+``frames`` (encoder_seq, d_model), both drawn from the prompt generator and
+handed to the engine per request through ``Request.extras``.  The hybrid
+serves from a ring of its ``local_window``.
 
 The default path drives `repro_torch.serve.engine.DecodeEngine` over a batch
 of requests with staggered arrivals (``--stagger`` steps apart);
@@ -23,6 +26,8 @@ the nominal device wattage) next to the *analytic* ``from_params`` pricing
   python -m repro_torch.launch.serve --arch olmoe-1b-7b
   python -m repro_torch.launch.serve --smoke --device cpu
   python -m repro_torch.launch.serve --arch internvl2-76b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b
+  python -m repro_torch.launch.serve --arch whisper-tiny --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -81,8 +86,11 @@ def generate(model, params, prompt, gen_steps: int, cache_len: int,
 
 def _decode_shape(cfg, prompt_len: int, gen: int):
     """(cache_len, ring, window): a full cache sized to the workload, or a
-    ring cache of the arch's sliding window."""
+    ring cache of the hybrid's local window or the arch's sliding
+    window."""
     cache_len, ring, window = prompt_len + gen + 1, False, None
+    if cfg.family == "hybrid":
+        cache_len, ring = cfg.local_window, True
     if cfg.sliding_window:
         cache_len, ring, window = cfg.sliding_window, True, cfg.sliding_window
     return cache_len, ring, window
@@ -98,6 +106,10 @@ def _make_prompt(cfg, generator: torch.Generator, batch: int,
         prompt["vision_embeds"] = torch.randn(
             (batch, nv, cfg.d_model), generator=generator, device=dev
         ).to(getattr(torch, cfg.dtype))
+    if cfg.family == "encdec":
+        prompt["frames"] = torch.randn(
+            (batch, cfg.encoder_seq, cfg.d_model), generator=generator,
+            device=dev).to(getattr(torch, cfg.dtype))
     return prompt
 
 

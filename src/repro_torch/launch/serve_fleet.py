@@ -29,7 +29,7 @@ are its own.
 Differences from the example: ``--trace`` (replayed day profiles) exits 1
 (``ROADMAP.md`` Queue 1 item 21); ``--microbench ARCH`` prices requests
 from the port's own `engine_microbench` (default ``mamba2-1.3b``, as the
-example's) and exits 1 for an architecture the port does not serve;
+example's) and exits 1 for an architecture with no decode path;
 ``--backend``, ``--obs-dir`` and the checkpoint flags have no counterpart;
 ``--epochs`` and ``--device`` are new.
 """
@@ -112,7 +112,7 @@ def run(name: str, traffic, harvest, cost, train, n: int, epochs: int,
 def microbench_cost(arch: str, device) -> DecodeCostModel:
     """Requests priced from the port's decode-engine microbenchmark of
     ``arch``'s smoke configuration; raises NotImplementedError for an
-    architecture the port does not serve."""
+    architecture with no decode path."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import get_model
     from repro_torch.serve import engine_microbench, measured_cost
@@ -121,9 +121,7 @@ def microbench_cost(arch: str, device) -> DecodeCostModel:
     model = get_model(mcfg)
     if model.decode_step is None:
         raise NotImplementedError(f"--microbench {arch}: family "
-                                  f"{mcfg.family!r} has no decode path; the "
-                                  f"port serves families 'dense', 'moe', "
-                                  f"'vlm' and 'ssm'")
+                                  f"{mcfg.family!r} has no decode path")
     gen = torch.Generator(device=device).manual_seed(0)
     rec = engine_microbench(model, model.init_params(gen), device=device)
     print(f"microbench pricing ({mcfg.name}, {rec['device_watts']:.1f} W "

@@ -7,10 +7,11 @@ paper's four schedules, through the client-stacked round engine
 (``torch.func.vmap``), then the server's aggregation on the ``fused_agg``
 kernel (one launch a dtype a round).
 
-* LMs (``dense``, ``moe``, ``vlm``, ``ssm``; the default is the
-  reference's, granite-3-2b): per-client synthetic Markov token streams
-  (``data.SyntheticTokens``, ``--seq`` tokens a row), the reference's
-  ``token_batch_fn``; a VLM batch carries zero ``vision_embeds``.  The
+* LMs (``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``, ``encdec``; the
+  default is the reference's, granite-3-2b): per-client synthetic Markov
+  token streams (``data.SyntheticTokens``, ``--seq`` tokens a row), the
+  reference's ``token_batch_fn``; a VLM batch carries zero
+  ``vision_embeds``, an encoder-decoder batch random ``frames``.  The
   local update runs on the plain attention and scan paths (``loss_fn``'s
   ``impl="ref"``): the kernels have no backward.  ``--smoke`` takes the
   reduced smoke config.
@@ -88,7 +89,10 @@ def token_batch_fn(cfg, source: SyntheticTokens, C: int, T: int, bc: int,
                    device) -> Callable[[int], dict]:
     """Round r -> {tokens (C, T, bc, S)} from ``source`` (client c's step t
     reads ``source.batch(c, bc, 131 r + t)``, as the reference does); a VLM
-    batch adds zero ``vision_embeds`` (C, T, bc, vision_tokens, d)."""
+    batch adds zero ``vision_embeds`` (C, T, bc, vision_tokens, d), an
+    encoder-decoder batch ``frames`` (C, T, bc, encoder_seq, d), standard
+    normals from ``numpy.random.RandomState(r)`` as the reference draws
+    them."""
     def fn(rnd):
         toks = np.stack([
             np.stack([source.batch(c, bc, rnd * 131 + t) for t in range(T)])
@@ -98,6 +102,11 @@ def token_batch_fn(cfg, source: SyntheticTokens, C: int, T: int, bc: int,
             batch["vision_embeds"] = torch.zeros(
                 (C, T, bc, cfg.vision_tokens, cfg.d_model),
                 dtype=getattr(torch, cfg.dtype), device=device)
+        if cfg.family == "encdec":
+            frames = np.random.RandomState(rnd).randn(
+                C, T, bc, cfg.encoder_seq, cfg.d_model)
+            batch["frames"] = torch.from_numpy(frames).to(
+                getattr(torch, cfg.dtype)).to(device)
         return batch
     return fn
 
@@ -111,8 +120,7 @@ def make_run(arch: str = "cifar-cnn", clients: int = 8, local_steps: int = 5,
     given, in place of both) on ``device``: params drawn from ``seed`` on
     that device, data weights p = 1/C, cycles from ``taus`` round-robin.
     An LM reads ``seq``-token rows.  On the card this turns TF32 off
-    (``disable_tf32``).  Raises NotImplementedError for a family the port
-    does not train yet."""
+    (``disable_tf32``)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         disable_tf32()
@@ -182,13 +190,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     taus = tuple(int(x) for x in args.taus.split(","))
-    try:
-        run = make_run(args.arch, args.clients, args.local_steps, args.batch,
-                       taus, args.policy, args.optimizer, args.lr, args.seed,
-                       device=args.device, smoke=args.smoke, seq=args.seq)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
+    run = make_run(args.arch, args.clients, args.local_steps, args.batch,
+                   taus, args.policy, args.optimizer, args.lr, args.seed,
+                   device=args.device, smoke=args.smoke, seq=args.seq)
     if run.device.type == "cuda":
         where = torch.cuda.get_device_name(run.device)
         tf32 = "off" if tf32_off() else "on"

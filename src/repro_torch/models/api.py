@@ -9,9 +9,9 @@ Every family exposes, with ``cfg`` bound:
   prefill(params, batch, cache_len, impl, window) -> (logits, cache)
   decode_step(params, token, cache, pos, ring, window) -> (logits, cache)
 
-Registered: ``dense``, ``moe``, ``vlm`` and ``ssm`` (served and trained)
-and ``cnn`` (trained).  ``hybrid`` and ``encdec`` raise until they are
-ported.
+Registered: ``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid`` and
+``encdec`` (served and trained) and ``cnn`` (trained): every family the
+configs name.
 """
 from __future__ import annotations
 
@@ -20,14 +20,11 @@ from functools import partial
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import cnn, ssm, transformer
+from repro_torch.models import cnn, encdec, rglru, ssm, transformer
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
-                   "vlm": transformer, "ssm": ssm}
-NOT_PORTED = {"hybrid": "20b", "encdec": "20c"}
-NOT_PORTED_MSG = ("family {!r} is not ported yet (ROADMAP.md Queue 1 item "
-                  "{}); the port serves and trains families 'dense', 'moe', "
-                  "'vlm' and 'ssm' and trains family 'cnn'")
+                   "vlm": transformer, "ssm": ssm, "hybrid": rglru,
+                   "encdec": encdec}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +48,6 @@ def get_model(cfg: ModelConfig) -> Model:
         return Model(cfg=cfg, init_params=partial(cnn.init_params, cfg),
                      forward=partial(cnn.forward, cfg),
                      loss_fn=partial(cnn.loss_fn, cfg))
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED_MSG.format(
-            cfg.family, NOT_PORTED[cfg.family]))
     mod = _FAMILY_MODULES[cfg.family]
     return Model(cfg=cfg,
                  init_params=partial(mod.init_params, cfg),

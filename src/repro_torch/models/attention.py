@@ -10,7 +10,8 @@ Caches:
 Hopper kernel on a CUDA tensor, its plain version on a CPU tensor, through
 `repro_torch.kernels.ops`), then ``blocked_attention`` when
 ``cfg.attn_blocked``, then ``dot_product_attention``.  ``impl=None`` means
-``"flash"`` on a CUDA tensor and ``"ref"`` on a CPU tensor.
+``"flash"`` on a CUDA tensor and ``"ref"`` on a CPU tensor.  Cross-attention
+(``memory=``) always takes ``dot_product_attention``, as in the reference.
 
 Decode differs from the reference in one respect: ``pos`` is a per-slot
 position vector (B,) (the reference takes a scalar and the engine ``vmap``s
@@ -140,27 +141,34 @@ def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 def attention(cfg: ModelConfig, p, x, *, positions=None, causal=True,
-              window=None, impl: str | None = None):
-    """Full attention over a sequence (prefill / training).
+              window=None, memory=None, impl: str | None = None):
+    """Full attention over a sequence (prefill / training / encoder).
 
-    Returns (out (B, S, d), (k, v)) with k, v (B, S, K, hd) after RoPE —
+    ``memory`` (B, S_mem, d): keys and values come from it (cross-attention:
+    non-causal, no RoPE on either side, never the kernel).  Returns (out
+    (B, S, d), (k, v)) with k, v (B, S or S_mem, K, hd) after RoPE —
     un-repeated, as the cache holds them.
     """
     B, S, _ = x.shape
     win = cfg.sliding_window if window is None else window
-    if impl is None:
+    if impl is None and memory is None:
         impl = "flash" if x.is_cuda else "ref"
-    if impl not in IMPLS:
+    if impl is not None and impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    src = x if memory is None else memory
     q = _project(x, p["wq"], p.get("bq"), cfg.num_heads, cfg.head_dim)
-    k = _project(x, p["wk"], p.get("bk"), cfg.num_kv_heads, cfg.head_dim)
-    v = _project(x, p["wv"], p.get("bv"), cfg.num_kv_heads, cfg.head_dim)
+    k = _project(src, p["wk"], p.get("bk"), cfg.num_kv_heads, cfg.head_dim)
+    v = _project(src, p["wv"], p.get("bv"), cfg.num_kv_heads, cfg.head_dim)
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    if cfg.pos_type == "rope":
+    if cfg.pos_type == "rope" and memory is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if impl == "flash":
+    if memory is not None:
+        out = dot_product_attention(
+            q, repeat_kv(k, cfg.num_heads), repeat_kv(v, cfg.num_heads),
+            causal=False, window=win or 0)
+    elif impl == "flash":
         # the kernel maps query head h to KV head h // (H/K) itself
         out = kops.flash_attention(q, k, v, causal=causal, window=win or 0)
     elif cfg.attn_blocked:

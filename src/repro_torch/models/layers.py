@@ -139,6 +139,32 @@ def sinusoidal(positions, dim: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+# --------------------------------------------------------- activations ----
+def softplus(x):
+    """``jax.nn.softplus``, i.e. logaddexp(x, 0) (``F.softplus`` switches to
+    x above 20)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def causal_conv(x, w, b, state=None):
+    """Depthwise causal conv.  x (B, S, C), w (C, K), b (C,).  ``state``
+    (B, K-1, C), the previous call's tail, is prepended (zeros if None).
+    Returns (out (B, S, C), the last K-1 rows of the padded input).  The
+    sum of the K shifted products runs in the reference's order, then + b.
+    """
+    K, S = w.shape[1], x.shape[1]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                          # (B, S+K-1, C)
+    out = xp[:, 0:S] * w[:, 0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * w[:, i]
+    return out + b, (xp[:, -(K - 1):] if K > 1 else None)
+
+
 # ----------------------------------------------------------------- rope ----
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, hd); positions: (..., S) int.  Rotates the split halves

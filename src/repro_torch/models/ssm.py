@@ -62,29 +62,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
 
 
 # ------------------------------------------------------------- SSD core ----
-def _softplus(x):
-    """``jax.nn.softplus``, i.e. logaddexp(x, 0) (``F.softplus`` switches to
-    x above 20)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+_softplus = L.softplus
 
 
 def _causal_conv(x, w, b, state=None):
-    """Depthwise causal conv.  x (B, S, C), w (C, K).  If ``state``
-    (B, K-1, C) is given (decode), prepends it; returns (silu(out), the last
-    K-1 rows of the padded input).  The sum of the K shifted products runs
-    in the reference's order, then + b."""
-    K, S = w.shape[1], x.shape[1]
-    if state is None:
-        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
-                          device=x.device)
-    else:
-        pad = state.to(x.dtype)
-    xp = torch.cat([pad, x], dim=1)                          # (B, S+K-1, C)
-    out = xp[:, 0:S] * w[:, 0]
-    for i in range(1, K):
-        out = out + xp[:, i:i + S] * w[:, i]
-    out = out + b
-    new_state = xp[:, -(K - 1):] if K > 1 else None
+    """``layers.causal_conv`` then SiLU: (silu(out), the conv tail)."""
+    out, new_state = L.causal_conv(x, w, b, state)
     return F.silu(out), new_state
 
 

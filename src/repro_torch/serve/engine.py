@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import require_same_device, resolve_device
+from repro_torch.tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +64,8 @@ class Request:
     tokens: Any                     # (S,) int prompt tokens
     max_new: int                    # tokens to generate (incl. the prefill's)
     extras: dict | None = None      # modality extras, unbatched (e.g.
-    #                                 vision_embeds (n_vis, d)); prefill only
+    #                                 vision_embeds (n_vis, d), frames
+    #                                 (encoder_seq, d)); prefill only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,10 +162,11 @@ class DecodeEngine:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _insert(self, pcache, first_tok, slot: int):
-        """Write a prefilled request into ``slot``: its whole cache slice,
-        its last token, and an output row holding only the first token."""
-        for name, c in self._cache.items():
-            c[:, slot] = pcache[name][:, 0]
+        """Write a prefilled request into ``slot``: its whole cache slice
+        (every leaf of the cache tree, slots on axis 1), its last token,
+        and an output row holding only the first token."""
+        for c, p in zip(tree_leaves(self._cache), tree_leaves(pcache)):
+            c[:, slot] = p[:, 0]
         self._tok[slot] = first_tok
         self._out[slot] = 0
         self._out[slot, 0] = first_tok

@@ -8,8 +8,9 @@ the enqueue).  On the CPU the ops run synchronously.
 
 Stages (mean over ``reps``):
 
-* **prefill** — one (1, S) prompt through the model's prefill;
-  ``seconds_per_prefill_token`` = t / S.
+* **prefill** — one (1, S) prompt through the model's prefill (an
+  encoder-decoder's with random ``frames``, which the reference's
+  microbenchmark does not pass); ``seconds_per_prefill_token`` = t / S.
 * **decode**  — one decode step over a full running batch of ``slots``
   requests; ``seconds_per_decode_token`` = t / slots.
 * **insert**  — one prefilled request written into a slot of the running
@@ -55,12 +56,18 @@ def engine_microbench(model, params, *, slots: int = 4, prompt_len: int = 32,
                            ring=ring, window=window)
     engine = DecodeEngine(model, params, econfig, device=dev,
                           rng=torch.Generator(device=dev).manual_seed(seed))
-    prompts = torch.randint(
-        0, cfg.vocab_size, (slots, prompt_len), device=dev,
-        generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    g_prompt = torch.Generator(device=dev).manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (slots, prompt_len),
+                            device=dev, generator=g_prompt)
+    extras = None
+    if cfg.family == "encdec":      # the prefill encodes the request's frames
+        extras = {"frames": torch.randn(
+            (cfg.encoder_seq, cfg.d_model), device=dev, generator=g_prompt
+        ).to(getattr(torch, cfg.dtype))}
 
     # --- prefill: (1, S) prompt -> logits + cache ---------------------------
-    batch1 = {"tokens": prompts[:1]}
+    batch1 = {"tokens": prompts[:1],
+              **{k: v[None] for k, v in (extras or {}).items()}}
     prefill_s = _timed(lambda: engine._prefill(batch1), reps, dev)
 
     # --- insert: one prefilled request into a running cache ----------------
@@ -72,7 +79,7 @@ def engine_microbench(model, params, *, slots: int = 4, prompt_len: int = 32,
     engine.reset(torch.Generator(device=dev).manual_seed(seed))
     for i in range(slots):
         engine.prefill_request(Request(rid=i, tokens=prompts[i].cpu().numpy(),
-                                       max_new=gen))
+                                       max_new=gen, extras=extras))
     pos, active, gen_idx = (engine._host_vector(a) for a in
                             (engine._pos, engine._active, engine._gen))
     step_s = _timed(lambda: engine._step(pos, active, gen_idx), reps, dev)

@@ -395,3 +395,63 @@ def test_vlm_engine_with_extras_identical_to_jax_engine():
                                       err_msg=f"request {i}")
     assert any((tdone[i].tokens != plain[i].tokens).any()
                for i in range(len(specs)))
+
+
+def test_hybrid_ring_engine_identical_to_jax_engine():
+    """recurrentgemma-2b smoke (family ``hybrid``): staggered arrivals into
+    a ring of its 32-token local window, prompts below, at and past it,
+    decoding past the wrap; every request's greedy tokens equal the JAX
+    engine's and the port's single-stream `generate`, and the nested cache
+    (conv tails, states, rings) is inserted leaf by leaf."""
+    jm, jp, tm, tp = _setup("recurrentgemma-2b")
+    W = tm.cfg.local_window
+    specs = [(20, 8), (45, 6), (32, 8), (20, 5)]
+    arrivals = [0, 0, 2, 5]
+    kw = dict(slots=2, cache_len=W, max_new=8, ring=True)
+    prompts = [_prompt(S, 90 + i, 512) for i, (S, _) in enumerate(specs)]
+    jdone = JaxEngine(jm, jp, JaxConfig(**kw)).run(
+        [JaxRequest(rid=i, tokens=prompts[i], max_new=g)
+         for i, (_, g) in enumerate(specs)], arrivals=arrivals)
+    teng = _engine(tm, tp, **kw)
+    tdone = teng.run([Request(rid=i, tokens=prompts[i], max_new=g)
+                      for i, (_, g) in enumerate(specs)], arrivals=arrivals)
+    for i, (S, g) in enumerate(specs):
+        np.testing.assert_array_equal(tdone[i].tokens, jdone[i].tokens,
+                                      err_msg=f"request {i} vs JAX engine")
+        solo = generate(tm, tp, {"tokens": torch.tensor(
+            prompts[i], dtype=torch.long)[None]}, g, W, ring=True,
+            device="cpu")
+        np.testing.assert_array_equal(tdone[i].tokens, solo[0].numpy(),
+                                      err_msg=f"request {i} vs generate")
+        assert tdone[i].slot == jdone[i].slot
+
+
+def test_encdec_engine_with_frames_identical_to_jax_engine():
+    """whisper-tiny smoke (family ``encdec``): each request carries its own
+    ``frames`` (encoder_seq, d) through ``Request.extras``; the greedy
+    tokens equal the JAX engine's, and other frames give other tokens."""
+    jm, jp, tm, tp = _setup("whisper-tiny")
+    cfg = tm.cfg
+    specs = [(12, 5), (16, 6), (1, 4)]
+    kw = dict(slots=2, cache_len=16 + 6 + 1, max_new=6)
+    prompts = [_prompt(S, 60 + i, 512) for i, (S, _) in enumerate(specs)]
+    frames = [np.random.default_rng(50 + i).standard_normal(
+        (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        for i in range(len(specs) + 1)]
+    jdone = JaxEngine(jm, jp, JaxConfig(**kw)).run(
+        [JaxRequest(rid=i, tokens=prompts[i], max_new=g,
+                    extras={"frames": frames[i]})
+         for i, (_, g) in enumerate(specs)], arrivals=[0, 1, 2])
+
+    def port(shift):
+        return _engine(tm, tp, **kw).run(
+            [Request(rid=i, tokens=prompts[i], max_new=g,
+                     extras={"frames": frames[i + shift]})
+             for i, (_, g) in enumerate(specs)], arrivals=[0, 1, 2])
+
+    tdone, other = port(0), port(1)
+    for i in range(len(specs)):
+        np.testing.assert_array_equal(tdone[i].tokens, jdone[i].tokens,
+                                      err_msg=f"request {i}")
+    assert any((tdone[i].tokens != other[i].tokens).any()
+               for i in range(len(specs)))

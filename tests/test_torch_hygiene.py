@@ -53,7 +53,8 @@ def test_package_has_modules():
                  "kernels/csrc/serve_step.cu", "launch/serve_fleet.py",
                  "models/ssm.py", "kernels/ssd_scan.py",
                  "kernels/csrc/ssd_scan.cu", "models/moe.py",
-                 "launch/quickstart.py"):
+                 "launch/quickstart.py", "models/rglru.py",
+                 "models/encdec.py", "launch/serve_decode.py"):
         assert need in names
 
 

@@ -47,7 +47,7 @@ BULK_Q, BULK_TOL = 0.9, 1e-6
 CASES = [("granite-3-2b", {}), ("mamba2-1.3b", {})] + [
     ("olmoe-1b-7b", {"moe_mode": m, "capacity_factor": 0.5})
     for m in ("dense", "dispatch", "sorted", "sorted_local")] + [
-    ("internvl2-76b", {})]
+    ("internvl2-76b", {}), ("recurrentgemma-2b", {}), ("whisper-tiny", {})]
 
 
 def _models(arch, **over):
@@ -59,13 +59,17 @@ def _models(arch, **over):
 
 
 def _batch(cfg, lead, S=16, seed=1):
-    """Tokens (*lead, S) and, for a VLM, vision_embeds (*lead, n_vis, d)."""
+    """Tokens (*lead, S) and, for a VLM, vision_embeds (*lead, n_vis, d),
+    for an encoder-decoder frames (*lead, encoder_seq, d)."""
     r = np.random.default_rng(seed)
     b = {"tokens": r.integers(0, cfg.vocab_size, lead + (S,)).astype(
         np.int32)}
     if cfg.family == "vlm":
         b["vision_embeds"] = r.standard_normal(
             lead + (cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        b["frames"] = r.standard_normal(
+            lead + (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return b
 
 

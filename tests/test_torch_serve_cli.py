@@ -45,11 +45,52 @@ def test_cli_without_card_exits_nonzero_with_clear_message():
     assert "tok/s" not in out.stdout
 
 
+def _generated(arch, batch, prompt_len, gen, seed=0):
+    """Row 0 of the launcher's workload through the single-stream
+    `generate`, in process: the same seeded params and prompts."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import (_decode_shape, _make_prompt,
+                                          generate, seeded_generators)
+    from repro_torch.models import get_model
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    g_params, g_prompt, _ = seeded_generators(seed, torch.device("cpu"))
+    params = model.init_params(g_params)
+    prompt = _make_prompt(cfg, g_prompt, batch, prompt_len)
+    cache_len, ring, window = _decode_shape(cfg, prompt_len, gen)
+    return generate(model, params, prompt, gen, cache_len, ring=ring,
+                    window=window, device="cpu")[0].numpy()
+
+
 def test_cli_rejects_unported_family():
-    out = _run("--device", "cpu", "--arch", "recurrentgemma-2b", "--smoke")
-    assert out.returncode != 0
-    assert "not ported yet" in out.stderr
-    assert "Queue 1 item 20b" in out.stderr
+    """recurrentgemma-2b (family ``hybrid``, unported until ROADMAP.md
+    Queue 1 item 20b) now serves: prompts of 40 tokens past its smoke
+    config's 32-token local window, through the engine's ring cache; row
+    0's tokens equal the single-stream `generate`'s, and the measured
+    microbenchmark runs."""
+    out = _run("--device", "cpu", "--arch", "recurrentgemma-2b", "--smoke",
+               "--batch", "3", "--gen", "6", "--prompt-len", "40")
+    assert out.returncode == 0, out.stderr
+    assert ("arch=recurrentgemma-2b batch=3 prompt=40 generated=6"
+            in out.stdout)
+    assert "kernel launches (both passes): flash_attention 0" in out.stdout
+    assert "measured microbench on cpu" in out.stdout
+    want = _generated("recurrentgemma-2b", 3, 40, 6)
+    assert f"tokens[0]: {want}" in out.stdout
+
+
+def test_cli_serves_whisper_on_cpu():
+    """whisper-tiny (family ``encdec``): each prompt carries its frames
+    through ``Request.extras``; row 0's tokens equal the single-stream
+    `generate`'s, and the measured microbenchmark runs."""
+    out = _run("--device", "cpu", "--arch", "whisper-tiny", "--smoke",
+               "--batch", "3", "--gen", "6", "--prompt-len", "12")
+    assert out.returncode == 0, out.stderr
+    assert "arch=whisper-tiny batch=3 prompt=12 generated=6" in out.stdout
+    assert "kernel launches (both passes): flash_attention 0" in out.stdout
+    assert "measured microbench on cpu" in out.stdout
+    want = _generated("whisper-tiny", 3, 12, 6)
+    assert f"tokens[0]: {want}" in out.stdout
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b",

@@ -98,13 +98,16 @@ def test_serve_fleet_cli_refuses_trace_and_unported_archs():
     assert out.returncode == 1
     assert "Queue 1 item 21" in out.stderr
     out = _run("--device", "cpu", "--clients", "10", "--epochs", "1",
-               "--microbench", "recurrentgemma-2b")
-    assert out.returncode == 1
-    assert "Queue 1 item 20b" in out.stderr and "'hybrid'" in out.stderr
-    out = _run("--device", "cpu", "--clients", "10", "--epochs", "1",
                "--microbench", "cifar-cnn")
     assert out.returncode == 1
-    assert "no decode path" in out.stderr and "'ssm'" in out.stderr
+    assert "no decode path" in out.stderr and "'cnn'" in out.stderr
+    # recurrentgemma-2b, unported until ROADMAP.md Queue 1 item 20b, now
+    # prices requests from its own microbenchmark
+    out = _run("--device", "cpu", "--clients", "10", "--epochs", "1",
+               "--microbench", "recurrentgemma-2b")
+    assert out.returncode == 0, out.stderr
+    assert "microbench pricing (recurrentgemma-2b" in out.stdout
+    assert "client-epochs/s" in out.stdout
 
 
 def test_serve_fleet_cli_prices_from_the_mamba2_microbench():
