@@ -233,6 +233,36 @@ without either.  Phases, each of which raises on a failed check:
    fp32, on the card against the CPU from the card's params (phase 5's
    bounds).  recurrentgemma-2b does not train at full width on one card
    (its two 256000 x 2560 embeddings alone are 1.31 B params).
+20. Replay (run after phase 19): ``launch.fleet``'s trace scenario (the
+   bundled solar profiles replayed by ``TraceHarvest``, scaled per
+   client, plus the RF side channel) at N = 1e6 for 150 sustainable
+   rounds with histograms, and ``launch.serve_fleet``'s (``TraceTraffic``
+   over the request-log profiles, ``TraceHarvest``) at N = 1e6 for 192
+   gated epochs, each with its counts set to 0 just before and read just
+   after: one fleet_step / serve_step launch a round / epoch and no other
+   kernel, conservation (and the request ledger) every round, histogram
+   counts summing to N.  Card against the chip machine's CPU at N = 1e6:
+   10 rounds / epochs on the parity-oracle tables (a dyadic harvest table,
+   integer requests with ``poisson=False``) bitwise in masks, modes,
+   charge and streak, counts and ledger equal; the bundled tables' first
+   2 rounds / epochs within phases 8 and 10's bounds.  A table of T = N
+   slots padded to 1,000,448 clients equals the unpadded run bitwise on
+   the card (fleet and serving fleet).  Then ``launch/trace_fleet.py`` at
+   its defaults (50,000 clients, 192 epochs, the twins fitted on 256
+   clients x 240 epochs): one serve_step launch an epoch, the twins'
+   parameters finite, and their law re-fitted from its own samples on the
+   card within the reference's round-trip tolerances.  Prints
+   client-rounds/s and client-epochs/s.
+21. Obs (run after phase 20): phase 20's fleet run again under
+   ``Obs(tap=True)`` must equal the ``obs=None`` run bitwise in every
+   stat, charge and streak and log one manifest, 150 ``round`` and 450
+   ``hist`` events, which ``report.summarize`` / ``dist`` read; one
+   ``run_serve_controlled`` of the serving replay, 192 epochs in chunks of
+   24, logs 8 ``serve_chunk`` spans, 8 ``control`` events and no
+   ``retrace_warning``; a ``profiler_trace`` around one chunk holds the
+   ``serve_chunk`` annotation beside its 24 ``serve_step_kernel``
+   launches (taken again, up to five times, where the profiler missed
+   them).  Prints rounds/s with and without the tap.
 
 Every profile must record the kernels its window launched (the port's
 launch counts say how many), or it is taken again, and after ten the
@@ -4277,6 +4307,458 @@ def new_families_train_phase(torch, agg, seed: int, card: str) -> dict:
             "card_vs_cpu": smoke}
 
 
+# the replay phase (20): the fleets on the bundled day profiles, phase 8's
+# and phase 10's sizes and horizons
+REPLAY = dict(clients=1_000_000, rounds=150, epochs=192)
+REPLAY_EXACT_ROUNDS = 10            # card vs CPU on the parity-oracle tables
+REPLAY_CPU_ROUNDS = 2               # the bundled tables' first rounds
+REPLAY_PAD_TO = 1_000_448           # the T = N table's padded width
+REPLAY_PAD_ROUNDS = 10
+REPLAY_DYADIC = dict(capacity=4.0, leak=0.0, init_charge=0.5)
+# the fitted twins against the law they stand for, at the reference's
+# round-trip tolerances (its tests/test_traces.py): stay probabilities
+# within 0.08, rates within 15% (0.08 floor), the diurnal base within 10%
+# (0.05 floor), swing within 0.1, phase within 1.5 slots; and the twin's
+# mean harvest within 20% of the replay's (test_fit_from_trace_replay)
+TWIN_MEAN_RTOL = 0.2
+
+
+def _close(got, want, rel=0.15, floor=0.08) -> bool:
+    return abs(got - want) <= max(rel * abs(want), floor)
+
+
+def dyadic_table(T: int, P: int, step: float, mod: int) -> np.ndarray:
+    """(T, P) float32 rates on a dyadic grid: step * ((t P + p) % mod)."""
+    return (np.arange(T * P).reshape(T, P) % mod * step).astype(np.float32)
+
+
+def replay_phase(torch, fs, seed: int, card: str) -> tuple:
+    """Phase 20: (record, the fleet run's result and wall for phase 21)."""
+    from repro_torch.energy.arrivals import MarkovSolar
+    from repro_torch.energy.battery import BatteryConfig
+    from repro_torch.energy.costs import DecodeCostModel
+    from repro_torch.energy.fleet import FleetConfig, simulate_fleet
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fleet as lf
+    from repro_torch.launch import serve_fleet as ls
+    from repro_torch.launch import trace_fleet as tfl
+    from repro_torch.serve import fleet_serve
+    from repro_torch.serve.traffic import DiurnalPoisson
+    from repro_torch.traces import (TraceHarvest, TraceTraffic,
+                                    fit_diurnal_poisson, fit_markov_solar,
+                                    sample_paths)
+
+    def reset():
+        ops.zero_launches()
+        torch.cuda.synchronize()
+
+    def others(kernel):
+        return sum(c for name, c in ops.launch_counts().items()
+                   if name != kernel)
+
+    same = lambda x, y: torch.equal(x.cpu().view(torch.int32),
+                                    y.cpu().view(torch.int32))
+    n = REPLAY["clients"]
+    out, keep = {}, {}
+
+    # (a) launch.fleet's trace scenario, sustainable, hist
+    rounds = REPLAY["rounds"]
+    process, battery, E = lf.scenario(n, seed, "cuda", trace=True)
+    sust = lf.POLICIES[0][0]
+    reset()
+    res, wall, launches = lf.run_policy(process, E, n, rounds, sust, 1.0,
+                                        seed, True, "cuda")
+    s = res.stats
+    cons = conservation_check(s, n, float(battery.init(1)[0]) * n,
+                              fs.reduction_depth(n))
+    counts = all(np.array_equal(s[k].sum(axis=1), np.full(rounds, n))
+                 for k in ("hist_soc", "hist_spend", "hist_streak"))
+    finite = all(np.isfinite(v).all() for v in s.values())
+    ok = (launches == rounds == fs.fleet_step_cuda.launches
+          and others("fleet_step") == 0 and cons <= 1.0 and counts
+          and finite and s["participants"].shape == (rounds,))
+    print(f"replay fleet (launch.fleet --trace, sustainable, hist): N={n:,} "
+          f"x {rounds} rounds in {wall:.3f} s = {rounds / wall:.2f} "
+          f"rounds/s, {n * rounds / wall:.4g} client-rounds/s on {card}; "
+          f"participation {100 * res.participation_rate.mean():.2f}%, "
+          f"depleted {100 * s['frac_depleted'].mean():.2f}%; fleet_step "
+          f"launches {launches} (other kernels {others('fleet_step')}); "
+          f"conservation worst err/bound {cons:.3f}; hist counts sum to N "
+          f"{counts} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("replay fleet: a check failed")
+    out["fleet"] = {"clients": n, "rounds": rounds, "wall_s": wall,
+                    "rounds_per_s": rounds / wall,
+                    "client_rounds_per_s": n * rounds / wall,
+                    "launches": launches, "conservation": cons}
+    keep["fleet"] = (res, wall, process, E)
+
+    # (b) launch.serve_fleet's trace scenario, gated, as phase 10 runs it
+    epochs = REPLAY["epochs"]
+    traffic, harvest, cost, train = ls.scenario(n, "cuda", trace=True,
+                                                seed=seed)
+    reset()
+    res, _, wall, launches = ls.run("gated", traffic, harvest, cost, train,
+                                    n, epochs, seed, "cuda")
+    chk = serve_epoch_checks(res.stats, n, float(ls.BATTERY.init(1)[0]) * n,
+                             fs.reduction_depth(n))
+    finite = all(np.isfinite(v).all() for v in res.stats.values())
+    ok = (launches == epochs == fs.serve_step_cuda.launches
+          and others("serve_step") == 0 and chk["conservation"] <= 1.0
+          and chk["ledger"] and finite)
+    s = res.stats
+    off = s["offered"].sum()
+    print(f"replay serving fleet (launch.serve_fleet --trace, gated): "
+          f"N={n:,} x {epochs} epochs in {wall:.3f} s = {epochs / wall:.2f} "
+          f"epochs/s, {n * epochs / wall:.4g} client-epochs/s on {card}; "
+          f"served {100 * (s['served_full'].sum() + s['served_short'].sum()) / off:.2f}%, "
+          f"shed {100 * s['shed'].sum() / off:.2f}%, depleted "
+          f"{100 * s['frac_depleted'].mean():.2f}%; serve-program launches "
+          f"{launches} (other kernels {others('serve_step')}); conservation "
+          f"worst err/bound {chk['conservation']:.3f}, ledger every epoch "
+          f"{chk['ledger']} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("replay serving fleet: a check failed")
+    out["serve"] = {"clients": n, "epochs": epochs, "wall_s": wall,
+                    "epochs_per_s": epochs / wall,
+                    "client_epochs_per_s": n * epochs / wall,
+                    "launches": launches,
+                    "conservation": chk["conservation"]}
+    keep["serve"] = (traffic, harvest, cost, train)
+
+    # (c) card vs the chip machine's CPU: the parity-oracle tables (dyadic
+    # harvest, integer requests, poisson=False) bitwise, the bundled
+    # tables' first rounds within phases 8 and 10's bounds
+    checks = {}
+    on = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        proc = TraceHarvest.create(dyadic_table(24, 3, 0.25, 5), n,
+                                   seed=seed, device=dev)
+        on[dev] = lf.run_policy(proc, E.to(dev), n, REPLAY_EXACT_ROUNDS,
+                                sust, 1.0, seed, True, dev,
+                                record_masks=True)[0]
+        checks[f"dyadic_fleet_{dev}_s"] = time.perf_counter() - t0
+    a, b = on["cuda"], on["cpu"]
+    diff = fleet_compare(a, b, n)
+    bitwise = (same(a.masks, b.masks) and same(a.final_charge, b.final_charge)
+               and same(a.final_streak, b.final_streak))
+    ok = bitwise and fleet_within(diff, 0)
+    print(f"replay fleet card vs CPU, dyadic table N={n:,}, "
+          f"{REPLAY_EXACT_ROUNDS} sustainable rounds: masks, charge and "
+          f"streak bitwise {bitwise}; counts and hist equal "
+          f"{fleet_within(diff, 0)}; energy stats rel diff max "
+          f"{fleet_rel(diff):.3e} (tol {FLEET_STAT_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"replay fleet: the card's dyadic run differs "
+                             f"from the CPU's: {diff}")
+    checks["dyadic_fleet"] = diff
+    on = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        on[dev] = ls.run(
+            "controlled",
+            TraceTraffic.create(dyadic_table(24, 3, 1.0, 4), n, seed=seed,
+                                poisson=False, device=dev),
+            TraceHarvest.create(dyadic_table(24, 3, 0.5, 7), n, seed=seed,
+                                device=dev),
+            cost, None, n, REPLAY_EXACT_ROUNDS, seed, dev, hist=True,
+            record_modes=True)[0]
+        checks[f"dyadic_serve_{dev}_s"] = time.perf_counter() - t0
+    a, b = on["cuda"], on["cpu"]
+    diff = serve_compare(a, b, n)
+    bitwise = (torch.equal(a.modes.cpu(), b.modes)
+               and same(a.final_charge, b.final_charge)
+               and same(a.final_streak, b.final_streak))
+    ok = bitwise and serve_within(diff, 0)
+    print(f"replay serving fleet card vs CPU, integer requests (poisson="
+          f"False) + dyadic harvest N={n:,}, {REPLAY_EXACT_ROUNDS} "
+          f"controlled epochs (hist): modes, charge and streak bitwise "
+          f"{bitwise}; ledger and hist counts equal {serve_within(diff, 0)};"
+          f" energy stats rel diff max {serve_rel(diff):.3e} (tol "
+          f"{FLEET_STAT_RTOL}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"replay serving fleet: the card's integer run "
+                             f"differs from the CPU's: {diff}")
+    checks["dyadic_serve"] = diff
+
+    cpu_process, _, cpu_E = lf.scenario(n, seed, "cpu", trace=True)
+    a = lf.run_policy(process, E, n, REPLAY_CPU_ROUNDS, sust, 1.0, seed,
+                      True, "cuda", record_masks=True)[0]
+    t0 = time.perf_counter()
+    b = lf.run_policy(cpu_process, cpu_E, n, REPLAY_CPU_ROUNDS, sust, 1.0,
+                      seed, True, "cpu", record_masks=True)[0]
+    cpu_s = time.perf_counter() - t0
+    diff = fleet_compare(a, b, n)
+    flips = FLEET_FLIP_FRAC * n
+    ok = fleet_within(diff, flips)
+    print(f"replay fleet card vs CPU, bundled tables, first "
+          f"{REPLAY_CPU_ROUNDS} rounds (CPU {cpu_s:.1f} s): mask flips "
+          f"{diff['mask_flips']} (allowed {flips:.0f}); energy stats rel "
+          f"diff max {fleet_rel(diff):.3e} (tol {FLEET_STAT_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"replay fleet: the card's first rounds differ "
+                             f"from the CPU's: {diff}")
+    checks["bundled_fleet"] = diff
+    cpu_traffic, cpu_harvest, _, cpu_train = ls.scenario(n, "cpu", trace=True,
+                                                         seed=seed)
+    a = ls.run("gated", traffic, harvest, cost, train, n, REPLAY_CPU_ROUNDS,
+               seed, "cuda", record_modes=True)[0]
+    t0 = time.perf_counter()
+    b = ls.run("gated", cpu_traffic, cpu_harvest, cost, cpu_train, n,
+               REPLAY_CPU_ROUNDS, seed, "cpu", record_modes=True)[0]
+    cpu_s = time.perf_counter() - t0
+    diff = serve_compare(a, b, n)
+    flips = SERVE_FLIP_FRAC * n
+    ok = serve_within(diff, flips)
+    print(f"replay serving fleet card vs CPU, bundled tables, first "
+          f"{REPLAY_CPU_ROUNDS} epochs (CPU {cpu_s:.1f} s): mode flips "
+          f"{diff['mode_flips']} (allowed {flips:.0f}), ledger moved "
+          f"{max(diff[k] for k in LEDGER_STATS):.0f} (allowed "
+          f"{16 * flips:.0f}); energy stats rel diff max "
+          f"{serve_rel(diff):.3e} (tol {FLEET_STAT_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"replay serving fleet: the card's first "
+                             f"epochs differ from the CPU's: {diff}")
+    checks["bundled_serve"] = diff
+    out["card_vs_cpu"] = checks
+
+    # (d) padding invariance on the card: a table of T = N slots, padded
+    # to REPLAY_PAD_TO, equals the unpadded run bitwise (the reference's
+    # padding takes such a table for a client axis)
+    bat = BatteryConfig(**REPLAY_DYADIC)
+    dyadic_cost = DecodeCostModel(2.0 ** -8, 2.0 ** -9, 2.0 ** -6)
+    table = dyadic_table(n, 2, 0.25, 9)
+    cfg = FleetConfig(num_clients=n, policy="threshold", threshold=1.5,
+                      seed=seed)
+    proc = TraceHarvest.create(table, n, seed=seed, device="cuda")
+    fleets = [simulate_fleet(proc, bat, 0.75, cfg, REPLAY_PAD_ROUNDS,
+                             record_masks=True, pad_to=pad, device="cuda")
+              for pad in (None, REPLAY_PAD_TO)]
+    traffic_t = TraceTraffic.create(dyadic_table(n, 2, 1.0, 4), n, seed=seed,
+                                    poisson=False, device="cuda")
+    serves = [fleet_serve.simulate_serve(
+        traffic_t, proc, bat, dyadic_cost, ls.QOS,
+        ls.BatteryGated.create(n, device="cuda"),
+        fleet_serve.ServeConfig(num_clients=n, seed=seed), REPLAY_PAD_ROUNDS,
+        record_modes=True, pad_to=pad, device="cuda")
+        for pad in (None, REPLAY_PAD_TO)]
+    pad_ok = all(
+        torch.equal(getattr(x, per), getattr(y, per))
+        and same(x.final_charge, y.final_charge)
+        and all(np.array_equal(x.stats[k], y.stats[k]) for k in x.stats)
+        for (x, y), per in ((fleets, "masks"), (serves, "modes")))
+    print(f"replay padding on the card: a table of T = N = {n:,} slots, "
+          f"pad_to {REPLAY_PAD_TO:,}, {REPLAY_PAD_ROUNDS} rounds of the "
+          f"fleet and of the serving fleet: masks, modes, charge and every "
+          f"stat equal to the unpadded runs bitwise {pad_ok} "
+          f"{'ok' if pad_ok else 'FAIL'}", flush=True)
+    if not pad_ok:
+        raise AssertionError("replay: padding a T = N table changed the run")
+    out["padding_bitwise"] = pad_ok
+
+    # (e) launch/trace_fleet.py end to end at its defaults
+    reset()
+    t0 = time.perf_counter()
+    tf_out = tfl.run("cuda", seed=seed)
+    tf_wall = time.perf_counter() - t0
+    runs = tf_out["runs"]
+    twins = tf_out["twins"]
+    ts, al = twins["solar"], twins["aligned"]
+    params = {"p_stay_day": float(ts.p_stay_day[0]),
+              "p_stay_night": float(ts.p_stay_night[0]),
+              "day_mean": float(ts.day_mean[0]),
+              "night_mean": float(ts.night_mean[0]),
+              "base": float(al.base[0]), "swing": float(al.swing[0]),
+              "phase": float(al.phase[0])}
+    law = MarkovSolar.create(tfl.FIT_N, p_stay_day=params["p_stay_day"],
+                             p_stay_night=params["p_stay_night"],
+                             day_mean=params["day_mean"],
+                             night_mean=params["night_mean"], device="cuda")
+    law_paths = sample_paths(law, tfl.FIT_R, seed=seed + 1)
+    refit = fit_markov_solar(law_paths, 1)
+    solar, request = tfl.tables()
+    replay_mean = float(sample_paths(TraceHarvest.create(
+        solar, tfl.FIT_N, seed=seed, phase=np.zeros(tfl.FIT_N, np.int32),
+        gain_jitter=0.3, device="cuda"), tfl.FIT_R, seed=seed).mean())
+    dlaw = DiurnalPoisson.create(tfl.FIT_N, base=params["base"],
+                                 swing=params["swing"], phase=params["phase"],
+                                 device="cuda")
+    drefit = fit_diurnal_poisson(sample_paths(dlaw, tfl.FIT_R, seed=seed + 2),
+                                 1)
+    dphase = abs(float(drefit.phase[0]) - params["phase"])
+    trips = {
+        "p_stay_day": _close(float(refit.p_stay_day[0]),
+                             params["p_stay_day"]),
+        "p_stay_night": _close(float(refit.p_stay_night[0]),
+                               params["p_stay_night"]),
+        "day_mean": _close(float(refit.day_mean[0]), params["day_mean"]),
+        "night_mean": _close(float(refit.night_mean[0]),
+                             params["night_mean"]),
+        "base": _close(float(drefit.base[0]), params["base"], 0.1, 0.05),
+        "swing": abs(float(drefit.swing[0]) - params["swing"]) <= 0.1,
+        "phase": min(dphase, 24.0 - dphase) <= 1.5,
+        "twin_mean": abs(float(law_paths.mean()) - replay_mean)
+        <= TWIN_MEAN_RTOL * replay_mean}
+    finite = all(math.isfinite(v) for v in params.values())
+    tf_launches = {name: r[3] for name, r in runs.items()}
+    tf_n = tf_out["replay"][0].num_clients
+    tf_epochs = {name: len(r[0].stats["offered"]) for name, r in runs.items()}
+    ok = (finite and all(trips.values()) and tf_launches == tf_epochs
+          and others("serve_step") == 0)
+    print(f"trace_fleet (defaults: N={tf_n:,}, {tf_epochs['trace']} epochs, "
+          f"trace and twin) in "
+          f"{tf_wall:.2f} s on {card}: twins {params}; round trip of the "
+          f"twins' law within the reference's tolerances {trips}; "
+          f"serve-program launches {tf_launches} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("trace_fleet: a check failed")
+    out["trace_fleet"] = {
+        "wall_s": tf_wall, "twins": params, "round_trip": trips,
+        "fit_s": twins["fit_s"], "launches": tf_launches,
+        "epochs_per_s": {name: tf_epochs[name] / r[2]
+                         for name, r in runs.items()},
+        "client_epochs_per_s": {name: tf_n * tf_epochs[name] / r[2]
+                                for name, r in runs.items()}}
+    out["launches"] = {"fleet": out["fleet"]["launches"],
+                       "serve": out["serve"]["launches"],
+                       "trace_fleet": sum(tf_launches.values())}
+    return out, keep
+
+
+OBS_CONTROL_EVERY = 24
+OBS_PROFILE_TRIES = 5
+
+
+def obs_phase(torch, fs, seed: int, card: str, keep: dict) -> dict:
+    """Phase 21: the replay runs under ``obs=`` on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fleet as lf
+    from repro_torch.launch import serve_fleet as ls
+    from repro_torch.obs import Obs, load_events, profiler_trace
+    from repro_torch.obs import report
+
+    n, rounds, epochs = (REPLAY["clients"], REPLAY["rounds"],
+                         REPLAY["epochs"])
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    base, base_wall, process, E = keep["fleet"]
+    ops.zero_launches()
+    torch.cuda.synchronize()
+    with Obs(os.path.join(tmp, "fleet"), tap=True) as obs:
+        res, wall, launches = lf.run_policy(process, E, n, rounds,
+                                            lf.POLICIES[0][0], 1.0, seed,
+                                            True, "cuda", obs=obs)
+    same = (set(res.stats) == set(base.stats)
+            and all(np.array_equal(res.stats[k].view(np.uint8),
+                                   base.stats[k].view(np.uint8))
+                    for k in base.stats)
+            and torch.equal(res.final_charge.view(torch.int32),
+                            base.final_charge.view(torch.int32))
+            and torch.equal(res.final_streak, base.final_streak))
+    ev = load_events(obs.log.path)
+    kinds = [e["kind"] for e in ev]
+    rounds_ev = [e for e in ev if e["kind"] == "round"]
+    logged = (kinds.count("manifest") == 1 and len(rounds_ev) == rounds
+              and kinds.count("hist") == 3 * rounds
+              and [e["round"] for e in rounds_ev] == list(range(rounds))
+              and [e["participants"] for e in rounds_ev]
+              == base.stats["participants"].tolist())
+    summary = report.summarize(ev)
+    text = report.render_summary(summary)
+    dist = report.dist(ev)
+    md = report.render_dist(dist)
+    reads = (summary["scans"]["fleet"]["rounds"] == rounds
+             and "torch=" in text and "hist_soc" in md
+             and dist["scans"]["fleet"]["hists"]["hist_soc"]["rounds"]
+             == rounds)
+    ok = same and logged and reads and launches == rounds
+    print(f"obs fleet (phase 20's replay fleet, Obs(tap=True), hist): stats,"
+          f" charge and streak bitwise the obs=None run {same}; 1 manifest,"
+          f" {len(rounds_ev)} round and {kinds.count('hist')} hist events "
+          f"{logged}; report summary and dist read it {reads}; "
+          f"{rounds / wall:.2f} rounds/s with the tap vs "
+          f"{rounds / base_wall:.2f} without ({n * rounds / wall:.4g} vs "
+          f"{n * rounds / base_wall:.4g} client-rounds/s) on {card}; "
+          f"fleet_step launches {launches} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("obs fleet: a check failed")
+    out["fleet"] = {"bitwise": same, "events": len(ev),
+                    "tap_rounds_per_s": rounds / wall,
+                    "rounds_per_s": rounds / base_wall,
+                    "tap_cost_ms_per_round": (wall - base_wall) / rounds * 1e3,
+                    "launches": launches}
+
+    traffic, harvest, cost, train = keep["serve"]
+    ops.zero_launches()
+    torch.cuda.synchronize()
+    with Obs(os.path.join(tmp, "serve")) as obs:
+        res, ctrl, wall, launches = ls.run(
+            "controlled", traffic, harvest, cost, train, n, epochs, seed,
+            "cuda", obs=obs)
+    ev = load_events(obs.log.path)
+    kinds = [e["kind"] for e in ev]
+    spans = [e for e in ev if e["kind"] == "span"]
+    chunks = epochs // OBS_CONTROL_EVERY
+    ok = (kinds.count("manifest") == 1 and kinds.count("round") == epochs
+          and len(spans) == chunks
+          and all(e["name"] == "serve_chunk" for e in spans)
+          and kinds.count("control") == chunks
+          and "retrace_warning" not in kinds and launches == epochs)
+    span_ms = [e["ms"] for e in spans]
+    print(f"obs run_serve_controlled (replay, N={n:,}, {epochs} epochs, "
+          f"control every {OBS_CONTROL_EVERY}): {len(spans)} serve_chunk "
+          f"spans ({min(span_ms):.1f}-{max(span_ms):.1f} ms), "
+          f"{kinds.count('control')} control events, "
+          f"{kinds.count('retrace_warning')} retrace warnings, "
+          f"{kinds.count('round')} round events; serve-program launches "
+          f"{launches}; {epochs / wall:.2f} epochs/s on {card} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("obs serve: a check failed")
+    out["serve_controlled"] = {"spans_ms": span_ms, "wall_s": wall,
+                               "launches": launches,
+                               "epochs_per_s": epochs / wall}
+
+    # a profiler trace around one chunk: the span beside the kernel
+    for taken in range(1, OBS_PROFILE_TRIES + 1):
+        trace_dir = os.path.join(tmp, f"trace{taken}")
+        with Obs(os.path.join(tmp, f"chunk{taken}")) as obs:
+            with profiler_trace(trace_dir):
+                ls.run("controlled", traffic, harvest, cost, train, n,
+                       OBS_CONTROL_EVERY, seed, "cuda", obs=obs)
+                torch.cuda.synchronize()
+        (path,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        with open(path) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+        found = {"serve_chunk": names.count("serve_chunk"),
+                 "serve_step_kernel": sum("serve_step_kernel" in x
+                                          for x in names)}
+        if found["serve_chunk"] >= 1 \
+                and found["serve_step_kernel"] == OBS_CONTROL_EVERY:
+            break
+        print(f"profiler trace {taken} of {OBS_PROFILE_TRIES} incomplete: "
+              f"{found}", flush=True)
+    else:
+        raise AssertionError(f"obs: the profiler trace lacks the span or "
+                             f"the kernel: {found}")
+    print(f"obs profiler_trace around one {OBS_CONTROL_EVERY}-epoch chunk: "
+          f"{found['serve_chunk']} serve_chunk annotations beside "
+          f"{found['serve_step_kernel']} serve_step_kernel launches in the "
+          f"Chrome trace ({len(names)} events) ok", flush=True)
+    out["profiler_trace"] = dict(found, traces=taken)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4348,6 +4830,9 @@ def main(argv=None) -> int:
     serve_hybrid = hybrid_serve_phase(torch, fa, args.seed, card)
     serve_encdec = encdec_serve_phase(torch, fa, args.seed, card)
     train_new = new_families_train_phase(torch, agg, args.seed, card)
+    replay, replay_keep = replay_phase(torch, fs, args.seed, card)
+    obs = obs_phase(torch, fs, args.seed, card, replay_keep)
+    del replay_keep
     kernel["launches_by_path"] = {
         "serve granite-3-2b": serve["flash_launches"],
         **{f"serve olmoe-1b-7b {mode}": r["flash_launches"]
@@ -4362,6 +4847,18 @@ def main(argv=None) -> int:
         "train whisper-tiny": train_new["fused_agg_launches"]}
     agg_kernel["launches"] = sum(agg_kernel["launches_by_path"].values())
     agg_kernel["lm_tree"] = train_lm["agg_tree"]
+    fleet_kernel["launches_by_path"] = {
+        "fleet scenario (4 runs)": fleet["launches"],
+        "fleet trace replay": replay["launches"]["fleet"],
+        "fleet trace replay, obs tap": obs["fleet"]["launches"]}
+    fleet_kernel["launches"] = sum(fleet_kernel["launches_by_path"].values())
+    serve_kernel["launches_by_path"] = {
+        "serving fleet scenario (3 runs)": serve_fleet["launches"],
+        "serving fleet trace replay": replay["launches"]["serve"],
+        "trace_fleet (trace and twin)": replay["launches"]["trace_fleet"],
+        "run_serve_controlled trace replay, obs":
+            obs["serve_controlled"]["launches"]}
+    serve_kernel["launches"] = sum(serve_kernel["launches_by_path"].values())
     for k, kind, unit in ((fleet_kernel, "fleet", "round"),
                           (serve_kernel, "serve", "epoch")):
         name = "fleet_step" if kind == "fleet" else "serve_step"
@@ -4385,7 +4882,8 @@ def main(argv=None) -> int:
               "sharded": sharded, "serve_moe": serve_moe,
               "serve_vlm": serve_vlm, "train_lm": train_lm,
               "serve_hybrid": serve_hybrid, "serve_encdec": serve_encdec,
-              "train_new_families": train_new}
+              "train_new_families": train_new, "replay": replay,
+              "obs": obs}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.energy.arrivals import map_tensors
+from repro_torch.energy.arrivals import map_clients
 
 PyTree = Any
 
@@ -93,8 +93,9 @@ def slab(n_pad: int, mesh) -> tuple[int, int]:
 
 def shard_fleet(tree: PyTree, n_pad: int, mesh, device) -> PyTree:
     """A fleet tree on this rank: every tensor with a leading client dim of
-    ``n_pad`` sliced to the rank's slab, every other one replicated; all
-    moved to ``device``."""
+    ``n_pad`` sliced to the rank's slab, every other one (and a replay's
+    table, whatever its shape: `map_clients`) replicated; all moved to
+    ``device``."""
     first, n_local = slab(n_pad, mesh)
 
     def leaf(x):
@@ -102,7 +103,7 @@ def shard_fleet(tree: PyTree, n_pad: int, mesh, device) -> PyTree:
             x = x[first:first + n_local]
         return x.to(device)
 
-    return map_tensors(tree, leaf)
+    return map_clients(tree, leaf, lambda x: x.to(device))
 
 
 def gather_clients(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
@@ -123,7 +124,7 @@ def gather_clients(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
 def gather_fleet(tree: PyTree, n_local: int, mesh) -> PyTree:
     """`gather_clients` on every tensor of a fleet tree whose leading dim
     is the slab's ``n_local``; other leaves are kept."""
-    return map_tensors(tree, lambda x: gather_clients(x, mesh)
+    return map_clients(tree, lambda x: gather_clients(x, mesh)
                        if x.dim() and x.shape[0] == n_local else x)
 
 

@@ -1,8 +1,9 @@
 """The energy-harvesting subsystem of the port: stochastic arrivals, battery
 dynamics, device cost models, the fleet round step and the fleet-scale
 battery-gated scheduling simulator with its closed-loop hook for
-``core.simulate``, and the battery-aware server controller
-(``energy.control``)."""
+``core.simulate``, the battery-aware server controller
+(``energy.control``), and replayed harvest traces (``TraceHarvest``, from
+``repro_torch.traces``)."""
 from repro_torch.energy.arrivals import (
     Bernoulli,
     CompoundPoisson,
@@ -38,6 +39,7 @@ from repro_torch.energy.fleet import (
     fleet_mask,
     simulate_fleet,
 )
+from repro_torch.traces.replay import TraceHarvest
 
 __all__ = [
     "Bernoulli", "CompoundPoisson", "DeterministicRenewal", "MarkovSolar",
@@ -49,5 +51,5 @@ __all__ = [
     "DEVICE_WATTS", "JOULES_PER_BYTE_RADIO", "JOULES_PER_FLOP",
     "DecodeCostModel", "DeviceCostModel", "from_flops",
     "FLEET_POLICIES", "EnergyLoop", "FleetConfig", "FleetResult",
-    "fleet_mask", "simulate_fleet",
+    "fleet_mask", "simulate_fleet", "TraceHarvest",
 ]

@@ -19,10 +19,8 @@ harvests and `MarkovSolar`'s regimes are bitwise equal to the reference's.
 The exponential marks (`MarkovSolar`, `CompoundPoisson`) are within a few
 ulp of it (``prng.exponential``), and the truncated-Poisson counts equal
 its counts except where ``u`` lies within a few ulp of a cdf step
-(``exp`` is rounded differently).
-
-``TraceHarvest`` (replayed day profiles) waits for ``ROADMAP.md`` Queue 1
-item 21.
+(``exp`` is rounded differently).  ``TraceHarvest`` (replayed day
+profiles) lives in `repro_torch.traces.replay`.
 """
 from __future__ import annotations
 
@@ -53,6 +51,27 @@ def map_tensors(obj, fn: Callable[[torch.Tensor], torch.Tensor]):
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
             f.name: map_tensors(getattr(obj, f.name), fn)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def map_clients(obj, fn: Callable[[torch.Tensor], torch.Tensor],
+                shared: Callable[[torch.Tensor], torch.Tensor] = lambda t: t):
+    """`map_tensors` for the client-axis machinery (padding, slicing,
+    sharding and gathering a fleet): ``fn`` on every tensor that may carry
+    the client axis, ``shared`` on the fields a dataclass names in its
+    ``SHARED_FIELDS``, which never do whatever their shape (a replay's
+    (T, P) table: a T equal to the fleet's width is not a client axis)."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(map_clients(x, fn, shared) for x in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        keep = getattr(obj, "SHARED_FIELDS", ())
+        return dataclasses.replace(obj, **{
+            f.name: (map_tensors(getattr(obj, f.name), shared)
+                     if f.name in keep
+                     else map_clients(getattr(obj, f.name), fn, shared))
             for f in dataclasses.fields(obj)})
     return obj
 

@@ -17,12 +17,17 @@ card once per control period.  Consumers: `run_controlled` (chunked
 run_serve_controlled`` and ``core.simulate(..., energy=EnergyLoop(...,
 controller=...))``.  Under a ``mesh`` (`run_controlled`, ``run_serve_
 controlled``) the stats are replicated on every rank, so every rank's
-controller takes the same decisions.  Differences from the reference:
-`run_controlled` has no ``obs=`` (``ROADMAP.md`` Queue 1 item 22) or
-``checkpoint=`` / ``resume=`` (items 23-24); each raises, naming its item.
+controller takes the same decisions.  With ``obs=`` (a
+`repro_torch.obs.Obs`) `run_controlled` streams at chunk boundaries: the
+manifest, a ``fleet_chunk`` span a chunk, the chunk's rounds, a
+``control`` event after each update and the retrace sentinel.
+Differences from the reference: `run_controlled` has no ``checkpoint=`` /
+``resume=`` (``ROADMAP.md`` Queue 1 items 23-24); they raise, naming
+their items.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Sequence
 
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.energy import fleet as fleet_lib
+from repro_torch.kernels import ops
 from repro_torch.obs import hist as hist_lib
 
 CHECKPOINT_NOT_PORTED = ("run_controlled(checkpoint=/resume=): run "
@@ -412,12 +418,23 @@ def run_controlled(process, bat, cost, cfg, num_rounds: int,
     are replicated, so every rank takes the same decisions.  A controller with ``groups`` gets
     per-group telemetry (``BudgetRule`` then moves each ``E_k`` from its own
     group).  ``hist=True`` carries the depletion streak and gives
-    `Telemetry` its histogram quantiles.
+    `Telemetry` its histogram quantiles.  ``obs`` streams each chunk's
+    rounds when the controller has read them, with a ``fleet_chunk`` span,
+    a ``control`` event and the retrace sentinel.
 
     Returns ``(FleetResult over the full horizon, controller)``.
     """
     if checkpoint is not None or resume:
         raise NotImplementedError(CHECKPOINT_NOT_PORTED)
+    sentinel = None
+    if obs is not None:
+        from repro_torch.obs.profile import RetraceSentinel
+        obs.write_manifest(
+            "fleet_controlled", config=(process, bat, cost),
+            seed=cfg.seed, backend=ops.backend(device), mesh=mesh,
+            num_clients=cfg.num_clients, horizon=num_rounds, device=device,
+            control_every=control_every, policy=cfg.policy)
+        sentinel = RetraceSentinel(obs)
     chunks: list[fleet_lib.FleetResult] = []
     state, offset = None, 0
     groups = controller.groups
@@ -425,15 +442,27 @@ def run_controlled(process, bat, cost, cfg, num_rounds: int,
     while offset < num_rounds:
         chunk = min(control_every, num_rounds - offset)
         ccfg = dataclasses.replace(cfg, local_steps=controller.T)
-        res = fleet_lib.simulate_fleet(
-            process, bat, cost, ccfg, chunk,
-            E=controller.client_E(cfg.num_clients), phase=phase,
-            record_masks=record_masks, mesh=mesh, pad_to=pad_to, state=state,
-            round_offset=offset, groups=groups, num_groups=num_groups,
-            obs=obs, hist=hist, device=device)
+        with contextlib.ExitStack() as stack:
+            if obs is not None:
+                stack.enter_context(obs.span("fleet_chunk"))
+            res = fleet_lib.simulate_fleet(
+                process, bat, cost, ccfg, chunk,
+                E=controller.client_E(cfg.num_clients), phase=phase,
+                record_masks=record_masks, mesh=mesh, pad_to=pad_to,
+                state=state, round_offset=offset, groups=groups,
+                num_groups=num_groups, hist=hist, device=device)
         state = res.final_state
         chunks.append(res)
         controller.update(res.stats, cfg.num_clients)
+        if obs is not None:
+            obs.rounds("fleet", offset, res.stats)
+            obs.event("control", round=offset + chunk, T=controller.state.T,
+                      E_mean=float(np.mean(controller.state.E)),
+                      admit=controller.state.admit)
+            if offset == 0:
+                sentinel.snapshot()
+            else:
+                sentinel.check(context=f"fleet chunk at round {offset}")
         offset += chunk
     stats = ({k: np.concatenate([c.stats[k] for c in chunks])
               for k in chunks[0].stats} if chunks else {})

@@ -35,10 +35,17 @@ participants, harvested, consumed, leaked, overflowed, mean_charge and
 frac_depleted; with ``groups``, (R, G) group_participants and
 group_frac_depleted; with ``hist=True``, (R, bins) histogram counts.
 
+With ``obs=`` (a `repro_torch.obs.Obs`) the run writes its manifest and
+one ``round`` event a round (``hist`` events with ``hist=True``): a round
+at a time from inside the loop when ``obs.tap`` is set (one host copy of
+the round's stats), else from the stacked stats at the end of the run.
+``obs=None`` is the un-instrumented run: no host copy, no launch.
+
 Differences from the reference: rounds are a Python loop (no ``jit``, no
-``use_jit``); a mesh's ranks are processes; histogram counts are
-all-reduced as exact integers; ``obs=`` raises, naming ``ROADMAP.md``
-Queue 1 item 22; ``device`` picks the card (default) or the CPU.
+``use_jit``), so the round tap is a call in the loop, not an
+``io_callback``; a mesh's ranks are processes; histogram counts are
+all-reduced as exact integers; ``device`` picks the card (default) or the
+CPU.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
 from repro_torch.energy import battery as battery_lib
 from repro_torch.energy import step_ops
-from repro_torch.energy.arrivals import map_tensors
+from repro_torch.energy.arrivals import map_clients, map_tensors
 from repro_torch.energy.costs import DeviceCostModel
 from repro_torch.kernels import ops
 
@@ -64,9 +71,6 @@ PyTree = Any
 # policies with a battery-gated fleet implementation (fleet_mask)
 FLEET_POLICIES: tuple[Policy, ...] = (
     Policy.SUSTAINABLE, Policy.GREEDY, Policy.THRESHOLD, Policy.ALWAYS)
-
-OBS_NOT_PORTED = ("simulate_fleet(obs=...): observability is not ported "
-                  "yet (ROADMAP.md Queue 1 item 22)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,7 +145,7 @@ def _pad_clients(tree: PyTree, n: int, n_pad: int) -> PyTree:
     """Edge-pad every tensor with a leading client dim of ``n`` to ``n_pad``
     by replicating the last real client (so renewal cycles and capacities
     stay well defined on the padding lanes; their telemetry is excluded
-    by ``valid``)."""
+    by ``valid``).  A replay's table is never padded (`map_clients`)."""
     if n_pad == n:
         return tree
 
@@ -153,14 +157,14 @@ def _pad_clients(tree: PyTree, n: int, n_pad: int) -> PyTree:
                                                 + tuple(x.shape[1:]))])
         return x
 
-    return map_tensors(tree, leaf)
+    return map_clients(tree, leaf)
 
 
 def _slice_clients(tree: PyTree, n: int, n_pad: int) -> PyTree:
     """Drop the padding lanes again."""
     if n_pad == n:
         return tree
-    return map_tensors(tree, lambda x: x[:n] if x.dim() and x.shape[0] == n_pad
+    return map_clients(tree, lambda x: x[:n] if x.dim() and x.shape[0] == n_pad
                        else x)
 
 
@@ -249,6 +253,8 @@ def simulate_fleet(process, bat: battery_lib.BatteryConfig, cost,
       groups: optional (N,) int client -> group assignment (with
         ``num_groups``, default max + 1): the stats gain (R, G)
         ``group_participants`` / ``group_frac_depleted``.
+      obs: a `repro_torch.obs.Obs`: the manifest and the round events
+        (streamed a round at a time when ``obs.tap`` is set).
       hist: the fixed-bin histograms ``hist_soc``, ``hist_spend``,
         ``hist_streak`` (exact counts), carrying the per-client
         consecutive-depleted streak.
@@ -258,8 +264,6 @@ def simulate_fleet(process, bat: battery_lib.BatteryConfig, cost,
     Returns:
       `FleetResult` with per-round telemetry as host numpy arrays.
     """
-    if obs is not None:
-        raise NotImplementedError(OBS_NOT_PORTED)
     dev = resolve_device(device)
     if mesh is not None:
         sharding.check_device(mesh, dev)
@@ -296,6 +300,14 @@ def simulate_fleet(process, bat: battery_lib.BatteryConfig, cost,
                               device=dev).contiguous()
     pstate0 = map_tensors(pstate0, lambda t: t.to(dev))
 
+    if obs is not None:
+        obs.write_manifest("fleet", config=(process, bat, round_cost),
+                           seed=cfg.seed, backend=ops.backend(dev),
+                           mesh=mesh, num_clients=n, horizon=num_rounds,
+                           device=dev, policy=Policy(cfg.policy).value,
+                           round_offset=round_offset, hist=bool(hist))
+    tap = obs.round_tap("fleet") if obs is not None and obs.tap else None
+
     n_pad = padded_width(n, mesh, pad_to)
     valid = (torch.arange(n_pad, device=dev) < n).float()
     tree = _pad_clients(
@@ -318,8 +330,12 @@ def simulate_fleet(process, bat: battery_lib.BatteryConfig, cost,
         outs.append(s)
         if record_masks:
             masks.append(mask)
+        if tap is not None:
+            tap(round_offset + r, s)
     stats = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
              for k in outs[0]} if outs else {}
+    if obs is not None and tap is None:
+        obs.rounds("fleet", round_offset, stats)
     masks = torch.stack(masks) if record_masks and masks else None
     if mesh is not None:          # the slabs, once, at the end of the run
         carry = sharding.gather_fleet(carry, n_local, mesh)

@@ -3,6 +3,8 @@ the wrapper raises), a CPU tensor takes the kernel's plain version.  There
 is no fallback from one to the other."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fleet_step as _fleet
 from repro_torch.kernels import fused_agg as _agg
@@ -78,6 +80,13 @@ def fleet_step(program, env, *, n: int, emit: bool = False,
         return _fleet.fleet_step_plain(program, env, n=n, emit=emit,
                                        num_groups=num_groups)
     raise ValueError(f"fleet_step: no kernel for device {dev}")
+
+
+def backend(device) -> str:
+    """The executor of the port's kernels on ``device`` (a run manifest's
+    ``backend``): ``"cuda"``, the hand-written kernels, on the card and
+    ``"plain"``, their plain versions, on the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "plain"
 
 
 def kernel_wrappers() -> dict:

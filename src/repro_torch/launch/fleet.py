@@ -2,7 +2,8 @@
 ``examples/energy_fleet.py``): 200,000 solar-harvesting clients.
 
 Compares the battery-gated scheduling policies (Algorithm 1's sustainable
-slot draw, greedy, threshold 1.5) under a day/night "solar" harvest with a
+slot draw, greedy, threshold 1.5) under a day/night solar harvest (the
+Markov twin, or with ``--trace`` the bundled day profiles replayed) with a
 compound-Poisson ambient-RF side channel.  The whole fleet (battery
 charge, process state, telemetry) lives on the device, and each round runs
 the per-client draws and then one ``fleet_step`` kernel launch.  Prints
@@ -12,6 +13,7 @@ kernel's launch count; then a short closed-loop training run
 realised harvests.
 
   python -m repro_torch.launch.fleet                       # the card
+  python -m repro_torch.launch.fleet --trace --obs-dir runs/fleet
   python -m repro_torch.launch.fleet --device cpu --clients 2000 --rounds 10
   torchrun --nproc-per-node K -m repro_torch.launch.fleet  # K cards
 
@@ -19,12 +21,12 @@ Under ``torchrun`` (``WORLD_SIZE`` above 1) the client axis is sharded over
 the ranks (a one-dimensional ``("data",)`` mesh; NCCL, each rank on
 ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``), as the example does
 when JAX sees more than one device; rank 0 prints, and the launch counts
-are its own.  The closed loop runs on each rank alone.
+are its own.  The closed loop runs on each rank alone.  ``--obs-dir``
+streams the three policy runs into one event log (rank 0's).
 
-Differences from the example: ``--trace`` (replayed day profiles) exits 1
-(``ROADMAP.md`` Queue 1 item 21); ``--backend``, ``--obs-dir`` and the
-checkpoint flags have no counterpart; ``--rounds`` and ``--device`` are
-new.
+Differences from the example: ``--backend`` and the checkpoint flags have
+no counterpart (``ROADMAP.md`` Queue 1 items 23-24); ``--rounds`` and
+``--device`` are new.
 """
 from __future__ import annotations
 
@@ -44,25 +46,27 @@ from repro_torch.energy.arrivals import (CompoundPoisson, MarkovSolar, Scaled,
 from repro_torch.energy.battery import BatteryConfig
 from repro_torch.energy.fleet import EnergyLoop, FleetConfig, simulate_fleet
 from repro_torch.kernels import fleet_step
+from repro_torch.launch import scenario as scen
 from repro_torch.optim import sgd
 
-TRACE_NOT_PORTED = ("--trace: replayed day profiles are not ported yet "
-                    "(ROADMAP.md Queue 1 item 21: traces)")
 POLICIES = ((Policy.SUSTAINABLE, 1.0), (Policy.GREEDY, 1.0),
             (Policy.THRESHOLD, 1.5))
 BATTERY = BatteryConfig(capacity=2.5, leak=0.02, init_charge=0.5)
 
 
-def scenario(n: int, seed: int, device) -> tuple:
-    """The example's fleet: a Markov day/night solar panel (day mean 0.9 J,
-    stay 0.92) scaled by a per-client gain U(0.5, 2) drawn from
-    ``np.random.RandomState(seed)``, plus a compound-Poisson RF scavenger
-    (rate 0.1, mean 0.3 J); the paper's §V cycles E.  Returns (process,
-    battery, E)."""
+def scenario(n: int, seed: int, device, trace: bool = False,
+             trace_path: str | None = None) -> tuple:
+    """The example's fleet: a day/night solar panel at a mean of 0.45 J a
+    round (the Markov twin with day mean 0.9 J and stay 0.92, or with
+    ``trace`` the bundled solar profiles replayed) scaled by a per-client
+    gain U(0.5, 2) drawn from ``np.random.RandomState(seed)``, plus a
+    compound-Poisson RF scavenger (rate 0.1, mean 0.3 J); the paper's §V
+    cycles E.  Returns (process, battery, E)."""
     rs = np.random.RandomState(seed)
     process = Sum((
-        Scaled.create(MarkovSolar.create(n, p_stay_day=0.92,
-                                         p_stay_night=0.92, day_mean=0.9,
+        Scaled.create(scen.solar_harvest(n, trace=trace, seed=seed,
+                                         trace_path=trace_path,
+                                         day_mean=0.9, p_stay=0.92,
                                          device=device),
                       gain=rs.uniform(0.5, 2.0, n).astype(np.float32)),
         CompoundPoisson.create(n, rate=0.1, mean_amount=0.3, device=device),
@@ -118,30 +122,29 @@ def main(argv=None) -> int:
                     help="fixed-bin histograms of per-client state of "
                          "charge, spend and the depletion streak")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--trace", action="store_true",
-                    help="replayed day profiles (not ported yet)")
+    scen.add_scenario_flags(ap)
     args = ap.parse_args(argv)
-    if args.trace:
-        print(f"error: {TRACE_NOT_PORTED}", file=sys.stderr)
-        return 1
     device = resolve_device(args.device)
     mesh, device = sharding.mesh_from_env(args.device)
     say = print if sharding.is_lead(mesh) else (lambda *a, **k: None)
     N, R = args.clients, args.rounds
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    process, _, E = scenario(N, args.seed, device)
+    process, _, E = scenario(N, args.seed, device, args.trace,
+                             args.trace_path)
+    obs = scen.make_obs(args, mesh)
     if mesh is not None:
         say(f"sharding the client axis over {mesh.size()} ranks")
-    say(f"fleet: N={N:,} clients, {R} rounds, synthetic solar + RF "
-        f"harvest, seed={args.seed}, device={where}\n")
+    say(f"fleet: N={N:,} clients, {R} rounds, "
+        f"{scen.scenario_name(args.trace)} solar + RF harvest, "
+        f"seed={args.seed}, device={where}\n")
     say(f"{'policy':>12} {'part%':>7} {'spent J':>10} {'wasted J':>10} "
         f"{'leaked J':>9} {'depleted%':>9} {'rounds/s':>9} "
         f"{'client-rounds/s':>15} {'launches':>8}")
     for policy, thr in POLICIES:
         res, wall, launches = run_policy(process, E, N, R, policy, thr,
                                          args.seed, args.hist, device,
-                                         mesh=mesh)
+                                         mesh=mesh, obs=obs)
         s = res.stats
         say(f"{policy.value:>12} {100 * res.participation_rate.mean():7.2f} "
             f"{s['consumed'].sum():10.0f} {s['overflowed'].sum():10.0f} "
@@ -158,6 +161,10 @@ def main(argv=None) -> int:
         say(f"  round {h['round']:2d}: participants={h['participants']} "
             f"mean_charge={h['energy_mean_charge']:.2f} "
             f"loss={h.get('loss', float('nan')):.4f}")
+    if obs is not None:
+        obs.close()
+        say(f"\nobs events -> {obs.log.path}  (python -m "
+            f"repro_torch.obs.report summary {args.obs_dir})")
     if mesh is not None:
         torch.distributed.destroy_process_group()
     return 0

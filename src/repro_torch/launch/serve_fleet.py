@@ -17,6 +17,7 @@ controller's trajectory, epochs/s and client-epochs/s of each run and the
 kernel's launch count (0 on the CPU)::
 
   python -m repro_torch.launch.serve_fleet                 # the card
+  python -m repro_torch.launch.serve_fleet --trace --obs-dir runs/serve
   python -m repro_torch.launch.serve_fleet --device cpu --clients 2000 --epochs 24
   torchrun --nproc-per-node K -m repro_torch.launch.serve_fleet   # K cards
 
@@ -24,14 +25,16 @@ Under ``torchrun`` (``WORLD_SIZE`` above 1) the client axis is sharded over
 the ranks (a one-dimensional ``("data",)`` mesh; NCCL, each rank on
 ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``), as the example does
 when JAX sees more than one device; rank 0 prints, and the launch counts
-are its own.
+are its own.  ``--trace`` replays the bundled solar and request-log day
+profiles (``--trace-path`` a table of your own) in place of the synthetic
+twins; ``--obs-dir`` streams the controlled run into an event log (rank
+0's).
 
-Differences from the example: ``--trace`` (replayed day profiles) exits 1
-(``ROADMAP.md`` Queue 1 item 21); ``--microbench ARCH`` prices requests
-from the port's own `engine_microbench` (default ``mamba2-1.3b``, as the
+Differences from the example: ``--microbench ARCH`` prices requests from
+the port's own `engine_microbench` (default ``mamba2-1.3b``, as the
 example's) and exits 1 for an architecture with no decode path;
-``--backend``, ``--obs-dir`` and the checkpoint flags have no counterpart;
-``--epochs`` and ``--device`` are new.
+``--backend`` and the checkpoint flags have no counterpart (``ROADMAP.md``
+Queue 1 items 23-24); ``--epochs`` and ``--device`` are new.
 """
 from __future__ import annotations
 
@@ -44,19 +47,16 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
-from repro_torch.energy.arrivals import MarkovSolar
 from repro_torch.energy.battery import BatteryConfig
 from repro_torch.energy.control import (AdmissionRule, ControlBounds,
                                         ServerController)
 from repro_torch.energy.costs import DecodeCostModel
 from repro_torch.kernels import fleet_step
+from repro_torch.launch import scenario as scen
 from repro_torch.serve import (BatteryGated, EnergyAgnostic, QoSSpec,
                                ServeConfig, TrainLoad, run_serve_controlled,
                                simulate_serve)
-from repro_torch.serve.traffic import DiurnalPoisson
 
-TRACE_NOT_PORTED = ("--trace: replayed day profiles are not ported yet "
-                    "(ROADMAP.md Queue 1 item 21: traces)")
 RUNS = ("agnostic", "gated", "controlled")
 BATTERY = BatteryConfig(capacity=8.0, leak=0.01, init_charge=2.0)
 QOS = QoSSpec(prompt_tokens=128.0, full_decode_tokens=256.0,
@@ -65,16 +65,22 @@ TRAIN_J = 0.2            # joules per training round, every ~4 epochs
 CONTROL_EVERY = 24       # epochs per control period (a day)
 
 
-def scenario(n: int, device) -> tuple:
-    """The example's synthetic fleet: ``DiurnalPoisson`` traffic (base 1.0,
-    swing 0.9, phase ``arange(N) % 24``), ``MarkovSolar`` harvest (stay 0.9,
-    day mean 3.0 J), a ~100M-parameter model's analytic request cost and a
-    0.2 J training round every 4 epochs.  Returns (traffic, harvest, cost,
-    train)."""
-    traffic = DiurnalPoisson.create(n, base=1.0, swing=0.9,
-                                    phase=np.arange(n) % 24, device=device)
-    harvest = MarkovSolar.create(n, p_stay_day=0.9, p_stay_night=0.9,
-                                 day_mean=3.0, device=device)
+def scenario(n: int, device, trace: bool = False, seed: int = 0,
+             trace_path: str | None = None) -> tuple:
+    """The example's fleet: traffic at a mean of one request an epoch
+    (``DiurnalPoisson``, swing 0.9, phase ``arange(N) % 24``, or with
+    ``trace`` the bundled request-log profiles replayed), a solar harvest
+    at a mean of 1.5 J an epoch (``MarkovSolar``, stay 0.9, day mean 3.0 J,
+    or the bundled solar profiles replayed), a ~100M-parameter model's
+    analytic request cost and a 0.2 J training round every 4 epochs.
+    ``seed`` and ``trace_path`` feed the replays' client assignment and
+    table.  Returns (traffic, harvest, cost, train)."""
+    traffic = scen.assistant_traffic(n, trace=trace, seed=seed,
+                                     trace_path=trace_path, base=1.0,
+                                     device=device)
+    harvest = scen.solar_harvest(n, trace=trace, seed=seed,
+                                 trace_path=trace_path, day_mean=3.0,
+                                 device=device)
     train = TrainLoad.create(np.full(n, 4), TRAIN_J, device=device)
     return traffic, harvest, DecodeCostModel.from_params(1e8), train
 
@@ -158,17 +164,14 @@ def main(argv=None) -> int:
                     help="price requests from the port's measured "
                          "decode-engine stage timings on this smoke arch")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--trace", action="store_true",
-                    help="replayed day profiles (not ported yet)")
+    scen.add_scenario_flags(ap)
     args = ap.parse_args(argv)
-    if args.trace:
-        print(f"error: {TRACE_NOT_PORTED}", file=sys.stderr)
-        return 1
     device = resolve_device(args.device)
     mesh, device = sharding.mesh_from_env(args.device)
     say = print if sharding.is_lead(mesh) else (lambda *a, **k: None)
     N, E = args.clients, args.epochs
-    traffic, harvest, cost, train = scenario(N, device)
+    traffic, harvest, cost, train = scenario(N, device, args.trace,
+                                             args.seed, args.trace_path)
     if args.microbench:
         try:
             cost = microbench_cost(args.microbench, device)
@@ -181,19 +184,26 @@ def main(argv=None) -> int:
         say(f"sharding the client axis over {mesh.size()} ranks")
     full_j = float(QOS.request_cost(cost))
     short_j = float(QOS.request_cost(cost, degraded=True))
-    say(f"fleet: N={N:,}, {E} epochs, synthetic scenario, seed="
-        f"{args.seed}, device={where}; request={full_j:.2f} J full / "
+    say(f"fleet: N={N:,}, {E} epochs, {scen.scenario_name(args.trace)} "
+        f"scenario, seed={args.seed}, device={where}; request="
+        f"{full_j:.2f} J full / "
         f"{short_j:.2f} J degraded; training round={TRAIN_J} J every ~4 "
         f"epochs\n")
     runs, ctrl, speed = {}, None, {}
+    obs = scen.make_obs(args, mesh)
     for name in RUNS:
+        kw = dict(obs=obs) if name == "controlled" else {}
         res, c, wall, launches = run(name, traffic, harvest, cost, train, N,
                                      E, args.seed, device,
                                      hist=args.hist and name == "controlled",
-                                     mesh=mesh)
+                                     mesh=mesh, **kw)
         runs[name] = res
         ctrl = c or ctrl
         speed[name] = (wall, launches)
+    if obs is not None:
+        obs.close()
+        say(f"obs events (controlled run) -> {obs.log.path}  (python -m "
+            f"repro_torch.obs.report summary {args.obs_dir})\n")
 
     say(f"{'':>12} {'served%':>8} {'degr%':>6} {'shed%':>6} {'miss%':>6} "
         f"{'depl%':>6} {'train%':>7} {'J/tok':>8}")

@@ -28,15 +28,21 @@ float32 matmuls (``models.cnn.conv_same``).
   python -m repro_torch.launch.train --arch granite-3-2b --smoke   # card
   python -m repro_torch.launch.train --smoke --device cpu --rounds 2
   python -m repro_torch.launch.train --arch cifar-cnn --rounds 3 --device cpu
+  python -m repro_torch.launch.train --smoke --obs-dir runs/train
+
+``--obs-dir`` streams the run into a JSONL event log: the manifest, then a
+``train_round`` span and a ``round`` event a round (the round's metrics
+are read on the host inside the span, so it covers the device's work).
 
 Differences from the reference's launcher: ``--device`` chooses the card
-or the CPU, and checkpointing and observability (``--ckpt``,
-``--checkpoint-dir``, ``--resume``, ``--checkpoint-every``, ``--obs-dir``;
-``ROADMAP.md`` Queue 1 items 22-24) are not ported yet.
+or the CPU, and checkpointing (``--ckpt``, ``--checkpoint-dir``,
+``--resume``, ``--checkpoint-every``; ``ROADMAP.md`` Queue 1 items 23-24)
+is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -187,6 +193,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log", default="",
                     help="write the per-round history here as JSON")
+    ap.add_argument("--obs-dir", default="",
+                    help="stream the run (manifest, a round event and a "
+                         "train_round span a round) to this directory")
     args = ap.parse_args(argv)
 
     taus = tuple(int(x) for x in args.taus.split(","))
@@ -204,15 +213,34 @@ def main(argv=None) -> int:
           f"batch={args.batch} policy={args.policy} E={run.E.tolist()} "
           f"device={where} tf32={tf32}", flush=True)
 
+    obs = None
+    if args.obs_dir:
+        from repro_torch.kernels import ops
+        from repro_torch.obs import Obs
+        obs = Obs(args.obs_dir)
+        obs.write_manifest("train", config=run.fed, seed=args.seed,
+                           backend=ops.backend(run.device), num_clients=C,
+                           horizon=args.rounds, device=run.device,
+                           arch=run.model.cfg.name,
+                           family=run.model.cfg.family,
+                           params=int(run.model.num_params(run.params)),
+                           policy=args.policy, local_steps=T,
+                           optimizer=args.optimizer, lr=args.lr)
+
     launches0 = fused_agg.fused_agg_cuda.launches
     w, history = run.params, []
     for r in range(args.rounds):
         t0 = time.perf_counter()
-        w, m = train_round(run, w, r)
+        with contextlib.ExitStack() as stack:
+            if obs is not None:
+                stack.enter_context(obs.span("train_round"))
+            w, m = train_round(run, w, r)
         dt = time.perf_counter() - t0
         rec = {"round": r, **m, "round_ms": dt * 1e3,
                "client_steps_per_s": C * T / dt}
         history.append(rec)
+        if obs is not None:
+            obs.event("round", scan="train", **rec)
         if r % max(1, args.rounds // 10) == 0 or r == args.rounds - 1:
             print(f"round {r:4d} loss={rec['loss']:.4f} "
                   f"participants={rec['participants']:.0f} "
@@ -229,6 +257,9 @@ def main(argv=None) -> int:
     if args.log:
         with open(args.log, "w") as f:
             json.dump(history, f, indent=1)
+    if obs is not None:
+        obs.close()
+        print("obs events ->", obs.log.path)
     print(f"final loss {history[-1]['loss']:.4f}")
     return 0
 

@@ -34,14 +34,23 @@ rank holds a slab, draws harvest and traffic by its clients' global
 indices, all-reduces each epoch's row of sums once and gets the stats
 replicated; the per-client results are gathered at the end of the run.
 
+With ``obs=`` (a `repro_torch.obs.Obs`) `simulate_serve` writes its
+manifest and one ``round`` event an epoch, as `energy.fleet.
+simulate_fleet` does (a round tap under ``obs.tap``), and
+`run_serve_controlled` streams at chunk boundaries: the manifest, a
+``serve_chunk`` span a chunk, the chunk's epochs, a ``control`` event
+after each controller update and the retrace sentinel.  ``obs=None`` is
+the un-instrumented run.
+
 Differences from the reference: epochs are a Python loop (no ``jit``, no
 ``use_jit``); a mesh's ranks are processes; histogram counts are
-all-reduced as exact integers; ``obs=`` raises, naming ``ROADMAP.md``
-Queue 1 item 22, and `run_serve_controlled`'s ``checkpoint=`` /
-``resume=`` items 23-24; ``device`` picks the card (default) or the CPU.
+all-reduced as exact integers; `run_serve_controlled`'s ``checkpoint=`` /
+``resume=`` raise, naming ``ROADMAP.md`` Queue 1 items 23-24; ``device``
+picks the card (default) or the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -63,8 +72,6 @@ from repro_torch.kernels import ops
 from repro_torch.serve.qos import QoSSpec
 
 
-OBS_NOT_PORTED = ("obs=: observability is not ported yet (ROADMAP.md "
-                  "Queue 1 item 22)")
 CHECKPOINT_NOT_PORTED = ("checkpoint= / resume=: run checkpoints are not "
                          "ported yet (ROADMAP.md Queue 1 items 23-24)")
 
@@ -245,6 +252,8 @@ def simulate_serve(traffic, harvest, bat: battery_lib.BatteryConfig,
         from, e.g. a previous chunk's ``ServeResult.final_state``.
       epoch_offset: global index of the first epoch, so chunked runs keep
         the RNG stream and the diurnal phase of an unchunked horizon.
+      obs: a `repro_torch.obs.Obs`: the manifest and the epoch events
+        (streamed an epoch at a time when ``obs.tap`` is set).
       hist: the fixed-bin histograms ``hist_soc``, ``hist_spend`` (over the
         combined serve + train drain), ``hist_streak`` (exact counts),
         carrying the per-client consecutive-depleted streak.
@@ -255,8 +264,6 @@ def simulate_serve(traffic, harvest, bat: battery_lib.BatteryConfig,
     Returns:
       `ServeResult` with per-epoch telemetry as host numpy arrays.
     """
-    if obs is not None:
-        raise NotImplementedError(OBS_NOT_PORTED)
     dev = resolve_device(device)
     if mesh is not None:
         sharding.check_device(mesh, dev)
@@ -291,6 +298,14 @@ def simulate_serve(traffic, harvest, bat: battery_lib.BatteryConfig,
                               device=dev).contiguous()
     tstate0, hstate0 = to_dev(tstate0), to_dev(hstate0)
 
+    if obs is not None:
+        obs.write_manifest(
+            "serve", config=(traffic, harvest, bat, cost, qos, policy, train),
+            seed=cfg.seed, backend=ops.backend(dev), mesh=mesh,
+            num_clients=n, horizon=num_epochs, device=dev,
+            epoch_offset=epoch_offset, admit=float(admit), hist=bool(hist))
+    tap = obs.round_tap("serve") if obs is not None and obs.tap else None
+
     n_pad = padded_width(n, mesh, pad_to)
     valid = (torch.arange(n_pad, device=dev) < n).float()
     tree = _pad_clients(
@@ -314,8 +329,12 @@ def simulate_serve(traffic, harvest, bat: battery_lib.BatteryConfig,
         outs.append(s)
         if record_modes:
             modes.append(mode)
+        if tap is not None:
+            tap(epoch_offset + t, s)
     stats = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
              for k in outs[0]} if outs else {}
+    if obs is not None and tap is None:
+        obs.rounds("serve", epoch_offset, stats)
     modes = torch.stack(modes) if record_modes and modes else None
     if mesh is not None:          # the slabs, once, at the end of the run
         carry = sharding.gather_fleet(carry, n_local, mesh)
@@ -349,17 +368,26 @@ def run_serve_controlled(traffic, harvest, bat, cost: DecodeCostModel,
     traffic and harvest state flow across chunks through
     ``ServeResult.final_state`` and the absolute epoch index through
     ``epoch_offset``.  Each chunk's stats reach the host once, for the
-    controller.  Under a ``mesh`` each chunk is sharded (`simulate_serve`)
-    and its stats are replicated, so every rank's controller takes the
-    same decisions.
+    controller (and ``obs``, which streams them with a ``serve_chunk``
+    span, a ``control`` event and the retrace sentinel).  Under a ``mesh``
+    each chunk is sharded (`simulate_serve`) and its stats are replicated,
+    so every rank's controller takes the same decisions.
 
     Returns ``(ServeResult over the full horizon, controller)``.
     """
     if checkpoint is not None or resume:
         raise NotImplementedError(CHECKPOINT_NOT_PORTED)
-    if obs is not None:
-        raise NotImplementedError(OBS_NOT_PORTED)
     n = cfg.num_clients
+    sentinel = None
+    if obs is not None:
+        from repro_torch.obs.profile import RetraceSentinel
+        obs.write_manifest(
+            "serve_controlled",
+            config=(traffic, harvest, bat, cost, qos, policy),
+            seed=cfg.seed, backend=ops.backend(device), mesh=mesh,
+            num_clients=n, horizon=num_epochs, device=device,
+            control_every=control_every)
+        sentinel = RetraceSentinel(obs)
     chunks: list[ServeResult] = []
     state, offset = None, 0
     while offset < num_epochs:
@@ -367,14 +395,26 @@ def run_serve_controlled(traffic, harvest, bat, cost: DecodeCostModel,
         train = None if train_cost is None else TrainLoad.create(
             controller.client_E(n), train_cost, local_steps=controller.T,
             device=device)
-        res = simulate_serve(
-            traffic, harvest, bat, cost, qos, policy, cfg, chunk,
-            train=train, admit=controller.state.admit, mesh=mesh,
-            pad_to=pad_to, record_modes=record_modes, state=state,
-            epoch_offset=offset, hist=hist, device=device)
+        with contextlib.ExitStack() as stack:
+            if obs is not None:
+                stack.enter_context(obs.span("serve_chunk"))
+            res = simulate_serve(
+                traffic, harvest, bat, cost, qos, policy, cfg, chunk,
+                train=train, admit=controller.state.admit, mesh=mesh,
+                pad_to=pad_to, record_modes=record_modes, state=state,
+                epoch_offset=offset, hist=hist, device=device)
         state = res.final_state
         chunks.append(res)
         controller.update(res.stats, n)
+        if obs is not None:
+            obs.rounds("serve", offset, res.stats)
+            obs.event("control", round=offset + chunk, T=controller.state.T,
+                      E_mean=float(np.mean(controller.state.E)),
+                      admit=controller.state.admit)
+            if offset == 0:
+                sentinel.snapshot()
+            else:
+                sentinel.check(context=f"serve chunk at epoch {offset}")
         offset += chunk
     stats = ({k: np.concatenate([c.stats[k] for c in chunks])
               for k in chunks[0].stats} if chunks else {})

@@ -24,8 +24,8 @@ The uniforms and regimes are bitwise equal to the reference's, and so are
 ``Constant``'s counts.  The Poisson counts equal the reference's except
 where ``u`` lies within a few ulp of a cdf step (``exp``, and for
 ``DiurnalPoisson`` also ``sin``, are rounded differently).
-``TraceTraffic`` (replayed request logs) waits for ``ROADMAP.md`` Queue 1
-item 21.
+``TraceTraffic`` (replayed request logs) lives in
+`repro_torch.traces.replay`.
 """
 from __future__ import annotations
 

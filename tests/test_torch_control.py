@@ -162,7 +162,8 @@ def test_run_controlled_matches_reference(grouped, hist):
                                       np.asarray(jres.final_streak))
 
 
-def test_run_controlled_with_a_holding_controller_equals_one_run():
+def test_run_controlled_with_a_holding_controller_equals_one_run(tmp_path):
+    from repro_torch.obs import Obs, load_events
     n, R = 30, 20
     cfg = tf.FleetConfig(num_clients=n, policy="greedy", seed=1)
     ctrl = tctl.ServerController(T0=5, E0=2, rules=())
@@ -181,9 +182,14 @@ def test_run_controlled_with_a_holding_controller_equals_one_run():
     with pytest.raises(ValueError, match="DeviceMesh"):
         tctl.run_controlled(_fleet(ta, n), tb.BatteryConfig(), 1.0, cfg, 1,
                             ctrl, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tctl.run_controlled(_fleet(ta, n), tb.BatteryConfig(), 1.0, cfg, 1,
-                            ctrl, obs=object(), device="cpu")
+    # obs= (observability, once unported): the manifest, then a chunk's
+    # span, its rounds and a control event at each boundary
+    with Obs(tmp_path) as obs:
+        tctl.run_controlled(_fleet(ta, n), tb.BatteryConfig(), 1.0, cfg, 4,
+                            ctrl, control_every=2, obs=obs, device="cpu")
+    kinds = [e["kind"] for e in load_events(tmp_path / "events.jsonl")]
+    assert kinds == (["manifest"] + ["span", "round", "round", "control"] * 2
+                     + ["metrics"])
 
 
 RATE = np.random.default_rng(4).integers(0, 6, 300).astype(np.float32)
@@ -234,7 +240,8 @@ def _same_telemetry_close(a, b):
                                        rtol=1e-6, atol=1e-9, err_msg=f.name)
 
 
-def test_run_serve_controlled_refuses_unported_options():
+def test_run_serve_controlled_refuses_unported_options(tmp_path):
+    from repro_torch.obs import Obs, load_events
     n = 8
     args = (ttr.Constant.create(n), ta.Bernoulli.create(n),
             tb.BatteryConfig(), tc.DecodeCostModel(1.0, 1.0), TQoS(),
@@ -242,7 +249,13 @@ def test_run_serve_controlled_refuses_unported_options():
             tctl.ServerController())
     with pytest.raises(NotImplementedError, match="items 23-24"):
         tfs.run_serve_controlled(*args, checkpoint="x", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tfs.run_serve_controlled(*args, obs=object(), device="cpu")
+    # obs= (observability, once unported): the manifest, then a chunk's
+    # span, its epochs and a control event at each boundary
+    with Obs(tmp_path) as obs:
+        tfs.run_serve_controlled(*args, control_every=2, obs=obs,
+                                 device="cpu")
+    kinds = [e["kind"] for e in load_events(tmp_path / "events.jsonl")]
+    assert kinds == (["manifest"] + ["span", "round", "round", "control"] * 2
+                     + ["metrics"])
     with pytest.raises(ValueError, match="DeviceMesh"):
         tfs.run_serve_controlled(*args, mesh=object(), device="cpu")

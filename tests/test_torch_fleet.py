@@ -207,15 +207,22 @@ def test_fleet_mask_matches_reference(policy):
     _eq(got, want, policy)
 
 
-def test_unported_options_raise_naming_the_roadmap_item():
+def test_unported_options_raise_naming_the_roadmap_item(tmp_path):
+    """A wrong mesh, fleet size or policy raises; ``obs=`` (observability,
+    once unported) writes a manifest and a round event a round."""
+    from repro_torch.obs import Obs, load_events
     proc = ta.Bernoulli.create(4)
     cfg = tf.FleetConfig(num_clients=4)
     with pytest.raises(ValueError, match="DeviceMesh"):
         tf.simulate_fleet(proc, tb.BatteryConfig(), 1.0, cfg, 1,
                           mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 22"):
-        tf.simulate_fleet(proc, tb.BatteryConfig(), 1.0, cfg, 1,
-                          obs=object(), device="cpu")
+    with Obs(tmp_path) as obs:
+        tf.simulate_fleet(proc, tb.BatteryConfig(), 1.0, cfg, 3, obs=obs,
+                          device="cpu")
+    ev = load_events(tmp_path / "events.jsonl")
+    assert [e["kind"] for e in ev][:4] == ["manifest"] + ["round"] * 3
+    assert ev[0]["run_kind"] == "fleet" and ev[0]["num_clients"] == 4
+    assert [e["round"] for e in ev[1:4]] == [0, 1, 2]
     with pytest.raises(ValueError, match="sized for"):
         tf.simulate_fleet(ta.Bernoulli.create(5), tb.BatteryConfig(), 1.0,
                           cfg, 1, device="cpu")

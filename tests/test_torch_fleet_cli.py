@@ -1,7 +1,9 @@
 """``python -m repro_torch.launch.fleet``: the twin of
 ``examples/energy_fleet.py`` runs on the CPU when asked (its policy table
 agrees with the reference's ``simulate_fleet`` on the same scenario),
-refuses to run without a card otherwise, and refuses ``--trace``."""
+refuses to run without a card otherwise, and replays the bundled day
+profiles under ``--trace`` into an event log that ``report summary``
+reads."""
 import os
 import subprocess
 import sys
@@ -75,7 +77,28 @@ def test_fleet_cli_without_card_exits_nonzero_with_clear_message():
     assert "client-rounds/s" not in out.stdout
 
 
-def test_fleet_cli_refuses_trace_naming_the_roadmap_item():
-    out = _run("--device", "cpu", "--trace")
-    assert out.returncode == 1
-    assert "Queue 1 item 21" in out.stderr
+def test_fleet_cli_refuses_trace_naming_the_roadmap_item(tmp_path):
+    """``--trace`` (refused until the traces were ported) replays the
+    bundled solar profiles; with ``--obs-dir`` the three policy runs land in
+    one event log, which ``report summary`` reads."""
+    n, R = 300, 4
+    out = _run("--device", "cpu", "--trace", "--clients", str(n),
+               "--rounds", str(R))
+    assert out.returncode == 0, out.stderr
+    assert "trace replay solar + RF harvest" in out.stdout
+    rows = [line.split() for line in out.stdout.splitlines()
+            if line.split()[:1] in (["sustainable"], ["greedy"],
+                                     ["threshold"])]
+    assert len(rows) == 3 and all(r[-1] == "0" for r in rows)
+    obs_dir = tmp_path / "obs"
+    out = _run("--device", "cpu", "--trace", "--clients", str(n),
+               "--rounds", str(R), "--obs-dir", str(obs_dir))
+    assert out.returncode == 0, out.stderr
+    assert f"obs events -> {obs_dir / 'events.jsonl'}" in out.stdout
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    rep = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                          "summary", str(obs_dir)], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert rep.returncode == 0, rep.stderr
+    assert "[fleet]" in rep.stdout and "torch=" in rep.stdout
+    assert f"fleet: rounds 0..{R - 1} ({3 * R} emitted)" in rep.stdout

@@ -201,7 +201,11 @@ def test_histograms_count_every_client_and_ledger_conserves():
     assert (s["participants"] > 0).all()
 
 
-def test_train_load_create_and_unported_options():
+def test_train_load_create_and_unported_options(tmp_path):
+    """`TrainLoad.create` equals the reference's; a wrong mesh or fleet
+    size raises; ``obs=`` (observability, once unported) writes a manifest
+    and a round event an epoch."""
+    from repro_torch.obs import Obs, load_events
     E = np.full(6, 3)
     load = tfs.TrainLoad.create(E, tc.DeviceCostModel(0.1, 0.2, 0.05),
                                 local_steps=4, policy="greedy")
@@ -214,8 +218,12 @@ def test_train_load_create_and_unported_options():
     kw = dict(traffic=const, harvest=bern)
     with pytest.raises(ValueError, match="DeviceMesh"):
         _run(T, "gated", None, 8, 1, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 22"):
-        _run(T, "gated", None, 8, 1, obs=object(), **kw)
+    with Obs(tmp_path) as obs:
+        _run(T, "gated", None, 8, 3, obs=obs, **kw)
+    ev = load_events(tmp_path / "events.jsonl")
+    assert [e["kind"] for e in ev][:4] == ["manifest"] + ["round"] * 3
+    assert ev[0]["run_kind"] == "serve" and ev[0]["horizon"] == 3
+    assert all(e["scan"] == "serve" and "offered" in e for e in ev[1:4])
     with pytest.raises(ValueError, match="sized for"):
         tfs.simulate_serve(ttr.Constant.create(4), ta.Bernoulli.create(5),
                            tb.BatteryConfig(), tc.DecodeCostModel(1.0, 1.0),

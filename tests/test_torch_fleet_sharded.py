@@ -17,6 +17,9 @@ references it computes itself.  Cases mirror the reference's
 * histograms (counts sum to N) and groups (G = 3), bitwise;
 * ``run_controlled``: the knobs after every chunk equal the host-local
   run's on every rank;
+* a replayed dyadic table (`TraceHarvest`) whose T equals a slab's width
+  at two ranks or the padded fleet's width: the table is never padded or
+  sharded, so every rank equals the reference's unpadded run bitwise;
 * the collectives with ``group=`` and the refusals of a width that does
   not divide.
 
@@ -40,8 +43,9 @@ from repro_torch.energy import arrivals as ta
 from repro_torch.energy import battery as tb
 from repro_torch.energy import control as tctl
 from repro_torch.energy import fleet as tf
-from repro_torch.energy.arrivals import map_tensors
+from repro_torch.energy.arrivals import map_clients, map_tensors
 from repro_torch.energy.costs import DeviceCostModel
+from repro_torch.traces import TraceHarvest, TraceTraffic
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLDS = (2, 3)
@@ -51,6 +55,9 @@ POLICIES = ("sustainable", "greedy", "threshold", "always")
 NS = (24, 23)             # divisible by 2 and 3; padded to 24
 ROUNDS = 12
 DYADIC = dict(capacity=2.5, leak=0.0, init_charge=0.5)
+# replayed tables of T slots: a slab's width at two ranks, and the padded
+# width of 23 clients
+TRACE_TS = (12, 24)
 
 
 def parity_run(policy, n, mesh=None, **kw):
@@ -95,6 +102,22 @@ def controlled_run(mesh=None):
     return out
 
 
+def trace_table(T: int) -> np.ndarray:
+    """(T, 3) dyadic rates."""
+    return (np.arange(3 * T).reshape(T, 3) % 7 * 0.25).astype(np.float32)
+
+
+def trace_run(T, mesh=None):
+    """The exact-arithmetic fleet on a replayed (T, 3) table, 23 clients."""
+    n = 23
+    cfg = tf.FleetConfig(num_clients=n, policy="threshold", threshold=1.5,
+                         seed=3)
+    return tf.simulate_fleet(
+        TraceHarvest.create(trace_table(T), n, seed=4),
+        tb.BatteryConfig(**DYADIC), 0.75, cfg, ROUNDS, record_masks=True,
+        mesh=mesh, device="cpu")
+
+
 def flat(res) -> dict:
     """A FleetResult as numpy arrays."""
     out = {f"stat/{k}": np.asarray(v) for k, v in res.stats.items()}
@@ -122,6 +145,8 @@ def cases() -> dict:
                                                                        mesh))
     out["pad_to"] = lambda mesh: flat(parity_run("threshold", 23, mesh,
                                                  pad_to=30))
+    for T in TRACE_TS:
+        out[f"trace/{T}"] = lambda mesh, T=T: flat(trace_run(T, mesh))
     out["controlled"] = controlled_run
     return out
 
@@ -295,6 +320,30 @@ def test_groups_and_histograms_bitwise(sharded, host, world, policy, kind):
             assert res[name]["stat/group_participants"].shape == (ROUNDS, 3)
 
 
+@pytest.mark.parametrize("T", TRACE_TS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_trace_table_is_never_padded_or_sharded(sharded, host, world, T):
+    """A table whose T equals a slab's or the padded fleet's width stays
+    whole on every rank: the reference's unpadded host-local run, bitwise
+    (the reference's own padding takes such a table for a client axis)."""
+    from repro.energy import battery as jb
+    from repro.energy import fleet as jf
+    from repro.traces import TraceHarvest as JTraceHarvest
+
+    name = f"trace/{T}"
+    cfg = jf.FleetConfig(num_clients=23, policy="threshold", threshold=1.5,
+                         seed=3)
+    ref = jf.simulate_fleet(JTraceHarvest.create(trace_table(T), 23, seed=4),
+                            jb.BatteryConfig(**DYADIC), 0.75, cfg, ROUNDS,
+                            record_masks=True)
+    want = {f"stat/{k}": np.asarray(v) for k, v in ref.stats.items()}
+    want["final_charge"] = np.asarray(ref.final_charge)
+    want["masks"] = np.asarray(ref.masks)
+    _same(host[name], want, f"{name} port vs reference")
+    for rank, res in enumerate(sharded[world]):
+        _same(res[name], want, f"world {world} rank {rank} {name}")
+
+
 @pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("world", WORLDS)
 def test_stochastic_fleet(sharded, host, world, n):
@@ -400,7 +449,7 @@ N_DRAW, FIRST, N_SLAB = 37, 11, 13
 
 
 def _slab(tree):
-    return map_tensors(tree, lambda x: x[FIRST:FIRST + N_SLAB]
+    return map_clients(tree, lambda x: x[FIRST:FIRST + N_SLAB]
                        if x.dim() and x.shape[0] == N_DRAW else x)
 
 
@@ -419,6 +468,13 @@ def _processes():
             ta.MarkovSolar.create(n, p_stay_day=0.92, p_stay_night=0.92,
                                   day_mean=0.9), gain=gain),
             ta.CompoundPoisson.create(n, rate=0.1, mean_amount=0.3))),
+        # tables of T = N_DRAW slots: never sliced with the clients
+        "trace_harvest": TraceHarvest.create(
+            rs.uniform(0, 2, (n, 3)).astype(np.float32), n, seed=1,
+            gain_jitter=0.3),
+        "trace_traffic": TraceTraffic.create(
+            rs.uniform(0, 3, (n, 2)).astype(np.float32), n, seed=2,
+            gain_jitter=0.3),
     }
 
 

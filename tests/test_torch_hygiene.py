@@ -54,7 +54,11 @@ def test_package_has_modules():
                  "models/ssm.py", "kernels/ssd_scan.py",
                  "kernels/csrc/ssd_scan.cu", "models/moe.py",
                  "launch/quickstart.py", "models/rglru.py",
-                 "models/encdec.py", "launch/serve_decode.py"):
+                 "models/encdec.py", "launch/serve_decode.py",
+                 "traces/profiles.py", "traces/replay.py", "traces/fit.py",
+                 "obs/events.py", "obs/metrics.py", "obs/profile.py",
+                 "obs/report.py", "launch/scenario.py",
+                 "launch/trace_fleet.py"):
         assert need in names
 
 

@@ -2,8 +2,9 @@
 ``examples/serve_fleet.py`` runs on the CPU when asked (its table agrees
 with the reference's ``simulate_serve`` / ``run_serve_controlled`` on the
 same scenario, to the printed precision allowing for the scenario's
-ulp-close draws), refuses to run without a card otherwise, and refuses
-``--trace`` and an architecture the port does not serve."""
+ulp-close draws), refuses to run without a card otherwise and an
+architecture the port does not serve, and replays the bundled day profiles
+under ``--trace`` into an event log that ``report summary`` reads."""
 import os
 import subprocess
 import sys
@@ -93,10 +94,26 @@ def test_serve_fleet_cli_without_card_exits_nonzero_with_clear_message():
     assert "client-epochs/s" not in out.stdout
 
 
-def test_serve_fleet_cli_refuses_trace_and_unported_archs():
-    out = _run("--device", "cpu", "--trace")
-    assert out.returncode == 1
-    assert "Queue 1 item 21" in out.stderr
+def test_serve_fleet_cli_refuses_trace_and_unported_archs(tmp_path):
+    # --trace (refused until the traces were ported) replays the bundled
+    # solar and request-log profiles; --obs-dir streams the controlled run
+    out = _run("--device", "cpu", "--trace", "--clients", "200",
+               "--epochs", "48")
+    assert out.returncode == 0, out.stderr
+    assert "trace replay scenario" in out.stdout
+    assert "client-epochs/s" in out.stdout
+    obs_dir = tmp_path / "obs"
+    out = _run("--device", "cpu", "--trace", "--clients", "200",
+               "--epochs", "48", "--obs-dir", str(obs_dir))
+    assert out.returncode == 0, out.stderr
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    rep = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                          "summary", str(obs_dir)], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert rep.returncode == 0, rep.stderr
+    assert "[serve_controlled]" in rep.stdout
+    assert "serve: rounds 0..47 (48 emitted)" in rep.stdout
+    assert "serve_chunk  2" in rep.stdout
     out = _run("--device", "cpu", "--clients", "10", "--epochs", "1",
                "--microbench", "cifar-cnn")
     assert out.returncode == 1
