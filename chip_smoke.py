@@ -263,6 +263,25 @@ without either.  Phases, each of which raises on a failed check:
    ``serve_chunk`` annotation beside its 24 ``serve_step_kernel``
    launches (taken again, up to five times, where the profiler missed
    them).  Prints rounds/s with and without the tap.
+22. Resume (run after phase 21): ``launch.battery_control`` at its size
+   (N = 50,000, 200 rounds, hist) uninterrupted, then in child processes
+   (this script with ``--resume-child``) killed by SIGKILL after a seeded
+   chunk boundary and by SIGTERM after tearing the file it just wrote,
+   then resumed here: stats, charge, streak and controller trace bitwise
+   the uninterrupted run's, and exactly one fleet_step launch a round
+   left.  Phase 21's serving replay (N = 1e6, 192 epochs in chunks of 24)
+   killed after chunk 3 in a child, resumed host-local and, from the same
+   checkpoint, at one NCCL rank: bitwise, one serve_step launch (and one
+   finalize at the rank) an epoch left.  Phase 8's Bernoulli fleet run 10
+   rounds on the CPU, checkpointed and resumed on the card to 20, held to
+   phase 8's card-vs-CPU comparison.  ``launch.train`` at phase 16's setup
+   (granite-3-2b, 2 of 40 layers) for 3 rounds, checkpointed every round,
+   then resumed from round 2 in a fresh process: the final params bitwise
+   (or, if the card's training were not deterministic across processes,
+   within the distance of two uninterrupted runs).  The twins
+   ``train_100m`` (3 rounds; its model file read back bitwise) and
+   ``noniid_ablation`` (3 rounds a cell).  Prints save and restore
+   seconds, checkpoint bytes and the phase's seconds.
 
 Every profile must record the kernels its window launched (the port's
 launch counts say how many), or it is taken again, and after ten the
@@ -1510,14 +1529,21 @@ COUNT_STATS = ("participants", "consumed", "frac_depleted")
 
 def fleet_compare(card, cpu, n) -> dict:
     """The card's run against the CPU's, worst over the rounds: clients
-    whose mask differs; for the counting stats (participants, consumed at
-    1 J a round, frac_depleted x N) and each histogram the clients that
-    moved (|difference|, summed over the bins); for the energy stats the
-    relative difference."""
+    whose mask differs, and `stats_compare` of their stats."""
     out = {"mask_flips": int((card.masks.cpu() != cpu.masks).sum(dim=1)
                              .max())}
-    for k, v in cpu.stats.items():
-        a, b = np.asarray(card.stats[k], np.float64), v.astype(np.float64)
+    out.update(stats_compare(card.stats, cpu.stats, n))
+    return out
+
+
+def stats_compare(card: dict, cpu: dict, n) -> dict:
+    """Stats of two fleet runs, worst over the rounds: for the counting
+    stats (participants, consumed at 1 J a round, frac_depleted x N) and
+    each histogram the clients that moved (|difference|, summed over the
+    bins); for the energy stats the relative difference."""
+    out = {}
+    for k, v in cpu.items():
+        a, b = np.asarray(card[k], np.float64), v.astype(np.float64)
         d = np.abs(a - b)
         if k.startswith("hist_"):
             out[k] = float(d.sum(axis=-1).max())
@@ -4759,6 +4785,470 @@ def obs_phase(torch, fs, seed: int, card: str, keep: dict) -> dict:
     return out
 
 
+# phase 22: preemption-safe runs.  (a) launch.battery_control at its size,
+# killed twice in child processes and resumed; (b) phase 21's serving
+# replay killed after its third chunk, resumed host-local and under a
+# one-rank NCCL mesh; (c) a CPU checkpoint resumed on the card; (d)
+# launch.train at phase 16's setup resumed in a fresh process; (e) the
+# train_100m and noniid_ablation twins
+RESUME_BC = dict(clients=50_000, rounds=200)
+RESUME_SERVE = dict(clients=1_000_000, epochs=192, kill_after=3)
+RESUME_XDEV = dict(clients=262_144, rounds=20, cpu_rounds=10,
+                   control_every=5)
+RESUME_TRAIN = dict(layers=2, rounds=3, resume_from=2)
+RESUME_TWINS = dict(train_100m_rounds=3, noniid_rounds=3)
+RESUME_CHILD_TIMEOUT = 300        # seconds for a child to reach its kill
+SIGNALS = {"KILL": 9, "TERM": 15}
+
+
+def run_digest(res, controller) -> dict:
+    """`digest` of a controlled run's result and its packed controller."""
+    import hashlib
+
+    from repro_torch.checkpoint import pack_controller
+    out = digest(res)
+    out.update({f"ctl/{k}": hashlib.sha256(np.ascontiguousarray(v).tobytes())
+                .hexdigest() for k, v in pack_controller(controller).items()})
+    return out
+
+
+def resume_scenario(kind: str, seed: int, **ckpt):
+    """Phase 22's two controlled runs on the card: (result, controller).
+    ``battery``: launch.battery_control's fleet at RESUME_BC, hist=True;
+    ``serve``: phase 21's serving replay at RESUME_SERVE."""
+    if kind == "battery":
+        from repro_torch.launch import battery_control as bc
+        return bc.controlled(RESUME_BC["clients"], RESUME_BC["rounds"],
+                             device="cuda", hist=True, **ckpt)
+    from repro_torch.launch import serve_fleet as ls
+    n = RESUME_SERVE["clients"]
+    traffic, harvest, cost, train = ls.scenario(n, "cuda", trace=True,
+                                                seed=seed)
+    res, ctrl, _, _ = ls.run("controlled", traffic, harvest, cost, train, n,
+                             RESUME_SERVE["epochs"], seed, "cuda", **ckpt)
+    return res, ctrl
+
+
+def resume_child(kind: str, ckpt: str, kill_after: int, sig: str,
+                 corrupt: bool, resume: bool, seed: int) -> None:
+    """A child of phase 22: ``resume_scenario(kind)`` checkpointing into
+    ``ckpt`` that kills itself with ``sig`` right after its
+    ``kill_after``-th save, tearing the file it wrote first when
+    ``corrupt`` (a kill in the middle of a write)."""
+    sys.path.insert(0, SRC)
+    from repro_torch.checkpoint import RunCheckpointer
+
+    class Killing(RunCheckpointer):
+        saves = 0
+
+        def save(self, step, tree, metadata=None):
+            path = super().save(step, tree, metadata)
+            self.saves += 1
+            if self.saves >= kill_after:
+                if corrupt:
+                    with open(path, "r+b") as f:
+                        f.truncate(os.path.getsize(path) // 2)
+                print(f"resume child: {sig} after the save of {step}",
+                      flush=True)
+                os.kill(os.getpid(), SIGNALS[sig])
+            return path
+
+    resume_scenario(kind, seed, checkpoint=Killing(ckpt), resume=resume)
+    raise SystemExit("resume child: the run ended before its kill")
+
+
+def kill_child(kind, ckpt, kill_after, sig, seed, *, corrupt=False,
+               resume=False) -> float:
+    """Run `resume_child` in a process of its own; fails unless it died by
+    ``sig``.  Returns its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--resume-child", kind, ckpt, str(kill_after), sig,
+         str(int(corrupt)), str(int(resume))],
+        capture_output=True, text=True, cwd=REPO,
+        timeout=RESUME_CHILD_TIMEOUT)
+    if proc.returncode != -SIGNALS[sig]:
+        raise AssertionError(
+            f"resume {kind}: the child exited {proc.returncode}, expected "
+            f"signal {sig}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def timed_checkpointer(directory):
+    """A `RunCheckpointer` that keeps the seconds of each save and load
+    (``save_s``, ``load_s``) and the size of the last file it wrote."""
+    from repro_torch.checkpoint import RunCheckpointer
+
+    class Timed(RunCheckpointer):
+        def __init__(self, directory):
+            super().__init__(directory)
+            self.save_s, self.load_s, self.nbytes = [], [], 0
+
+        def save(self, step, tree, metadata=None):
+            t0 = time.perf_counter()
+            path = super().save(step, tree, metadata)
+            self.save_s.append(time.perf_counter() - t0)
+            self.nbytes = os.path.getsize(path)
+            return path
+
+        def restore_payload(self):
+            t0 = time.perf_counter()
+            out = super().restore_payload()
+            self.load_s.append(time.perf_counter() - t0)
+            return out
+
+    return Timed(directory)
+
+
+def others_launched(counts: dict, kernel: str) -> int:
+    return sum(v for k, v in counts.items() if k != kernel)
+
+
+def resume_phase(torch, seed: int, card: str) -> dict:
+    """Phase 22: kill-and-resume runs on the card, bitwise."""
+    import datetime
+    import gc
+    import random
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import (CheckpointError, RunCheckpointer,
+                                        load_checkpoint, save_checkpoint)
+    from repro_torch.checkpoint.ckpt import tree_flatten
+    from repro_torch.core import EnergyProfile, Policy
+    from repro_torch.energy import (Bernoulli, FleetConfig, run_controlled)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import battery_control as bc
+    from repro_torch.launch import fleet as lf
+    from repro_torch.launch import noniid_ablation as nn
+    from repro_torch.launch import train as lt
+    from repro_torch.launch import train_100m as t100
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    rnd = random.Random(seed)
+    out = {}
+
+    def counted(fn):
+        ops.zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, ops.launch_counts(), {
+            k: w.launches for k, w in ops.finalize_wrappers().items()}
+
+    # (a) launch.battery_control at its size: SIGKILL, SIGTERM mid-write,
+    # resume in this process
+    n, R, every = RESUME_BC["clients"], RESUME_BC["rounds"], bc.CONTROL_EVERY
+    (res, ctl), wall, counts, _ = counted(
+        lambda: resume_scenario("battery", seed))
+    want = run_digest(res, ctl)
+    if counts["fleet_step"] != R or others_launched(counts, "fleet_step"):
+        raise AssertionError(f"resume battery: launches {counts}")
+    ck = os.path.join(tmp, "battery")
+    chunks = R // every
+    j1 = rnd.randint(2, chunks // 2 - 1)
+    kill1_s = kill_child("battery", ck, j1, "KILL", seed)
+    if RunCheckpointer(ck).steps()[-1] != j1 * every:
+        raise AssertionError(f"resume battery: {RunCheckpointer(ck).steps()}")
+    j2 = rnd.randint(2, chunks // 2 - 1)
+    kill2_s = kill_child("battery", ck, j2, "TERM", seed, corrupt=True,
+                         resume=True)
+    newest = RunCheckpointer(ck).steps()[-1]
+    try:
+        load_checkpoint(RunCheckpointer(ck).path(newest))
+        torn = False
+    except CheckpointError:
+        torn = True
+    restored = (j1 + j2 - 1) * every
+    timed = timed_checkpointer(ck)
+    (res, ctl), rwall, counts, _ = counted(
+        lambda: resume_scenario("battery", seed, checkpoint=timed,
+                                resume=True))
+    same = run_digest(res, ctl) == want
+    launched_ok = (counts["fleet_step"] == R - restored
+                   and not others_launched(counts, "fleet_step"))
+    ok = (same and torn and newest == (j1 + j2) * every and launched_ok)
+    print(f"resume battery_control (N={n:,}, {R} rounds, hist, control "
+          f"every {every}): uninterrupted {wall:.3f} s; SIGKILL after the "
+          f"save of round {j1 * every} ({kill1_s:.1f} s child), SIGTERM "
+          f"tearing the save of round {newest} ({kill2_s:.1f} s child; torn "
+          f"{torn}); resumed from round {restored} in {rwall:.3f} s: stats, "
+          f"charge, streak and controller trace bitwise {same}; fleet_step "
+          f"launches {counts['fleet_step']} for {R - restored} rounds left "
+          f"(other kernels {others_launched(counts, 'fleet_step')}) on "
+          f"{card} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("resume battery_control: a check failed")
+    out["battery"] = {"clients": n, "rounds": R, "killed_after": [j1, j2],
+                      "restored_round": restored, "wall_s": wall,
+                      "resumed_wall_s": rwall, "child_s": [kill1_s, kill2_s],
+                      "launches": R, "resumed_launches": R - restored,
+                      "bytes": timed.nbytes, "save_s": timed.save_s,
+                      "restore_s": timed.load_s}
+
+    # (b) the serving replay at N = 1e6, killed after its third chunk
+    n, E = RESUME_SERVE["clients"], RESUME_SERVE["epochs"]
+    every = OBS_CONTROL_EVERY
+    (res, ctl), wall, counts, _ = counted(
+        lambda: resume_scenario("serve", seed))
+    want = run_digest(res, ctl)
+    if counts["serve_step"] != E or others_launched(counts, "serve_step"):
+        raise AssertionError(f"resume serve: launches {counts}")
+    ck = os.path.join(tmp, "serve")
+    kill_s = kill_child("serve", ck, RESUME_SERVE["kill_after"], "KILL", seed)
+    restored = RESUME_SERVE["kill_after"] * every
+    if RunCheckpointer(ck).steps()[-1] != restored:
+        raise AssertionError(f"resume serve: {RunCheckpointer(ck).steps()}")
+    ck_mesh = os.path.join(tmp, "serve_mesh")
+    shutil.copytree(ck, ck_mesh)
+    timed = timed_checkpointer(ck)
+    (res, ctl), rwall, counts, _ = counted(
+        lambda: resume_scenario("serve", seed, checkpoint=timed,
+                                resume=True))
+    same = run_digest(res, ctl) == want
+    local_ok = (same and counts["serve_step"] == E - restored
+                and not others_launched(counts, "serve_step"))
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'nccl')}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT))
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        (mres, mctl), mwall, mcounts, mfin = counted(
+            lambda: resume_scenario("serve", seed, checkpoint=ck_mesh,
+                                    resume=True, mesh=mesh))
+    finally:
+        dist.destroy_process_group()
+    msame = run_digest(mres, mctl) == want
+    mesh_ok = (msame and mcounts["serve_step"] == E - restored
+               and mfin["serve_step"] == E - restored
+               and not others_launched(mcounts, "serve_step"))
+    ok = local_ok and mesh_ok
+    print(f"resume run_serve_controlled (phase 21's replay, N={n:,}, {E} "
+          f"epochs in chunks of {every}): uninterrupted {wall:.3f} s; "
+          f"SIGKILL after chunk {RESUME_SERVE['kill_after']} ({kill_s:.1f} s "
+          f"child); host-local resume from epoch {restored} in "
+          f"{rwall:.3f} s bitwise {same}, serve-program launches "
+          f"{counts['serve_step']}; one-rank NCCL resume of the same "
+          f"checkpoint in {mwall:.3f} s bitwise {msame}, launches "
+          f"{mcounts['serve_step']} + finalize {mfin['serve_step']}; "
+          f"checkpoint {timed.nbytes / 1e6:.3f} MB, save "
+          f"{min(timed.save_s):.4f}-{max(timed.save_s):.4f} s, restore "
+          f"{timed.load_s[0]:.4f} s on {card} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("resume serve: a check failed")
+    out["serve"] = {"clients": n, "epochs": E, "restored_epoch": restored,
+                    "wall_s": wall, "resumed_wall_s": rwall,
+                    "mesh_resumed_wall_s": mwall, "child_s": kill_s,
+                    "launches": E, "resumed_launches": E - restored,
+                    "mesh_resumed_launches": E - restored,
+                    "bytes": timed.nbytes, "save_s": timed.save_s,
+                    "restore_s": timed.load_s}
+
+    # (c) a checkpoint the CPU wrote, resumed on the card: phase 8's
+    # Bernoulli fleet and its card-vs-CPU comparison
+    n, R = RESUME_XDEV["clients"], RESUME_XDEV["rounds"]
+    cfg = FleetConfig(num_clients=n, policy=Policy.SUSTAINABLE, seed=seed)
+    profile = EnergyProfile(n)
+
+    def xrun(device, rounds, **kw):
+        return run_controlled(
+            Bernoulli.create(n, prob=0.35, amount=1.2, device=device),
+            lf.BATTERY, 1.0, cfg, rounds, bc.controller(n, profile),
+            control_every=RESUME_XDEV["control_every"], hist=True,
+            device=device, **kw)
+
+    ck = os.path.join(tmp, "xdev")
+    t0 = time.perf_counter()
+    xrun("cpu", RESUME_XDEV["cpu_rounds"], checkpoint=ck)
+    cpu_s = time.perf_counter() - t0
+    (res, ctl), rwall, counts, _ = counted(
+        lambda: xrun("cuda", R, checkpoint=ck, resume=True))
+    (base, bctl), _, bcounts, _ = counted(lambda: xrun("cuda", R))
+    same = lambda x, y: torch.equal(x.cpu().view(torch.int32),
+                                    y.cpu().view(torch.int32))
+    diff = stats_compare(res.stats, base.stats, n)
+    bitwise = (same(res.final_charge, base.final_charge)
+               and same(res.final_streak, base.final_streak))
+    knobs = all(np.array_equal(a, b) for a, b in (
+        ([t["T"] for t in ctl.trace], [t["T"] for t in bctl.trace]),
+        ([t["E_mean"] for t in ctl.trace], [t["E_mean"] for t in bctl.trace])))
+    left = R - RESUME_XDEV["cpu_rounds"]
+    ok = (bitwise and fleet_within(diff, 0) and knobs
+          and counts["fleet_step"] == left and bcounts["fleet_step"] == R)
+    print(f"resume across devices (phase 8's Bernoulli fleet, N={n:,}, "
+          f"hist, control every {RESUME_XDEV['control_every']}): the CPU ran "
+          f"rounds 0-{RESUME_XDEV['cpu_rounds'] - 1} ({cpu_s:.2f} s) and "
+          f"checkpointed; the card resumed to round {R} ({left} fleet_step "
+          f"launches). Against the card's uninterrupted run, held as phase "
+          f"8 holds card vs CPU (charge and streak bitwise, counts equal, "
+          f"energy stats within {FLEET_STAT_RTOL}): charge and streak "
+          f"bitwise {bitwise}, counts equal {fleet_within(diff, 0)}, energy "
+          f"rel diff max {fleet_rel(diff):.3e}, knobs equal {knobs} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"resume across devices: {diff}")
+    out["cross_device"] = {"clients": n, "rounds": R,
+                           "cpu_rounds": RESUME_XDEV["cpu_rounds"],
+                           "cpu_s": cpu_s, "resumed_wall_s": rwall,
+                           "comparison": "phase 8 card vs CPU (fleet_within"
+                           ", 0 flips; charge and streak bitwise)",
+                           "diff": diff, "launches": left + R}
+
+    # (d) launch.train at phase 16's setup: 3 rounds checkpointed every
+    # round here, then a fresh process resumes from round 2
+    tr = RESUME_TRAIN
+    argv = ["--arch", "granite-3-2b", "--layers", str(tr["layers"]),
+            "--clients", str(LM_TRAIN["clients"]), "--local-steps",
+            str(LM_TRAIN["local_steps"]), "--batch", str(LM_TRAIN["batch"]),
+            "--seq", str(LM_TRAIN["seq"]), "--lr", str(LM_TRAIN["lr"]),
+            "--taus", ",".join(map(str, LM_TRAIN["taus"])), "--rounds",
+            str(tr["rounds"]), "--seed", str(seed)]
+    d = os.path.join(tmp, "train")
+    whole = os.path.join(tmp, "whole.msgpack")
+    # as phase 16: growable segments, so the stacked trees fit
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    _, wall, counts, _ = counted(lambda: lt.main(
+        argv + ["--checkpoint-dir", d, "--checkpoint-every", "1",
+                "--ckpt", whole]))
+    # one launch a dtype of the tree a round (bf16 weights, fp32 norms)
+    whole_launches = counts["fused_agg"]
+    per_round = whole_launches // tr["rounds"]
+    if (not per_round or whole_launches != per_round * tr["rounds"]
+            or others_launched(counts, "fused_agg")):
+        raise AssertionError(f"resume train: launches {counts}")
+    # a run killed after its round-2 save: that directory without round 3
+    d2 = os.path.join(tmp, "train_killed")
+    os.makedirs(d2)
+    src = RunCheckpointer(d).path(tr["resume_from"])
+    shutil.copy(src, d2)
+    t0 = time.perf_counter()
+    state, _, _ = load_checkpoint(src)
+    train_restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(tmp, "resave.msgpack"), state)
+    train_save_s = time.perf_counter() - t0
+    train_bytes = os.path.getsize(src)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_reserved() / 1e9
+
+    def fresh(*extra):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv,
+             *extra], capture_output=True, text=True, cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=SRC,
+                     PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"),
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"resume train: the fresh process failed:"
+                                 f"\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        line = [x for x in proc.stdout.splitlines()
+                if "fused_agg kernel launches" in x][-1]
+        return proc.stdout, int(line.split()[-1]), time.perf_counter() - t0
+
+    resumed = os.path.join(tmp, "resumed.msgpack")
+    text, resumed_launches, fresh_s = fresh(
+        "--checkpoint-dir", d2, "--resume", "--ckpt", resumed)
+
+    def distance(a_path, b_path):
+        a = tree_flatten(load_checkpoint(a_path)[0])
+        b = tree_flatten(load_checkpoint(b_path)[0])
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        return same, max(float((x.float() - y.float()).abs().max())
+                         for x, y in zip(a, b))
+
+    bitwise, dist_resumed = distance(whole, resumed)
+    rec = {"layers": tr["layers"], "rounds": tr["rounds"],
+           "resume_from": tr["resume_from"], "wall_s": wall,
+           "fresh_process_s": fresh_s, "bitwise": bitwise,
+           "max_abs_diff": dist_resumed, "launches": whole_launches,
+           "resumed_launches": resumed_launches, "bytes": train_bytes,
+           "parent_reserved_gb": held_gb,
+           "save_s": train_save_s, "restore_s": train_restore_s}
+    ok = (f"resumed from round {tr['resume_from']}" in text
+          and resumed_launches
+          == per_round * (tr["rounds"] - tr["resume_from"]))
+    held = "bitwise"
+    if not bitwise:
+        # the card's training is not deterministic across processes: hold
+        # the resumed run to the distance between two uninterrupted runs
+        again = os.path.join(tmp, "again.msgpack")
+        _, again_launches, again_s = fresh("--ckpt", again)
+        _, dist_two = distance(whole, again)
+        rec.update(two_runs_max_abs_diff=dist_two, again_s=again_s,
+                   again_launches=again_launches)
+        ok = ok and dist_resumed <= dist_two
+        held = (f"not bitwise: max |diff| {dist_resumed:.3e} against "
+                f"{dist_two:.3e} between two uninterrupted runs")
+    print(f"resume launch.train (granite-3-2b, {tr['layers']} of 40 layers, "
+          f"C={LM_TRAIN['clients']} T={LM_TRAIN['local_steps']}): "
+          f"{tr['rounds']} rounds checkpointed every round in {wall:.2f} s "
+          f"({whole_launches} fused_agg launches); a fresh process resumed "
+          f"from round {tr['resume_from']} ({fresh_s:.2f} s, "
+          f"{resumed_launches} launches; this process held {held_gb:.2f} "
+          f"GB meanwhile): final params {held}; checkpoint "
+          f"{train_bytes / 1e9:.4f} GB, save {train_save_s:.3f} s, restore "
+          f"{train_restore_s:.3f} s on {card} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("resume train: a check failed")
+    out["train"] = rec
+
+    # (e) the twins
+    t0 = time.perf_counter()
+    run100 = t100.run(rounds=RESUME_TWINS["train_100m_rounds"],
+                      device="cuda", verbose=False)
+    t100_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "train_100m.msgpack")
+    params = run100["result"].params
+    save_checkpoint(path, params, step=RESUME_TWINS["train_100m_rounds"])
+    back, _, _ = load_checkpoint(path, like=params)
+    read_back = all(torch.equal(x.cpu(), y) for x, y in
+                    zip(tree_flatten(params), tree_flatten(back)))
+    losses = [round(h["loss"], 4) for h in run100["result"].history
+              if "loss" in h]
+    evals = [round(e, 4) for _, e in run100["evals"]]
+    noniid = {}
+    t0 = time.perf_counter()
+    for alpha in nn.ALPHAS:
+        for pol in nn.POLICIES:
+            noniid[f"{alpha}/{pol}"] = nn.run(
+                alpha, pol, RESUME_TWINS["noniid_rounds"], device="cuda")
+    nn_s = time.perf_counter() - t0
+    finite = all(math.isfinite(x) for x in losses + evals) and all(
+        math.isfinite(v[1]) for v in noniid.values())
+    ok = read_back and finite
+    print(f"twins on {card}: train_100m ({run100['params']:,} params, "
+          f"{RESUME_TWINS['train_100m_rounds']} rounds in {t100_s:.2f} s): "
+          f"loss {losses}, eval {evals}, --ckpt read back bitwise "
+          f"{read_back}; noniid_ablation ({RESUME_TWINS['noniid_rounds']} "
+          f"rounds a cell, {nn_s:.2f} s): "
+          + ", ".join(f"{k} acc {v[0]:.3f} loss {v[1]:.4f}"
+                      for k, v in noniid.items())
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("resume twins: a check failed")
+    out["twins"] = {"train_100m": {"params": run100["params"],
+                                   "seconds": t100_s, "losses": losses,
+                                   "evals": evals, "read_back": read_back},
+                    "noniid_ablation": {"seconds": nn_s, "cells": noniid}}
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22 (resume) took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4766,11 +5256,18 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-child", nargs=4,
                     metavar=("RANK", "WORLD", "INIT", "OUT_DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--resume-child", nargs=6,
+                    metavar=("KIND", "CKPT", "KILL_AFTER", "SIGNAL",
+                             "CORRUPT", "RESUME"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.sharded_child:
         rank, world, init, out_dir = args.sharded_child
         sharded_child(int(rank), int(world), init, out_dir, args.seed)
         return 0
+    if args.resume_child:
+        kind, ckpt, kill_after, sig, corrupt, resume = args.resume_child
+        resume_child(kind, ckpt, int(kill_after), sig, corrupt == "1",
+                     resume == "1", args.seed)
 
     import torch
     if not torch.cuda.is_available():
@@ -4833,6 +5330,7 @@ def main(argv=None) -> int:
     replay, replay_keep = replay_phase(torch, fs, args.seed, card)
     obs = obs_phase(torch, fs, args.seed, card, replay_keep)
     del replay_keep
+    resume = resume_phase(torch, args.seed, card)
     kernel["launches_by_path"] = {
         "serve granite-3-2b": serve["flash_launches"],
         **{f"serve olmoe-1b-7b {mode}": r["flash_launches"]
@@ -4844,20 +5342,35 @@ def main(argv=None) -> int:
     agg_kernel["launches_by_path"] = {
         "train cifar-cnn": agg_kernel["launches"],
         "train granite-3-2b": train_lm["fused_agg_launches"],
-        "train whisper-tiny": train_new["fused_agg_launches"]}
+        "train whisper-tiny": train_new["fused_agg_launches"],
+        "launch.train granite-3-2b, checkpointed every round":
+            resume["train"]["launches"],
+        "launch.train granite-3-2b, resumed in a fresh process":
+            resume["train"]["resumed_launches"]}
     agg_kernel["launches"] = sum(agg_kernel["launches_by_path"].values())
     agg_kernel["lm_tree"] = train_lm["agg_tree"]
     fleet_kernel["launches_by_path"] = {
         "fleet scenario (4 runs)": fleet["launches"],
         "fleet trace replay": replay["launches"]["fleet"],
-        "fleet trace replay, obs tap": obs["fleet"]["launches"]}
+        "fleet trace replay, obs tap": obs["fleet"]["launches"],
+        "battery_control (uninterrupted)": resume["battery"]["launches"],
+        "battery_control, resumed after two kills":
+            resume["battery"]["resumed_launches"],
+        "cross-device resume (resumed + uninterrupted)":
+            resume["cross_device"]["launches"]}
     fleet_kernel["launches"] = sum(fleet_kernel["launches_by_path"].values())
     serve_kernel["launches_by_path"] = {
         "serving fleet scenario (3 runs)": serve_fleet["launches"],
         "serving fleet trace replay": replay["launches"]["serve"],
         "trace_fleet (trace and twin)": replay["launches"]["trace_fleet"],
         "run_serve_controlled trace replay, obs":
-            obs["serve_controlled"]["launches"]}
+            obs["serve_controlled"]["launches"],
+        "run_serve_controlled replay (uninterrupted)":
+            resume["serve"]["launches"],
+        "run_serve_controlled replay, resumed host-local":
+            resume["serve"]["resumed_launches"],
+        "run_serve_controlled replay, resumed on a one-rank NCCL mesh":
+            resume["serve"]["mesh_resumed_launches"]}
     serve_kernel["launches"] = sum(serve_kernel["launches_by_path"].values())
     for k, kind, unit in ((fleet_kernel, "fleet", "round"),
                           (serve_kernel, "serve", "epoch")):
@@ -4883,7 +5396,7 @@ def main(argv=None) -> int:
               "serve_vlm": serve_vlm, "train_lm": train_lm,
               "serve_hybrid": serve_hybrid, "serve_encdec": serve_encdec,
               "train_new_families": train_new, "replay": replay,
-              "obs": obs}
+              "obs": obs, "resume": resume}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -20,10 +20,9 @@ controlled``) the stats are replicated on every rank, so every rank's
 controller takes the same decisions.  With ``obs=`` (a
 `repro_torch.obs.Obs`) `run_controlled` streams at chunk boundaries: the
 manifest, a ``fleet_chunk`` span a chunk, the chunk's rounds, a
-``control`` event after each update and the retrace sentinel.
-Differences from the reference: `run_controlled` has no ``checkpoint=`` /
-``resume=`` (``ROADMAP.md`` Queue 1 items 23-24); they raise, naming
-their items.
+``control`` event after each update and the retrace sentinel.  With
+``checkpoint=`` (`repro_torch.checkpoint`) it persists chunk boundaries
+and ``resume=True`` continues from the newest intact one, bit-exactly.
 """
 from __future__ import annotations
 
@@ -34,13 +33,12 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.energy import fleet as fleet_lib
+from repro_torch.energy.arrivals import map_tensors
 from repro_torch.kernels import ops
 from repro_torch.obs import hist as hist_lib
-
-CHECKPOINT_NOT_PORTED = ("run_controlled(checkpoint=/resume=): run "
-                         "checkpoints are not ported yet (ROADMAP.md Queue 1 "
-                         "items 23-24)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -405,7 +403,8 @@ def run_controlled(process, bat, cost, cfg, num_rounds: int,
                    controller: ServerController, *, control_every: int = 10,
                    mesh=None, phase=None, record_masks: bool = False,
                    obs=None, pad_to: int | None = None, checkpoint=None,
-                   resume: bool = False, hist: bool = False, device="cuda"):
+                   resume: bool = False, checkpoint_every: int = 1,
+                   hist: bool = False, device="cuda"):
     """Closed-loop fleet horizon: `simulate_fleet` in chunks of
     ``control_every`` rounds, with the controller adapting ``T`` (round
     pricing via ``cfg.local_steps``) and per-group ``E`` between chunks.
@@ -415,30 +414,82 @@ def run_controlled(process, bat, cost, cfg, num_rounds: int,
     ``round_offset``, so a run with a do-nothing controller equals one
     unchunked `simulate_fleet` call.  ``mesh`` shards each chunk's client
     axis over its ranks (`simulate_fleet`); the stats the controller reads
-    are replicated, so every rank takes the same decisions.  A controller with ``groups`` gets
-    per-group telemetry (``BudgetRule`` then moves each ``E_k`` from its own
-    group).  ``hist=True`` carries the depletion streak and gives
-    `Telemetry` its histogram quantiles.  ``obs`` streams each chunk's
-    rounds when the controller has read them, with a ``fleet_chunk`` span,
-    a ``control`` event and the retrace sentinel.
+    are replicated, so every rank takes the same decisions.  A controller
+    with ``groups`` gets per-group telemetry (``BudgetRule`` then moves
+    each ``E_k`` from its own group).  ``hist=True`` carries the depletion
+    streak and gives `Telemetry` its histogram quantiles.  ``obs`` streams
+    each chunk's rounds when the controller has read them, with a
+    ``fleet_chunk`` span, a ``control`` event and the retrace sentinel.
+
+    ``checkpoint=`` (a directory or a `repro_torch.checkpoint.
+    RunCheckpointer`) persists every ``checkpoint_every``-th chunk boundary
+    and the last: the simulator state (gathered and unpadded under a mesh,
+    written by rank 0 alone), the accumulated telemetry, the controller's
+    knobs and trace, the RNG base key and a config hash (DESIGN.md §13).
+    ``resume=True`` restores the newest intact boundary (on every rank) and
+    continues; a kill-and-resume run equals an uninterrupted one bitwise.
+    The mesh, ``pad_to`` and ``device`` are outside the hash: a run resumes
+    across them.  On resume an ``obs`` stream gets a ``resume`` event, not
+    a second manifest.
 
     Returns ``(FleetResult over the full horizon, controller)``.
     """
-    if checkpoint is not None or resume:
-        raise NotImplementedError(CHECKPOINT_NOT_PORTED)
+    if resume and checkpoint is None:
+        raise ValueError("resume=True requires checkpoint=")
+    dev = resolve_device(device)
+    ckptr, cfg_hash, start, restored_stats, state = None, None, 0, None, None
+    if checkpoint is not None:
+        if record_masks:
+            raise ValueError(
+                "checkpoint= cannot carry record_masks=True: the (R, N) "
+                "mask history is unbounded state the chunk boundary "
+                "checkpoints do not persist")
+        from repro_torch.checkpoint import resume as resume_lib
+        from repro_torch.obs.events import pytree_hash
+        ckptr = resume_lib.as_checkpointer(checkpoint)
+        cfg_hash = pytree_hash((
+            "fleet_controlled", process, bat, cost, cfg, phase,
+            int(control_every), controller.rules, controller.bounds,
+            controller.groups, bool(hist)))
+        if resume:
+            n = cfg.num_clients
+            charge = torch.zeros((n,), dtype=torch.float32)
+            state_like = ((charge, charge, process.init()) if hist
+                          else (charge, process.init()))
+            rc = resume_lib.restore_run(
+                ckptr, kind="fleet_controlled", config_hash=cfg_hash,
+                state_like=state_like, seed=cfg.seed, controller=controller)
+            if rc is not None:
+                state, start = rc.state, rc.round_offset
+                restored_stats = rc.stats
+    save = ckptr is not None and sharding.is_lead(mesh)
     sentinel = None
     if obs is not None:
         from repro_torch.obs.profile import RetraceSentinel
-        obs.write_manifest(
-            "fleet_controlled", config=(process, bat, cost),
-            seed=cfg.seed, backend=ops.backend(device), mesh=mesh,
-            num_clients=cfg.num_clients, horizon=num_rounds, device=device,
-            control_every=control_every, policy=cfg.policy)
+        if start:
+            obs.event("resume", run_kind="fleet_controlled", round=start,
+                      horizon=num_rounds, config_hash=cfg_hash,
+                      checkpoint_dir=ckptr.directory)
+        else:
+            obs.write_manifest(
+                "fleet_controlled", config=(process, bat, cost),
+                seed=cfg.seed, backend=ops.backend(device), mesh=mesh,
+                num_clients=cfg.num_clients, horizon=num_rounds,
+                device=device, control_every=control_every,
+                policy=cfg.policy)
         sentinel = RetraceSentinel(obs)
     chunks: list[fleet_lib.FleetResult] = []
-    state, offset = None, 0
+    offset = start
+
+    def acc_stats():
+        parts = ([restored_stats] if restored_stats is not None else []) \
+            + [c.stats for c in chunks]
+        return ({k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+                if parts else {})
+
     groups = controller.groups
     num_groups = None if groups is None else controller.E.size
+    chunk_i = 0
     while offset < num_rounds:
         chunk = min(control_every, num_rounds - offset)
         ccfg = dataclasses.replace(cfg, local_steps=controller.T)
@@ -459,18 +510,34 @@ def run_controlled(process, bat, cost, cfg, num_rounds: int,
             obs.event("control", round=offset + chunk, T=controller.state.T,
                       E_mean=float(np.mean(controller.state.E)),
                       admit=controller.state.admit)
-            if offset == 0:
+            if offset == start:
                 sentinel.snapshot()
             else:
                 sentinel.check(context=f"fleet chunk at round {offset}")
         offset += chunk
-    stats = ({k: np.concatenate([c.stats[k] for c in chunks])
-              for k in chunks[0].stats} if chunks else {})
+        chunk_i += 1
+        if save and (chunk_i % max(1, checkpoint_every) == 0
+                     or offset >= num_rounds):
+            resume_lib.save_run(
+                ckptr, kind="fleet_controlled", round_offset=offset,
+                state=state, stats=acc_stats(), controller=controller,
+                config_hash=cfg_hash, seed=cfg.seed)
     masks = (torch.cat([c.masks for c in chunks])
              if record_masks and chunks else None)
-    last = chunks[-1] if chunks else None
-    out = fleet_lib.FleetResult(
-        stats=stats, final_charge=last.final_charge if last else None,
-        masks=masks, final_pstate=last.final_pstate if last else None,
-        final_streak=last.final_streak if last else None)
+    if chunks:
+        last = chunks[-1]
+        final_charge, final_streak = last.final_charge, last.final_streak
+        final_pstate = last.final_pstate
+    elif state is None:
+        final_charge = final_streak = final_pstate = None
+    else:                       # resumed at or past the horizon
+        state = map_tensors(state, lambda t: t.to(dev))
+        if hist:
+            final_charge, final_streak, final_pstate = state
+        else:
+            (final_charge, final_pstate), final_streak = state, None
+    out = fleet_lib.FleetResult(stats=acc_stats(), final_charge=final_charge,
+                                masks=masks, final_pstate=final_pstate,
+                                final_streak=final_streak)
     return out, controller
+

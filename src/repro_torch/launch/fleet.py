@@ -22,11 +22,14 @@ the ranks (a one-dimensional ``("data",)`` mesh; NCCL, each rank on
 ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``), as the example does
 when JAX sees more than one device; rank 0 prints, and the launch counts
 are its own.  The closed loop runs on each rank alone.  ``--obs-dir``
-streams the three policy runs into one event log (rank 0's).
+streams the three policy runs into one event log (rank 0's).  The
+checkpoint flags (``--checkpoint-dir``, ``--resume``) are accepted as the
+example accepts them: its runs are open-loop, so none is checkpointed
+(``launch.battery_control`` checkpoints a controlled fleet), and
+``--resume`` without ``--checkpoint-dir`` exits.
 
-Differences from the example: ``--backend`` and the checkpoint flags have
-no counterpart (``ROADMAP.md`` Queue 1 items 23-24); ``--rounds`` and
-``--device`` are new.
+Differences from the example: ``--backend`` has no counterpart;
+``--rounds`` and ``--device`` are new.
 """
 from __future__ import annotations
 
@@ -124,6 +127,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     scen.add_scenario_flags(ap)
     args = ap.parse_args(argv)
+    scen.checkpoint_args(args)
     device = resolve_device(args.device)
     mesh, device = sharding.mesh_from_env(args.device)
     say = print if sharding.is_lead(mesh) else (lambda *a, **k: None)

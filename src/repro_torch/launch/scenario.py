@@ -6,11 +6,13 @@ harvest and traffic processes here, so each exposes the same ``--trace`` /
 ``--synthetic`` pair (with ``--trace-path`` and ``--obs-dir``), and a
 trace run is directly comparable to its synthetic twin: the same scale
 (mean joules, mean requests per epoch) and seeds, a different shape of
-the arrival law.
+the arrival law.  ``--checkpoint-dir`` / ``--resume`` (`checkpoint_args`)
+make a launcher's controlled runs preemption-safe.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
@@ -26,8 +28,8 @@ GAIN_JITTER = 0.3
 
 def add_scenario_flags(parser: argparse.ArgumentParser
                        ) -> argparse.ArgumentParser:
-    """``--trace`` / ``--synthetic`` (mutually exclusive), ``--trace-path``
-    and ``--obs-dir``."""
+    """``--trace`` / ``--synthetic`` (mutually exclusive), ``--trace-path``,
+    ``--obs-dir``, ``--checkpoint-dir`` and ``--resume``."""
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--trace", action="store_true",
                       help="replay the bundled NSRDB-style solar and "
@@ -42,7 +44,38 @@ def add_scenario_flags(parser: argparse.ArgumentParser
                         help="stream the run as a JSONL event log into this "
                              "directory; read it with `python -m "
                              "repro_torch.obs.report summary DIR`")
+    add_checkpoint_flags(parser)
     return parser
+
+
+def add_checkpoint_flags(parser: argparse.ArgumentParser
+                         ) -> argparse.ArgumentParser:
+    """``--checkpoint-dir`` and ``--resume``, read by `checkpoint_args`."""
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="save chunk-boundary run checkpoints of the "
+                             "controlled run into this directory (retained-"
+                             "last-k rotation + MANIFEST.json, "
+                             "repro_torch.checkpoint.resume)")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the newest intact checkpoint in "
+                             "--checkpoint-dir (bitwise the uninterrupted "
+                             "run)")
+    return parser
+
+
+def checkpoint_args(args, run: str | None = None) -> dict:
+    """``checkpoint=`` / ``resume=`` for a controlled run from the
+    ``--checkpoint-dir`` / ``--resume`` flags; exits when ``--resume`` has
+    no directory.  ``run`` names a subdirectory for a launcher that drives
+    several controlled runs (each has its own config hash and round
+    offset, so they cannot share one directory)."""
+    d = getattr(args, "checkpoint_dir", None)
+    if not d:
+        if getattr(args, "resume", False):
+            raise SystemExit("--resume requires --checkpoint-dir")
+        return {}
+    return {"checkpoint": os.path.join(d, run) if run else d,
+            "resume": args.resume}
 
 
 def make_obs(args, mesh=None):

@@ -28,13 +28,14 @@ when JAX sees more than one device; rank 0 prints, and the launch counts
 are its own.  ``--trace`` replays the bundled solar and request-log day
 profiles (``--trace-path`` a table of your own) in place of the synthetic
 twins; ``--obs-dir`` streams the controlled run into an event log (rank
-0's).
+0's); ``--checkpoint-dir DIR`` checkpoints the controlled run at its
+chunk boundaries and ``--resume`` picks an interrupted run back up,
+bitwise (rank 0 writes, every rank reads).
 
 Differences from the example: ``--microbench ARCH`` prices requests from
 the port's own `engine_microbench` (default ``mamba2-1.3b``, as the
 example's) and exits 1 for an architecture with no decode path;
-``--backend`` and the checkpoint flags have no counterpart (``ROADMAP.md``
-Queue 1 items 23-24); ``--epochs`` and ``--device`` are new.
+``--backend`` has no counterpart; ``--epochs`` and ``--device`` are new.
 """
 from __future__ import annotations
 
@@ -166,6 +167,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     scen.add_scenario_flags(ap)
     args = ap.parse_args(argv)
+    ckpt_kw = scen.checkpoint_args(args)
     device = resolve_device(args.device)
     mesh, device = sharding.mesh_from_env(args.device)
     say = print if sharding.is_lead(mesh) else (lambda *a, **k: None)
@@ -192,7 +194,7 @@ def main(argv=None) -> int:
     runs, ctrl, speed = {}, None, {}
     obs = scen.make_obs(args, mesh)
     for name in RUNS:
-        kw = dict(obs=obs) if name == "controlled" else {}
+        kw = dict(obs=obs, **ckpt_kw) if name == "controlled" else {}
         res, c, wall, launches = run(name, traffic, harvest, cost, train, N,
                                      E, args.seed, device,
                                      hist=args.hist and name == "controlled",

@@ -15,7 +15,9 @@ synthetic twins (twin of the JAX package's ``examples/trace_fleet.py``).
    pair and under the twins: the same fleet, batteries and controller, so
    the gap is what the synthetic family cannot express.  Both runs stream
    into one event log with ``--obs-dir`` (one manifest, then a ``phase``
-   event).
+   event); ``--checkpoint-dir DIR`` checkpoints each run into its own
+   subdirectory (``DIR/trace``, ``DIR/twin``) and ``--resume`` picks them
+   back up, bitwise.
 
 Each epoch is one launch of the ``fleet_step`` kernel's serve program on
 the card (its plain version on the CPU)::
@@ -24,8 +26,8 @@ the card (its plain version on the CPU)::
   python -m repro_torch.launch.trace_fleet --device cpu --clients 2000 --epochs 48
   python -m repro_torch.launch.trace_fleet --trace-path my.csv --obs-dir runs/t
 
-Differences from the example: the checkpoint flags and ``--backend`` have
-no counterpart (``ROADMAP.md`` Queue 1 items 23-24); ``--device`` is new.
+Differences from the example: ``--backend`` has no counterpart;
+``--device`` is new.
 """
 from __future__ import annotations
 
@@ -79,16 +81,18 @@ def fit_twins(solar, request, n: int, seed: int, device) -> dict:
 
 
 def compare(pairs: dict, n: int, epochs: int, seed: int, device, obs=None,
-            hist: bool = False) -> dict:
+            hist: bool = False, checkpoint=None) -> dict:
     """`launch.serve_fleet`'s controlled run (its battery, QoS, 0.2 J
     training load and admission controller every 24 epochs) under each
     (harvest, traffic) pair: {name: (ServeResult, controller, wall
-    seconds, serve-program launches)}."""
+    seconds, serve-program launches)}.  ``checkpoint`` is `scen.
+    checkpoint_args`' function of a run's name (each run checkpoints into
+    its own subdirectory)."""
     cost = DecodeCostModel.from_params(1e8)
-    return {name: serve_fleet.run("controlled", traffic, harvest, cost,
-                                  None, n, epochs, seed, device, hist=hist,
-                                  obs=obs)
-            for name, (harvest, traffic) in pairs.items()}
+    return {name: serve_fleet.run(
+        "controlled", traffic, harvest, cost, None, n, epochs, seed, device,
+        hist=hist, obs=obs, **(checkpoint(name) if checkpoint else {}))
+        for name, (harvest, traffic) in pairs.items()}
 
 
 def table_row(name: str, res, ctrl) -> str:
@@ -104,9 +108,10 @@ def table_row(name: str, res, ctrl) -> str:
 
 def run(device, clients: int = 50_000, epochs: int = 192, seed: int = 0,
         trace_path: str | None = None, obs=None, hist: bool = False,
-        say=print) -> dict:
+        say=print, checkpoint=None) -> dict:
     """The whole evaluation, printed through ``say``: {"twins": fit_twins's
-    dict, "runs": compare's dict, "replay": (harvest, traffic)}."""
+    dict, "runs": compare's dict, "replay": (harvest, traffic)}.
+    ``checkpoint`` as in `compare`."""
     device = resolve_device(device)
     N = clients
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -134,7 +139,7 @@ def run(device, clients: int = 50_000, epochs: int = 192, seed: int = 0,
         f"{'J/tok':>8} {'admit(end)':>10}")
     runs = compare({"trace": (harvest, traffic),
                     "twin": (twins["solar"], twins["diurnal"])}, N, epochs,
-                   seed, device, obs=obs, hist=hist)
+                   seed, device, obs=obs, hist=hist, checkpoint=checkpoint)
     for name, (res, ctrl, _, _) in runs.items():
         say(table_row(name, res, ctrl))
 
@@ -172,11 +177,14 @@ def main(argv=None) -> int:
     ap.add_argument("--hist", action="store_true",
                     help="fixed-bin histograms of per-client state of "
                          "charge, spend and the depletion streak")
+    scen.add_checkpoint_flags(ap)
     args = ap.parse_args(argv)
+    scen.checkpoint_args(args)
     resolve_device(args.device)
     obs = scen.make_obs(args)
     run(args.device, args.clients, args.epochs, args.seed, args.trace_path,
-        obs=obs, hist=args.hist)
+        obs=obs, hist=args.hist,
+        checkpoint=lambda name: scen.checkpoint_args(args, run=name))
     if obs is not None:
         obs.close()
         print(f"\nobs events -> {obs.log.path}  (python -m "

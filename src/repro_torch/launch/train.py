@@ -34,10 +34,23 @@ float32 matmuls (``models.cnn.conv_same``).
 ``train_round`` span and a ``round`` event a round (the round's metrics
 are read on the host inside the span, so it covers the device's work).
 
+``--checkpoint-dir DIR`` saves a run checkpoint (the params, the round and
+the loss / participants history; `repro_torch.checkpoint.resume`) every
+``--checkpoint-every`` rounds and after the last; ``--resume`` continues
+from the newest intact one, and re-attaches ``--obs-dir`` with a
+``resume`` event.  A round's batches and keys derive from its absolute
+index, so a resumed run equals an uninterrupted one (bitwise on the CPU).
+``--ckpt PATH`` writes the final params as a model file in the
+reference's layout (the CNN's conv weights HWIO), which the reference's
+``load_checkpoint(PATH, like=params)`` reads.
+
+  python -m repro_torch.launch.train --arch cifar-cnn --device cpu \\
+      --rounds 6 --checkpoint-dir runs/ck --checkpoint-every 3 --ckpt w.msgpack
+
 Differences from the reference's launcher: ``--device`` chooses the card
-or the CPU, and checkpointing (``--ckpt``, ``--checkpoint-dir``,
-``--resume``, ``--checkpoint-every``; ``ROADMAP.md`` Queue 1 items 23-24)
-is not ported yet.
+or the CPU; ``--layers K`` cuts the configuration to K layers (its widths
+stay); the run checkpoint's config hash covers the whole model
+configuration, not only its name.
 """
 from __future__ import annotations
 
@@ -52,7 +65,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import convert, prng
+from repro_torch.checkpoint import resume as resume_lib
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import EnergyProfile, FedConfig, parallel_round
 from repro_torch.data import (FederatedLoader, SyntheticImages,
@@ -61,6 +76,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import fused_agg
 from repro_torch.models import Model, get_model
 from repro_torch.optim import Optimizer, OptimizerConfig, make_optimizer
+from repro_torch.tree import tree_map
 
 def disable_tf32() -> None:
     """Float32 matmuls and cuDNN convolutions in full float32."""
@@ -171,11 +187,23 @@ def train_round(run: TrainRun, w, r: int):
     return w, {k: float(v) for k, v in m.items()}
 
 
+def model_file_tree(run: TrainRun, w):
+    """The params ``w`` in the reference's layout, for a model file that the
+    reference's ``load_checkpoint(like=params)`` reads: the CNN's conv
+    weights HWIO (``convert.cnn_params_to_numpy``); an LM's nest as it
+    is."""
+    if run.model.cfg.family == "cnn":
+        return convert.cnn_params_to_numpy(w)
+    return w
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (depth only)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--policy", default="sustainable",
                     choices=["sustainable", "greedy", "wait_all", "always"])
@@ -191,17 +219,37 @@ def main(argv=None) -> int:
                     choices=["adam", "sgd", "sgd_momentum"])
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default="",
+                    help="write the final params here as a model file in "
+                         "the reference's layout")
     ap.add_argument("--log", default="",
                     help="write the per-round history here as JSON")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="save a resumable run checkpoint (params + round + "
+                         "history, retained-last-k rotation) into this "
+                         "directory every --checkpoint-every rounds")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest intact checkpoint in "
+                         "--checkpoint-dir (per-round RNG and batches "
+                         "derive from the absolute round index)")
+    ap.add_argument("--checkpoint-every", type=int, default=5)
     ap.add_argument("--obs-dir", default="",
                     help="stream the run (manifest, a round event and a "
                          "train_round span a round) to this directory")
     args = ap.parse_args(argv)
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
 
     taus = tuple(int(x) for x in args.taus.split(","))
+    cfg = None
+    if args.layers:
+        cfg = dataclasses.replace(
+            get_smoke_config(args.arch) if args.smoke
+            else get_config(args.arch), num_layers=args.layers)
     run = make_run(args.arch, args.clients, args.local_steps, args.batch,
                    taus, args.policy, args.optimizer, args.lr, args.seed,
-                   device=args.device, smoke=args.smoke, seq=args.seq)
+                   device=args.device, smoke=args.smoke, seq=args.seq,
+                   cfg=cfg)
     if run.device.type == "cuda":
         where = torch.cuda.get_device_name(run.device)
         tf32 = "off" if tf32_off() else "on"
@@ -213,23 +261,52 @@ def main(argv=None) -> int:
           f"batch={args.batch} policy={args.policy} E={run.E.tolist()} "
           f"device={where} tf32={tf32}", flush=True)
 
+    w, history, start = run.params, [], 0
+    ckptr, cfg_hash = None, None
+    if args.checkpoint_dir:
+        from repro_torch.obs.events import pytree_hash
+        ckptr = resume_lib.as_checkpointer(args.checkpoint_dir)
+        cfg_hash = pytree_hash(("train", run.model.cfg, run.fed,
+                                args.optimizer, args.lr, T, args.batch,
+                                args.seq, taus))
+        if args.resume:
+            rc = resume_lib.restore_run(ckptr, kind="train", state_like=w,
+                                        config_hash=cfg_hash, seed=args.seed)
+            if rc is not None:
+                w = tree_map(lambda t: t.to(run.device), rc.state)
+                start = rc.round_offset
+                history = [{"round": i, "loss": float(l),
+                            "participants": float(p)}
+                           for i, (l, p) in enumerate(
+                               zip(rc.stats["loss"],
+                                   rc.stats["participants"]))]
+                print(f"resumed from round {start} ({ckptr.path(start)})",
+                      flush=True)
+
     obs = None
     if args.obs_dir:
         from repro_torch.kernels import ops
         from repro_torch.obs import Obs
         obs = Obs(args.obs_dir)
-        obs.write_manifest("train", config=run.fed, seed=args.seed,
-                           backend=ops.backend(run.device), num_clients=C,
-                           horizon=args.rounds, device=run.device,
-                           arch=run.model.cfg.name,
-                           family=run.model.cfg.family,
-                           params=int(run.model.num_params(run.params)),
-                           policy=args.policy, local_steps=T,
-                           optimizer=args.optimizer, lr=args.lr)
+        if start:
+            # re-attach to the run's event stream: a resume event, never a
+            # second manifest (DESIGN.md §13.4)
+            obs.event("resume", run_kind="train", round=start,
+                      horizon=args.rounds, config_hash=cfg_hash,
+                      checkpoint_dir=args.checkpoint_dir)
+        else:
+            obs.write_manifest("train", config=run.fed, seed=args.seed,
+                               backend=ops.backend(run.device),
+                               num_clients=C, horizon=args.rounds,
+                               device=run.device, arch=run.model.cfg.name,
+                               family=run.model.cfg.family,
+                               params=int(run.model.num_params(run.params)),
+                               policy=args.policy, local_steps=T,
+                               optimizer=args.optimizer, lr=args.lr)
 
     launches0 = fused_agg.fused_agg_cuda.launches
-    w, history = run.params, []
-    for r in range(args.rounds):
+    timed = []
+    for r in range(start, args.rounds):
         t0 = time.perf_counter()
         with contextlib.ExitStack() as stack:
             if obs is not None:
@@ -239,28 +316,44 @@ def main(argv=None) -> int:
         rec = {"round": r, **m, "round_ms": dt * 1e3,
                "client_steps_per_s": C * T / dt}
         history.append(rec)
+        timed.append(rec)
         if obs is not None:
             obs.event("round", scan="train", **rec)
+        if ckptr is not None and ((r + 1) % max(1, args.checkpoint_every)
+                                  == 0 or r == args.rounds - 1):
+            resume_lib.save_run(
+                ckptr, kind="train", round_offset=r + 1, state=w,
+                stats={"loss": np.asarray([h["loss"] for h in history]),
+                       "participants": np.asarray(
+                           [h["participants"] for h in history])},
+                config_hash=cfg_hash, seed=args.seed)
         if r % max(1, args.rounds // 10) == 0 or r == args.rounds - 1:
             print(f"round {r:4d} loss={rec['loss']:.4f} "
                   f"participants={rec['participants']:.0f} "
                   f"{rec['round_ms']:.1f} ms "
                   f"({rec['client_steps_per_s']:.1f} client-steps/s)",
                   flush=True)
-    steady = history[1:] or history
-    round_ms = float(np.mean([h["round_ms"] for h in steady]))
-    print(f"mean round {round_ms:.1f} ms = {C * T / round_ms * 1e3:.1f} "
-          f"client-steps/s over rounds {steady[0]['round']}.."
-          f"{steady[-1]['round']} (round 0 includes the kernel build and "
-          f"warm-up); fused_agg kernel launches "
-          f"{fused_agg.fused_agg_cuda.launches - launches0}")
+    if timed:
+        steady = timed[1:] or timed
+        round_ms = float(np.mean([h["round_ms"] for h in steady]))
+        print(f"mean round {round_ms:.1f} ms = {C * T / round_ms * 1e3:.1f} "
+              f"client-steps/s over rounds {steady[0]['round']}.."
+              f"{steady[-1]['round']} (the first round of a process "
+              f"includes the kernel build and warm-up); fused_agg kernel "
+              f"launches {fused_agg.fused_agg_cuda.launches - launches0}")
+    if args.ckpt:
+        save_checkpoint(args.ckpt, model_file_tree(run, w), step=args.rounds,
+                        metadata={"arch": run.model.cfg.name,
+                                  "policy": args.policy})
+        print("checkpoint ->", args.ckpt)
     if args.log:
         with open(args.log, "w") as f:
             json.dump(history, f, indent=1)
     if obs is not None:
         obs.close()
         print("obs events ->", obs.log.path)
-    print(f"final loss {history[-1]['loss']:.4f}")
+    if history:
+        print(f"final loss {history[-1]['loss']:.4f}")
     return 0
 
 

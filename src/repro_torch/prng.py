@@ -137,3 +137,36 @@ def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:
     JAX's; the result is not, since ``log1p`` is rounded differently (up to
     2 ulp apart)."""
     return -torch.log1p(-uniform(key, shape))
+
+
+# XLA's float32 erf_inv (Giles' single-precision approximation), which
+# ``jax.random.normal`` calls; torch.erfinv is rounded more tightly and
+# lands hundreds of ulp away from it near 0
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.zeros_like(x)
+    for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
+        p = torch.where(lt, torch.tensor(a, dtype=torch.float32),
+                        torch.tensor(b, dtype=torch.float32)) + p * w
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32: ``sqrt(2) erfinv(u)``
+    for ``u`` uniform in (-1, 1), through XLA's float32 ``erf_inv``.  The
+    uniforms are bitwise equal to JAX's; the result is only ulp-close, as
+    ``log1p`` and fused multiply-adds round differently."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32) * _erfinv_f32(u)

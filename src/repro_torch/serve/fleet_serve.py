@@ -44,9 +44,8 @@ the un-instrumented run.
 
 Differences from the reference: epochs are a Python loop (no ``jit``, no
 ``use_jit``); a mesh's ranks are processes; histogram counts are
-all-reduced as exact integers; `run_serve_controlled`'s ``checkpoint=`` /
-``resume=`` raise, naming ``ROADMAP.md`` Queue 1 items 23-24; ``device``
-picks the card (default) or the CPU.
+all-reduced as exact integers; ``device`` picks the card (default) or
+the CPU.
 """
 from __future__ import annotations
 
@@ -70,10 +69,6 @@ from repro_torch.energy.fleet import (_pad_clients, _slice_clients,
                                       padded_width)
 from repro_torch.kernels import ops
 from repro_torch.serve.qos import QoSSpec
-
-
-CHECKPOINT_NOT_PORTED = ("checkpoint= / resume=: run checkpoints are not "
-                         "ported yet (ROADMAP.md Queue 1 items 23-24)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,8 +353,8 @@ def run_serve_controlled(traffic, harvest, bat, cost: DecodeCostModel,
                          control_every: int = 24, mesh=None,
                          record_modes: bool = False, obs=None,
                          pad_to: int | None = None, checkpoint=None,
-                         resume: bool = False, hist: bool = False,
-                         device="cuda"):
+                         resume: bool = False, checkpoint_every: int = 1,
+                         hist: bool = False, device="cuda"):
     """Closed-loop serving horizon: `simulate_serve` in chunks of
     ``control_every`` epochs, with an `energy.control.ServerController`
     adapting its knobs between chunks — the admission-threshold scale
@@ -373,23 +368,71 @@ def run_serve_controlled(traffic, harvest, bat, cost: DecodeCostModel,
     each chunk is sharded (`simulate_serve`) and its stats are replicated,
     so every rank's controller takes the same decisions.
 
+    ``checkpoint=`` / ``resume=`` / ``checkpoint_every=`` persist and
+    restore chunk boundaries as in `energy.control.run_controlled`
+    (DESIGN.md §13): the serve state ``(charge[, streak], traffic,
+    harvest)``, the accumulated ledger, the controller's knobs and trace,
+    the RNG base key and a config hash; a resumed run equals an
+    uninterrupted one bitwise and re-attaches ``obs`` with a ``resume``
+    event in place of a second manifest.
+
     Returns ``(ServeResult over the full horizon, controller)``.
     """
-    if checkpoint is not None or resume:
-        raise NotImplementedError(CHECKPOINT_NOT_PORTED)
     n = cfg.num_clients
+    if resume and checkpoint is None:
+        raise ValueError("resume=True requires checkpoint=")
+    dev = resolve_device(device)
+    ckptr, cfg_hash, start, restored_stats, state = None, None, 0, None, None
+    if checkpoint is not None:
+        if record_modes:
+            raise ValueError(
+                "checkpoint= cannot carry record_modes=True: the (E, N) "
+                "mode history is unbounded state the chunk boundary "
+                "checkpoints do not persist")
+        from repro_torch.checkpoint import resume as resume_lib
+        from repro_torch.obs.events import pytree_hash
+        ckptr = resume_lib.as_checkpointer(checkpoint)
+        cfg_hash = pytree_hash((
+            "serve_controlled", traffic, harvest, bat, cost, qos, policy,
+            cfg, train_cost, int(control_every), controller.rules,
+            controller.bounds, controller.groups, bool(hist)))
+        if resume:
+            charge = torch.zeros((n,), dtype=torch.float32)
+            state_like = ((charge, charge, traffic.init(), harvest.init())
+                          if hist else
+                          (charge, traffic.init(), harvest.init()))
+            rc = resume_lib.restore_run(
+                ckptr, kind="serve_controlled", config_hash=cfg_hash,
+                state_like=state_like, seed=cfg.seed, controller=controller)
+            if rc is not None:
+                state, start = rc.state, rc.round_offset
+                restored_stats = rc.stats
+    save = ckptr is not None and sharding.is_lead(mesh)
     sentinel = None
     if obs is not None:
         from repro_torch.obs.profile import RetraceSentinel
-        obs.write_manifest(
-            "serve_controlled",
-            config=(traffic, harvest, bat, cost, qos, policy),
-            seed=cfg.seed, backend=ops.backend(device), mesh=mesh,
-            num_clients=n, horizon=num_epochs, device=device,
-            control_every=control_every)
+        if start:
+            obs.event("resume", run_kind="serve_controlled", round=start,
+                      horizon=num_epochs, config_hash=cfg_hash,
+                      checkpoint_dir=ckptr.directory)
+        else:
+            obs.write_manifest(
+                "serve_controlled",
+                config=(traffic, harvest, bat, cost, qos, policy),
+                seed=cfg.seed, backend=ops.backend(device), mesh=mesh,
+                num_clients=n, horizon=num_epochs, device=device,
+                control_every=control_every)
         sentinel = RetraceSentinel(obs)
     chunks: list[ServeResult] = []
-    state, offset = None, 0
+    offset = start
+
+    def acc_stats():
+        parts = ([restored_stats] if restored_stats is not None else []) \
+            + [c.stats for c in chunks]
+        return ({k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+                if parts else {})
+
+    chunk_i = 0
     while offset < num_epochs:
         chunk = min(control_every, num_epochs - offset)
         train = None if train_cost is None else TrainLoad.create(
@@ -411,20 +454,34 @@ def run_serve_controlled(traffic, harvest, bat, cost: DecodeCostModel,
             obs.event("control", round=offset + chunk, T=controller.state.T,
                       E_mean=float(np.mean(controller.state.E)),
                       admit=controller.state.admit)
-            if offset == 0:
+            if offset == start:
                 sentinel.snapshot()
             else:
                 sentinel.check(context=f"serve chunk at epoch {offset}")
         offset += chunk
-    stats = ({k: np.concatenate([c.stats[k] for c in chunks])
-              for k in chunks[0].stats} if chunks else {})
+        chunk_i += 1
+        if save and (chunk_i % max(1, checkpoint_every) == 0
+                     or offset >= num_epochs):
+            resume_lib.save_run(
+                ckptr, kind="serve_controlled", round_offset=offset,
+                state=state, stats=acc_stats(), controller=controller,
+                config_hash=cfg_hash, seed=cfg.seed)
     modes = (torch.cat([c.modes for c in chunks])
              if record_modes and chunks else None)
-    last = chunks[-1] if chunks else None
-    out = ServeResult(stats=stats,
-                      final_charge=last.final_charge if last else None,
-                      modes=modes,
-                      final_tstate=last.final_tstate if last else None,
-                      final_hstate=last.final_hstate if last else None,
-                      final_streak=last.final_streak if last else None)
+    if chunks:
+        last = chunks[-1]
+        final_charge, final_streak = last.final_charge, last.final_streak
+        final_tstate, final_hstate = last.final_tstate, last.final_hstate
+    elif state is None:
+        final_charge = final_streak = final_tstate = final_hstate = None
+    else:                       # resumed at or past the horizon
+        state = map_tensors(state, lambda t: t.to(dev))
+        if hist:
+            final_charge, final_streak, final_tstate, final_hstate = state
+        else:
+            (final_charge, final_tstate, final_hstate), final_streak = \
+                state, None
+    out = ServeResult(stats=acc_stats(), final_charge=final_charge,
+                      modes=modes, final_tstate=final_tstate,
+                      final_hstate=final_hstate, final_streak=final_streak)
     return out, controller

@@ -6,6 +6,7 @@ fleet.  The control law is the same numpy on both sides, so every knob and
 every telemetry field is equal; the fleets under control are the ones the
 other parity tests hold bitwise (Bernoulli / Constant)."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -176,9 +177,21 @@ def test_run_controlled_with_a_holding_controller_equals_one_run(tmp_path):
     assert np.array_equal(res.masks.numpy(), one.masks.numpy())
     for k in one.stats:
         np.testing.assert_array_equal(res.stats[k], one.stats[k], k)
-    with pytest.raises(NotImplementedError, match="items 23-24"):
-        tctl.run_controlled(_fleet(ta, n), tb.BatteryConfig(), 1.0, cfg, 1,
-                            ctrl, checkpoint="x", device="cpu")
+    # checkpoint= (run checkpoints, once unported): the chunk boundaries
+    # are saved, and a resume past the horizon returns the same run
+    ck = str(tmp_path / "ck")
+    saved, _ = tctl.run_controlled(_fleet(ta, n), tb.BatteryConfig(), 1.0,
+                                   cfg, 14, ctrl, control_every=7,
+                                   checkpoint=ck, device="cpu")
+    assert sorted(os.listdir(ck)) == ["MANIFEST.json", "ckpt-00000007.msgpack",
+                                      "ckpt-00000014.msgpack"]
+    again, _ = tctl.run_controlled(_fleet(ta, n), tb.BatteryConfig(), 1.0,
+                                   cfg, 14, ctrl, control_every=7,
+                                   checkpoint=ck, resume=True, device="cpu")
+    assert np.array_equal(again.final_charge.numpy(),
+                          saved.final_charge.numpy())
+    for k in saved.stats:
+        np.testing.assert_array_equal(again.stats[k], saved.stats[k], k)
     with pytest.raises(ValueError, match="DeviceMesh"):
         tctl.run_controlled(_fleet(ta, n), tb.BatteryConfig(), 1.0, cfg, 1,
                             ctrl, mesh=object(), device="cpu")
@@ -247,8 +260,22 @@ def test_run_serve_controlled_refuses_unported_options(tmp_path):
             tb.BatteryConfig(), tc.DecodeCostModel(1.0, 1.0), TQoS(),
             tad.BatteryGated.create(n), tfs.ServeConfig(n), 4,
             tctl.ServerController())
-    with pytest.raises(NotImplementedError, match="items 23-24"):
-        tfs.run_serve_controlled(*args, checkpoint="x", device="cpu")
+    # checkpoint= (run checkpoints, once unported): a boundary a chunk, and
+    # the resumed run equals the uninterrupted one
+    ck = str(tmp_path / "ck")
+    whole, _ = tfs.run_serve_controlled(*args, control_every=2,
+                                        device="cpu")
+    tfs.run_serve_controlled(*args[:7], 2, tctl.ServerController(),
+                             control_every=2, checkpoint=ck, device="cpu")
+    resumed, _ = tfs.run_serve_controlled(*args, control_every=2,
+                                          checkpoint=ck, resume=True,
+                                          device="cpu")
+    assert sorted(os.listdir(ck)) == ["MANIFEST.json", "ckpt-00000002.msgpack",
+                                      "ckpt-00000004.msgpack"]
+    assert np.array_equal(resumed.final_charge.numpy(),
+                          whole.final_charge.numpy())
+    for k in whole.stats:
+        np.testing.assert_array_equal(resumed.stats[k], whole.stats[k], k)
     # obs= (observability, once unported): the manifest, then a chunk's
     # span, its epochs and a control event at each boundary
     with Obs(tmp_path) as obs:

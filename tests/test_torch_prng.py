@@ -1,5 +1,7 @@
 """``repro_torch.prng`` against ``jax.random`` (jax 0.9.0 defaults:
-threefry2x32, partitionable, x64 off).  Every comparison is bitwise."""
+threefry2x32, partitionable, x64 off).  Every comparison is bitwise but
+``normal``'s, which holds to 3 ulp (``erf_inv``'s ``log1p`` and fused
+multiply-adds round differently)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,3 +119,16 @@ def test_scheduling_key_is_seed_seed():
     """``PRNGKey(0) + seed`` (core/scheduling.py) is (seed, seed)."""
     for seed in SEEDS[:5]:
         _eq(np.array([seed, seed]), jax.random.PRNGKey(0) + seed)
+
+
+@pytest.mark.parametrize("shape", [(3072, 64), (64, 10), (7,)])
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_normal_within_3_ulp(seed, shape):
+    """``normal`` (XLA's float32 ``erf_inv``) against ``jax.random.normal``
+    on the keys of a split, as the MLP twin draws its weights."""
+    want = np.asarray(jax.random.normal(
+        jax.random.split(jax.random.PRNGKey(seed))[1], shape))
+    got = prng.normal(prng.split(prng.PRNGKey(seed))[1], shape).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    ulp = np.spacing(np.abs(want).astype(np.float32))
+    assert (np.abs(got - want) <= 3 * ulp).all()
