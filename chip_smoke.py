@@ -57,9 +57,9 @@ without either.  Phases, each of which raises on a failed check:
    on).  Every kernel's count is set to 0 before each run and read after
    it (one fused_agg launch per round: the whole tree).  The card's masks must equal the
    CPU's bitwise, no-op rounds must leave the model bitwise unchanged, and
-   the loss must fall.  Sustainable rounds 0, 2 and 3 and wait_all round
-   0 (rounds 1 and 4 are left out for time: ~1 min each) are run again
-   from the card's params before them: on the card through
+   the loss must fall.  Sustainable rounds 0 and 3 (rounds 1, 2 and 4
+   and the wait_all rounds are left out for time: ~1 min each) are run
+   again from the card's params before them: on the card through
    ``core.replay_round``, which reads out every local step's max-pool and
    ReLU decisions and must equal the round bitwise, and on the CPU
    replaying those decisions in float32 and in float64.  The card's round
@@ -69,7 +69,7 @@ without either.  Phases, each of which raises on a failed check:
    rounds (lr 1e-2) through the same entry point are held elementwise, to
    1e-6 + 1e-5 |w|, against their float64 replays.  Prints per-round ms,
    client-steps/s and a profile of one round.
-6. Fig. 1: ``repro_torch.launch.fig1.run_fig1`` for 20 rounds under
+6. Fig. 1: ``repro_torch.launch.fig1.run_fig1`` for 10 rounds under
    ``sustainable`` and ``greedy`` (N=40, the faithful participants-only
    driver), with test accuracy, which must be above chance.
 7. fleet_step kernel (run after phase 3): ``fleet_step_cuda`` against
@@ -84,7 +84,7 @@ without either.  Phases, each of which raises on a failed check:
    include the wrapper's host time) against its plain version and the
    bytes bound (``step_ops.bytes_moved``; no library call computes it).
 8. Fleet: ``repro_torch.launch.fleet``'s path, ``examples/energy_fleet.py``'s
-   scenario at N = 1,000,000: 150 rounds each of sustainable, greedy and
+   scenario at N = 1,000,000: 50 rounds each of sustainable, greedy and
    threshold 1.5 with histograms, and one grouped sustainable run; every
    kernel's count is set to 0 before each run and read after it (one
    fleet_step launch a round, no other kernel), energy is conserved every
@@ -112,7 +112,7 @@ without either.  Phases, each of which raises on a failed check:
    training, hist): its one launch by ``torch.profiler`` and CUDA events,
    and the fold alone in a launch of its own.
 10. Serving fleet: ``repro_torch.launch.serve_fleet``'s path,
-   ``examples/serve_fleet.py``'s scenario at N = 1,000,000 for 192 epochs:
+   ``examples/serve_fleet.py``'s scenario at N = 1,000,000 for 96 epochs:
    the agnostic, gated and controlled runs (the last with histograms);
    every kernel's count is set to 0 before each run and read after it (one
    serve-program launch an epoch, no other kernel); every epoch conserves
@@ -153,9 +153,9 @@ without either.  Phases, each of which raises on a failed check:
 13. Sharded fleet (run after phases 8 and 10): the client axis over
    ``torch.distributed`` ranks (``simulate_fleet`` / ``run_serve_
    controlled`` with ``mesh=``).  (a) One NCCL rank on cuda:0 at full
-   size: the example's fleet scenario at N = 1,000,000, 150 sustainable
+   size: the example's fleet scenario at N = 1,000,000, 50 sustainable
    rounds with histograms and masks, and the serving scenario's controlled
-   run, 192 epochs with modes: every stat, mask, mode, charge and count
+   run, 96 epochs with modes: every stat, mask, mode, charge and count
    bitwise equal to the same run host-local on the card, one step kernel
    and one finalize a round or epoch and no other kernel, and each round's
    finalize bitwise equal to its plain version (``step_ops.row_stats``)
@@ -235,9 +235,9 @@ without either.  Phases, each of which raises on a failed check:
    (its two 256000 x 2560 embeddings alone are 1.31 B params).
 20. Replay (run after phase 19): ``launch.fleet``'s trace scenario (the
    bundled solar profiles replayed by ``TraceHarvest``, scaled per
-   client, plus the RF side channel) at N = 1e6 for 150 sustainable
+   client, plus the RF side channel) at N = 1e6 for 50 sustainable
    rounds with histograms, and ``launch.serve_fleet``'s (``TraceTraffic``
-   over the request-log profiles, ``TraceHarvest``) at N = 1e6 for 192
+   over the request-log profiles, ``TraceHarvest``) at N = 1e6 for 96
    gated epochs, each with its counts set to 0 just before and read just
    after: one fleet_step / serve_step launch a round / epoch and no other
    kernel, conservation (and the request ledger) every round, histogram
@@ -255,10 +255,10 @@ without either.  Phases, each of which raises on a failed check:
    client-rounds/s and client-epochs/s.
 21. Obs (run after phase 20): phase 20's fleet run again under
    ``Obs(tap=True)`` must equal the ``obs=None`` run bitwise in every
-   stat, charge and streak and log one manifest, 150 ``round`` and 450
+   stat, charge and streak and log one manifest, 50 ``round`` and 150
    ``hist`` events, which ``report.summarize`` / ``dist`` read; one
-   ``run_serve_controlled`` of the serving replay, 192 epochs in chunks of
-   24, logs 8 ``serve_chunk`` spans, 8 ``control`` events and no
+   ``run_serve_controlled`` of the serving replay, 96 epochs in chunks of
+   24, logs 4 ``serve_chunk`` spans, 4 ``control`` events and no
    ``retrace_warning``; a ``profiler_trace`` around one chunk holds the
    ``serve_chunk`` annotation beside its 24 ``serve_step_kernel``
    launches (taken again, up to five times, where the profiler missed
@@ -282,6 +282,33 @@ without either.  Phases, each of which raises on a failed check:
    ``train_100m`` (3 rounds; its model file read back bitwise) and
    ``noniid_ablation`` (3 rounds a cell).  Prints save and restore
    seconds, checkpoint bytes and the phase's seconds.
+23. Steps (run last): ``launch.steps.build_step`` bundles built for the
+   card alone (``mesh=None``), run on the card at full width with random
+   weights from ``--seed``, each once as the main path (every kernel's
+   count set to 0 just before and read just after): granite-3-2b's
+   prefill at B = 1, S = 2048 (40 flash launches) and a decode step at B
+   = 4 on a cache of 2048 (no kernel), mamba2-1.3b's prefill at S = 2048
+   (48 ssd_scan launches), whisper-tiny's parallel train bundle (C = 1,
+   2 local steps of 2 rows of 128 tokens and 1500 frames; one fused_agg
+   launch a dtype, each leaf against the plain version) and granite-3-2b
+   at 2 of its 40 layers through the sequential train bundle.  Each is
+   held against its plain path: the prefills against ``impl="ref"`` on
+   the card (logits within phase 4's / phase 12's bf16 bounds, layer 0's
+   cache bitwise, Mamba2's layer-0 state within 1e-3 of its largest |h|),
+   the decode and whisper's round against the same bundle on the chip
+   machine's CPU, the sequential round against the parallel bundle at C
+   = 1 (a round within its Adam bound on each side plus two bf16
+   roundings a step).  Then the dry run of each bundle
+   (``launch.dryrun``, traced on fake CUDA tensors) beside the card:
+   argument and output bytes exactly the real ones, FLOPs within 2% of a
+   count from the config, the temp peak within a factor 2 of
+   ``torch.cuda.max_memory_allocated`` above the arguments, and
+   ``t_compute_s`` at most 1.05 x the profiled device-busy time
+   (``t_memory_s``, from unfused bytes, printed only).  Prints
+   ``DecodeCostModel.from_dryrun`` and ``DeviceCostModel.from_dryrun``
+   joules beside phase 4's ``from_microbench`` at the card's power limit.
+   Phase 4 also prints tok/s and the S=2048 prefill's wall time through
+   the ``torch.library`` custom op and with the wrapper called directly.
 
 Every profile must record the kernels its window launched (the port's
 launch counts say how many), or it is taken again, and after ten the
@@ -294,6 +321,7 @@ JSON record of every number measured.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -307,9 +335,16 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(REPO, "src")
 
-# H100 SXM published dense peaks (NVIDIA data sheet, at a 700 W limit)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
+# H100 SXM published dense peaks (NVIDIA data sheet, at a 700 W limit),
+# from the port's one source of them (``launch/mesh.py``); outside a
+# checkout of the repo the script stops in ``main``
+if os.path.isdir(os.path.join(SRC, "repro_torch")):
+    sys.path.insert(0, SRC)
+    from repro_torch.launch import mesh as _mesh
+
+    PEAK_FLOPS = {"bfloat16": _mesh.PEAK_FLOPS_BF16,
+                  "float32": _mesh.PEAK_FLOPS_FP32}
+    PEAK_BYTES = _mesh.HBM_BW
 
 # kernel vs plain version: ``flash_attention.kernel_tolerance``, a
 # per-element bound from the kernel's own rounding.  bf16:
@@ -330,9 +365,11 @@ LOGIT_ATOL = {"bfloat16": 0.5, "float32": 1e-3}
 TRAIN = dict(clients=40, local_steps=5, batch=24, taus=(1, 5, 10, 20),
              lr=1e-3)
 TRAIN_ROUNDS = {"sustainable": 5, "wait_all": 3}
-# the rounds replayed on the CPU (~1 min each): sustainable rounds 1 and 4
-# (loss 0 from round 4 on) are left out to keep the script within its time
-TRAIN_REPLAY = {"sustainable": (0, 2, 3), "wait_all": (0,)}
+# the rounds replayed on the CPU (~45-60 s each): sustainable rounds 1, 2
+# and 4 (loss 0 from round 4 on) and the wait_all rounds (the same round
+# code under another mask) are left out to keep the script within its
+# time
+TRAIN_REPLAY = {"sustainable": (0, 3), "wait_all": ()}
 # each round of the card with participants, against the same round on
 # the CPU from the card's params before it, every max-pool and ReLU taking
 # the card's decision of the same step and client (``replay_round``; a
@@ -351,7 +388,7 @@ TRAIN_REPLAY = {"sustainable": (0, 2, 3), "wait_all": (0,)}
 LOSS_RTOL = 1e-4
 BULK_Q, BULK_TOL = 0.9, 1e-6
 SGD_CHECK = dict(policy="sustainable", optimizer="sgd", lr=1e-2, rounds=2)
-FIG1_ROUNDS = 20
+FIG1_ROUNDS = 10
 
 PROMPT_LENS = (2048, 1537, 777, 1024, 129, 1999)
 GEN = 32
@@ -450,6 +487,11 @@ PROFILE_NAMES = {
     "fleet_step finalize": ((("fleet_step_finalize_kernel",), 1),),
     "serve_step finalize": ((("serve_step_finalize_kernel",), 1),),
 }
+
+
+# profiles taken before a site that has another way to time its kernels
+# takes it (every other profile is taken up to ten times, then fails)
+FALLBACK_TRIES = 3
 
 
 class ProfileIncomplete(AssertionError):
@@ -774,6 +816,81 @@ def served_kernel_check(torch, fa, model, params, prompts, cache_len,
     return worst
 
 
+class DirectFlash:
+    """``ops.flash_attention`` without the ``torch.library`` custom op: the
+    wrapper's launch (or, on the CPU, the plain version) called straight
+    from Python, to put the dispatch's host cost on record."""
+
+    def __init__(self, ops, fa):
+        self.ops, self.fa, self.real = ops, fa, ops.flash_attention
+
+    def __enter__(self):
+        fa = self.fa
+
+        def direct(q, k, v, *, causal=True, window=0):
+            if q.device.type == "cuda":
+                return fa.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window)
+            return fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+        self.ops.flash_attention = direct
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+
+DISPATCH_PREFILL_REPS = 3
+
+
+def dispatch_cost(torch, ops, fa, model, params, config, prompts, arrivals,
+                  cache_len, wall, done) -> dict:
+    """Serve tok/s and the S=2048 prefill's wall time through the custom op
+    (the port's path) and with ``DirectFlash``, in this one run: the
+    engine run again on the same requests (its tokens must equal the first
+    run's) and the prefill alternated, ``DISPATCH_PREFILL_REPS`` times
+    each."""
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    reqs = [Request(rid=i, tokens=p, max_new=GEN)
+            for i, p in enumerate(prompts)]
+    with DirectFlash(ops, fa):
+        engine = DecodeEngine(model, params, config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = engine.run(reqs, arrivals=arrivals)
+        torch.cuda.synchronize()
+        wall_direct = time.perf_counter() - t0
+    for i in range(len(reqs)):
+        if not np.array_equal(again[i].tokens, done[i].tokens):
+            raise AssertionError(f"request {i}: tokens without the custom "
+                                 f"op differ from the run through it")
+    batch = {"tokens": torch.tensor(prompts[0], dtype=torch.long,
+                                    device="cuda")[None]}
+    times = {"custom_op": [], "direct": []}
+    for _ in range(DISPATCH_PREFILL_REPS):
+        for way in ("custom_op", "direct"):
+            with (DirectFlash(ops, fa) if way == "direct"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.prefill(params, batch, cache_len=cache_len)
+                torch.cuda.synchronize()
+                times[way].append((time.perf_counter() - t0) * 1e3)
+    n_tok = len(reqs) * GEN
+    out = {"tok_s_custom_op": n_tok / wall, "tok_s_direct": n_tok / wall_direct,
+           "prefill_2048_ms_custom_op": times["custom_op"],
+           "prefill_2048_ms_direct": times["direct"]}
+    print(f"serve: custom-op dispatch: {out['tok_s_custom_op']:.1f} tok/s "
+          f"through torch.ops.repro_torch.flash_attention (the run above), "
+          f"{out['tok_s_direct']:.1f} tok/s with the wrapper called directly "
+          f"(run after it); S={len(prompts[0])} prefill wall ms, alternated: "
+          f"custom op " + ", ".join(f"{t:.2f}" for t in times["custom_op"])
+          + "; direct " + ", ".join(f"{t:.2f}" for t in times["direct"]),
+          flush=True)
+    return out
+
+
 def serve_phase(torch, fa, seed: int, card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -829,6 +946,8 @@ def serve_phase(torch, fa, seed: int, card: str) -> dict:
             raise AssertionError(f"request {i}: bad tokens {toks}")
         if done[i].prompt_len != S:
             raise AssertionError(f"request {i}: prompt_len {done[i].prompt_len}")
+    dispatch = dispatch_cost(torch, ops, fa, model, params, config, prompts,
+                             arrivals, cache_len, wall, done)
 
     # prefill logits through the kernel vs the plain PyTorch attention path,
     # in bf16 and with the same weights in fp32
@@ -930,6 +1049,7 @@ def serve_phase(torch, fa, seed: int, card: str) -> dict:
             "stagger": STAGGER, "wall_s": wall,
             "tok_s": len(reqs) * GEN / wall, "stats": engine.stats,
             "flash_launches": launches, "prefill_ms": prefill_ms,
+            "custom_op_dispatch": dispatch,
             "prefill_2048_flash_device_ms": flash_ms,
             "prefill_logit_checks": checks, "profiles": profiles,
             "served_kernel_worst_err_over_bound": served_ratio,
@@ -1493,7 +1613,7 @@ def fleet_step_phase(torch, fs, seed: int) -> dict:
 
 # the fleet phase: examples/energy_fleet.py's scenario at fleet_scale.py's
 # largest host-local size
-FLEET = dict(clients=1_000_000, rounds=150)
+FLEET = dict(clients=1_000_000, rounds=50)
 FLEET_GROUPS_RUN = 4                # the §V taus: group = client mod 4
 FLEET_BERNOULLI_ROUNDS = 10         # card vs CPU, masks and charge bitwise
 FLEET_CPU_ROUNDS = 2                # the scenario's first rounds on the CPU
@@ -2157,7 +2277,7 @@ def ssd_scan_phase(torch, ssd, seed: int) -> dict:
 
 # the serving-fleet phase: examples/serve_fleet.py's scenario at
 # serve_scale.py's largest host-local size, the example's horizon
-SERVE = dict(clients=1_000_000, epochs=192)
+SERVE = dict(clients=1_000_000, epochs=96)
 SERVE_CONSTANT_EPOCHS = 10          # card vs CPU, bitwise
 SERVE_CPU_EPOCHS = 2                # the scenario's first epochs on the CPU
 # card vs CPU on the scenario: its draws (sin, exp, log1p) are ulp-close,
@@ -2694,7 +2814,7 @@ def fig1_phase(torch, seed: int) -> dict:
 # ranks sharing the card (NCCL refuses two ranks on one device) on
 # exact-arithmetic fleets, the scenarios' first rounds, and counts above
 # 2^24 on one rank
-SHARDED = dict(clients=1_000_000, rounds=150, epochs=192)
+SHARDED = dict(clients=1_000_000, rounds=50, epochs=96)
 SHARDED_WORLD = 2
 SHARDED_DYADIC_N = 1_000_001        # padded to 1,000,002 over two ranks
 SHARDED_DYADIC_ROUNDS = 20
@@ -3155,7 +3275,8 @@ def sharded_phase(torch, fs, seed: int, card: str, fleet=None,
             try:
                 prof = device_profile(torch, lambda: [
                     call() for _ in range(reps)],
-                    expect={f"{name}_finalize_kernel": reps})
+                    expect={f"{name}_finalize_kernel": reps},
+                    tries=FALLBACK_TRIES)
                 fin[name] = sum(ms for k, ms in prof["all"]
                                 if "finalize" in k) / reps
                 fin_by[name] = "torch.profiler"
@@ -3565,7 +3686,8 @@ def flash_share(torch, fa, model, params, batch, cache_len) -> dict:
     prefill = lambda: model.prefill(params, batch, cache_len=cache_len)
     timed_by = "torch.profiler"
     try:
-        prof = device_profile(torch, prefill, launched(torch, prefill))
+        prof = device_profile(torch, prefill, launched(torch, prefill),
+                              tries=FALLBACK_TRIES)
         flash_ms = sum(ms for n, ms in prof["all"] if "flash_fwd" in n)
     except ProfileIncomplete as e:
         print(f"flash share: {e}", flush=True)
@@ -3989,7 +4111,8 @@ def lm_train_phase(torch, agg, seed: int, card: str) -> dict:
     tree = lambda: ops.fused_agg_tree(w, ws, s)
     try:
         prof = device_profile(torch, lambda: [tree() for _ in range(reps)],
-                              expect={"fused_agg_kernel": reps * launches})
+                              expect={"fused_agg_kernel": reps * launches},
+                              tries=FALLBACK_TRIES)
         kernel_ms = sum(ms for n, ms in prof["all"]
                         if "fused_agg" in n) / reps
         timed_by = "torch.profiler"
@@ -4335,7 +4458,7 @@ def new_families_train_phase(torch, agg, seed: int, card: str) -> dict:
 
 # the replay phase (20): the fleets on the bundled day profiles, phase 8's
 # and phase 10's sizes and horizons
-REPLAY = dict(clients=1_000_000, rounds=150, epochs=192)
+REPLAY = dict(clients=1_000_000, rounds=50, epochs=96)
 REPLAY_EXACT_ROUNDS = 10            # card vs CPU on the parity-oracle tables
 REPLAY_CPU_ROUNDS = 2               # the bundled tables' first rounds
 REPLAY_PAD_TO = 1_000_448           # the T = N table's padded width
@@ -5249,6 +5372,467 @@ def resume_phase(torch, seed: int, card: str) -> dict:
     return out
 
 
+# the steps phase (23): step bundles (launch/steps.py) built with mesh=None
+# (the card alone), executed on the card at full width with random
+# weights from --seed, each against its plain path, and the dry run of
+# each (launch/dryrun.py) beside what the card measured
+STEPS_PREFILL_SEQ = 2048             # granite-3-2b and mamba2-1.3b, B = 1
+STEPS_DECODE = dict(batch=4, cache=2048)
+STEPS_ENCDEC_TRAIN = dict(local_steps=2, batch=2, seq=128)  # + 1500 frames
+STEPS_SEQ_TRAIN = dict(layers=2, local_steps=2, batch=4, seq=512)
+STEPS_LR = 1e-4                      # launch.steps.make_optimizer_for's
+# the dry run against the card: predicted FLOPs within 2% of the count
+# from the config; the predicted peak of the step's own bytes within a
+# factor 2 of torch.cuda.max_memory_allocated above the arguments; the
+# compute term of the roofline (FLOPs at the bf16 peak) no more than the
+# device-busy time the profiler measured, with 5% for the profiler's own
+# clock
+STEPS_FLOP_RTOL = 0.02
+STEPS_TEMP_RATIO = (0.5, 2.0)
+STEPS_BUSY_SLACK = 1.05
+# train bundles in bf16 against another evaluation of the same round (the
+# CPU, or the parallel bundle at C = 1): one round's Adam bound on each
+# side, plus two bf16 roundings (2^-8 |w| each) a local step on each side
+STEPS_LOSS_RTOL_BF16 = 2e-2
+
+
+def vocab_out(cfg) -> int:
+    """Columns of the unembedding: the vocab, padded to 128 when untied."""
+    if cfg.tie_embeddings:
+        return cfg.vocab_size
+    return (cfg.vocab_size + 127) // 128 * 128
+
+
+def dense_layer_flops(cfg, T: int) -> int:
+    """The products of one attention layer's projections and MLP over T
+    tokens."""
+    d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    proj = 2 * T * (d * q + 2 * d * kv + q * d)
+    return proj + 2 * T * d * ff * (3 if cfg.mlp_type == "swiglu" else 2)
+
+
+def bundle_flops(cfg, kind, B, S, *, local_steps=1, cache_len=0,
+                 agg_params=0) -> int:
+    """A bundle's FLOPs counted from its config: 2 M K N a product; the
+    kernels at their own work (flash over the causal pairs, `ssd_work`'s
+    chunked products); decode attention over the whole cache; training on
+    the plain path (attention over the whole square), 3x its forward a
+    local step (a product's backward is two of its size), plus 2 C M for a
+    parallel round's aggregation (``agg_params`` = M at C = 1)."""
+    H, D, d = cfg.num_heads, cfg.head_dim, cfg.d_model
+    Vu = vocab_out(cfg)
+    if kind == "prefill" and cfg.family == "ssm":
+        din, G, N = cfg.ssm_inner, cfg.ssm_groups, cfg.ssm_state
+        w = ssd_work(B, S, cfg.ssm_heads, cfg.ssm_head_dim, G, N,
+                     cfg.ssm_chunk, 2)
+        layer = (2 * B * S * d * (2 * din + 2 * G * N + cfg.ssm_heads)
+                 + w["cb_flops"] + w["fp32_operand_flops"]
+                 + 2 * B * S * din * d)
+        return cfg.num_layers * layer + 2 * B * d * Vu
+    if kind == "prefill":
+        attn = attention_work(B, S, H, cfg.num_kv_heads, D, True, 0, 2)[0]
+        return (cfg.num_layers * (dense_layer_flops(cfg, B * S) + attn)
+                + 2 * B * d * Vu)
+    if kind == "decode":
+        layer = dense_layer_flops(cfg, B) + 4 * B * H * D * cache_len
+        return cfg.num_layers * layer + 2 * B * d * Vu
+    if cfg.family == "encdec":
+        Se = cfg.encoder_seq
+        enc = dense_layer_flops(cfg, B * Se) + 4 * B * H * D * Se * Se
+        dec = (dense_layer_flops(cfg, B * S) + 4 * B * H * D * S * S
+               + 2 * B * S * 2 * d * cfg.q_dim
+               + 2 * B * Se * 2 * d * cfg.kv_dim
+               + 4 * B * H * D * S * Se)
+        fwd = cfg.encoder_layers * enc + cfg.num_layers * dec
+    else:
+        fwd = cfg.num_layers * (dense_layer_flops(cfg, B * S)
+                                + 4 * B * H * D * S * S)
+    fwd += 2 * B * S * d * Vu
+    return 3 * fwd * local_steps + 2 * agg_params
+
+
+def tree_meta(tree, prefix=""):
+    """{path: (shape, dtype, device type)} of a tree's tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(tree_meta(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(tree_meta(v, f"{prefix}/{i}"))
+        return out
+    if hasattr(tree, "shape") and hasattr(tree, "dtype"):
+        return {prefix: (tuple(tree.shape), tree.dtype, tree.device.type)}
+    return {prefix: type(tree).__name__}
+
+
+def materialize(torch, bundle, params, gen, vocab: int) -> list:
+    """Real arguments of ``bundle``: ``params`` for its params; tokens drawn
+    below ``vocab``; the sequential mode's accumulator zeros; every other
+    fake tensor N(0, 0.5^2) in its dtype; the real (host) values as they
+    are.  Raises unless they have the bundle's leaves, shapes, dtypes and
+    devices."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from repro_torch.tree import tree_map
+
+    def leaf(x):
+        if not isinstance(x, FakeTensor):
+            return x
+        if not x.is_floating_point():
+            return torch.randint(0, vocab, tuple(x.shape), generator=gen,
+                                 device=x.device, dtype=x.dtype)
+        return (0.5 * torch.randn(tuple(x.shape), generator=gen,
+                                  device=x.device)).to(x.dtype)
+
+    args = [params] + [tree_map(leaf, a) for a in bundle.args[1:]]
+    if bundle.meta.get("mode") == "sequential":
+        args[1] = tree_map(lambda t: torch.zeros_like(t, dtype=torch.float32),
+                           params)
+    if tree_meta(args) != tree_meta(list(bundle.args)):
+        raise AssertionError(f"{bundle.kind}: the real arguments do not have "
+                             f"the bundle's shapes")
+    return args
+
+
+def steps_case(torch, ops, label, bundle, args, want_launches,
+               explicit) -> dict:
+    """Run ``bundle`` once on the card as the main path (counts set to 0
+    just before and read just after; its peak above the arguments), take
+    its device-busy time, dry-run it, and hold the dry run to the card."""
+    from repro_torch.launch import dryrun
+
+    tr = dryrun.trace(bundle)               # shape-only, on fake CUDA
+    out = bundle.fn(*args)                  # warm-up: allocator, cuBLAS
+    del out
+    torch.cuda.synchronize()
+    ops.zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = bundle.fn(*args)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    measured_temp = torch.cuda.max_memory_allocated() - base
+    counts = ops.launch_counts()
+    if counts != {**dict.fromkeys(counts, 0), **want_launches}:
+        raise AssertionError(f"steps {label}: launches {counts}, expected "
+                             f"{want_launches} and no other")
+    call = lambda: bundle.fn(*args)
+    timed_by = "torch.profiler"
+    try:
+        prof = device_profile(torch, call, launched(torch, call),
+                              tries=FALLBACK_TRIES)
+    except ProfileIncomplete as e:
+        # late in a run the profiler has missed a flash kernel of a
+        # prefill in every try: a window that records some kernels then
+        # gives a lower bound on busy, which only makes the check harder
+        print(f"steps {label}: {e}", flush=True)
+        prof = device_profile(torch, call)
+        timed_by = ("torch.profiler, a window that missed some of the "
+                    "call's kernels (busy a lower bound)")
+    busy_s = prof["device_ms"] / 1e3
+    pred = {"args": dryrun.tree_bytes(bundle.args, "cuda"),
+            "outputs": dryrun.tree_bytes(tr["outputs"], "cuda")}
+    real = {"args": dryrun.tree_bytes(args, "cuda"),
+            "outputs": dryrun.tree_bytes(out, "cuda")}
+    ratio = tr["temp_peak"] / max(measured_temp, 1)
+    flop_err = abs(tr["flops"] - explicit) / explicit
+    t_compute = tr["flops"] / PEAK_FLOPS["bfloat16"]
+    t_memory = tr["bytes"] / PEAK_BYTES
+    ok = (pred == real and STEPS_TEMP_RATIO[0] <= ratio <= STEPS_TEMP_RATIO[1]
+          and flop_err <= STEPS_FLOP_RTOL
+          and t_compute <= STEPS_BUSY_SLACK * busy_s)
+    print(f"steps {label}: launches {want_launches or 'none'}; wall "
+          f"{wall_ms:.2f} ms, device busy {prof['device_ms']:.3f} ms "
+          f"({prof['kernels']} kernels); dry run: argument bytes "
+          f"{pred['args']:,} (card {real['args']:,}), output bytes "
+          f"{pred['outputs']:,} (card {real['outputs']:,}); temp peak "
+          f"{tr['temp_peak'] / 1e9:.4f} GB vs the card's "
+          f"{measured_temp / 1e9:.4f} GB above the arguments, ratio "
+          f"{ratio:.3f} (in {STEPS_TEMP_RATIO}); FLOPs {tr['flops']:.6e} vs "
+          f"{explicit:.6e} from the config ({flop_err:.2e}, tol "
+          f"{STEPS_FLOP_RTOL}); t_compute {t_compute * 1e3:.3f} ms <= "
+          f"{STEPS_BUSY_SLACK} x busy {busy_s * 1e3:.3f} ms; t_memory "
+          f"(unfused bytes {tr['bytes']:.4e}) {t_memory * 1e3:.3f} ms; "
+          f"trace {tr['seconds']:.2f} s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"steps {label}: the dry run disagrees with the "
+                             f"card")
+    return {"launches": counts, "wall_ms": wall_ms,
+            "device_ms": prof["device_ms"], "kernels": prof["kernels"],
+            "profiles": prof["profiles"], "busy_timed_by": timed_by,
+            "predicted_bytes": pred,
+            "real_bytes": real, "temp_predicted": tr["temp_peak"],
+            "temp_measured": measured_temp, "temp_ratio": ratio,
+            "flops": tr["flops"], "flops_explicit": explicit,
+            "flops_by_op": tr["flops_by_op"], "flop_rel_err": flop_err,
+            "unfused_bytes": tr["bytes"], "t_compute_s": t_compute,
+            "t_memory_s": t_memory, "trace_s": tr["seconds"],
+            "out": out, "trace": tr}
+
+
+def on_cpu(torch, tree):
+    """A copy of a tree (dicts, lists, tuples) with every tensor on the
+    CPU."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+                    tree)
+
+
+def logits_vs_plain(torch, label, got, want, tol) -> dict:
+    """Last-position logits of a bundle against its plain path: within
+    ``tol``, the argmax the same wherever the top-2 margin exceeds it."""
+    got, want = got.reshape(got.shape[0], -1).float(), \
+        want.reshape(want.shape[0], -1).float().to(got.device)
+    err = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).min().item()
+    agree = bool((got.argmax(-1) == want.argmax(-1)).all())
+    ok = bool(torch.isfinite(got).all()) and err <= tol and (
+        agree or margin <= tol)
+    print(f"steps {label}: logits vs the plain path max_abs_err {err:.4f} "
+          f"(tol {tol}), top-2 margin {margin:.4f}, argmax "
+          f"{'agrees' if agree else 'differs'} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"steps {label}: logits differ from the plain "
+                             f"path")
+    return {"max_abs_err": err, "top2_margin": margin, "argmax_agrees": agree}
+
+
+def params_within_round(torch, label, a, b, w0, T, s=1.0) -> dict:
+    """Two bf16 evaluations of one round from ``w0``: every param within
+    one round's Adam bound on each side plus two bf16 roundings a step on
+    each side (T 2^-7 |w|)."""
+    worst, dmax = 0.0, 0.0
+    step = 2.0 * adam_step_bound(T) * STEPS_LR * T * s
+    for (name, x), (_, y), (_, w) in zip(flat_leaves(a), flat_leaves(b),
+                                         flat_leaves(w0)):
+        d = (x.float() - y.float().to(x.device)).abs()
+        bound = step + T * 2.0 ** -7 * torch.maximum(
+            w.float().abs().to(x.device), x.float().abs())
+        worst = max(worst, (d / bound).max().item())
+        dmax = max(dmax, d.max().item())
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"steps {label}: {name} not finite")
+    print(f"steps {label}: params max |d| {dmax:.3e}, worst |d| / bound "
+          f"{worst:.3f} {'ok' if worst <= 1.0 else 'FAIL'}", flush=True)
+    if worst > 1.0:
+        raise AssertionError(f"steps {label}: params differ beyond one "
+                             f"round's Adam bound")
+    return {"max_abs_diff": dmax, "worst_over_bound": worst}
+
+
+def steps_phase(torch, agg, seed: int, card: str, serve: dict) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.aggregation import apply_accumulated
+    from repro_torch.energy.costs import DecodeCostModel, from_dryrun
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import seeded_generators
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    res, records = {}, {}
+    g_params, g_data, _ = seeded_generators(seed, torch.device("cuda"))
+
+    # (a) granite-3-2b: prefill at B = 1, S = 2048, and a decode step at
+    # cache 2048, B = 4, from one set of full-width weights
+    cfg = get_config("granite-3-2b")
+    model = get_model(cfg)
+    params = model.init_params(g_params)
+    S = STEPS_PREFILL_SEQ
+    shape = InputShape("steps_prefill", S, 1, "prefill")
+    b = build_step(cfg, shape, None, device="cuda")
+    args = materialize(torch, b, params, g_data, cfg.vocab_size)
+    r = steps_case(torch, ops, f"granite-3-2b prefill S={S}", b, args,
+                   {"flash_attention": cfg.num_layers},
+                   bundle_flops(cfg, "prefill", 1, S))
+    plain_logits, plain_cache = b.fn(*args, impl="ref")
+    logits, cache = r.pop("out")
+    r["vs_plain"] = logits_vs_plain(torch, "granite-3-2b prefill", logits,
+                                    plain_logits, LOGIT_ATOL["bfloat16"])
+    if not all(torch.equal(cache[k][0], plain_cache[k][0]) for k in cache):
+        raise AssertionError("steps granite-3-2b prefill: layer 0's keys and "
+                             "values differ from the plain path's")
+    records["prefill"] = dryrun.make_record(cfg, shape, b, r.pop("trace"))
+    res["granite_prefill"] = r
+    del plain_logits, plain_cache, logits, cache, args, b
+
+    dshape = InputShape("steps_decode", STEPS_DECODE["cache"],
+                        STEPS_DECODE["batch"], "decode")
+    b = build_step(cfg, dshape, None, device="cuda")
+    args = materialize(torch, b, params, g_data, cfg.vocab_size)
+    cpu_args = on_cpu(torch, args)
+    r = steps_case(torch, ops, f"granite-3-2b decode B={dshape.global_batch}"
+                   f" cache {dshape.seq_len}", b, args,
+                   {}, bundle_flops(cfg, "decode", STEPS_DECODE["batch"], 1,
+                                    cache_len=b.meta["cache_len"]))
+    t0 = time.perf_counter()
+    cpu_logits, _ = b.fn(*cpu_args)          # the plain path: the CPU
+    r["cpu_s"] = time.perf_counter() - t0
+    r["vs_plain"] = logits_vs_plain(torch, "granite-3-2b decode (card vs "
+                                    "CPU)", r.pop("out")[0], cpu_logits,
+                                    LOGIT_ATOL["bfloat16"])
+    records["decode"] = dryrun.make_record(cfg, dshape, b, r.pop("trace"))
+    res["granite_decode"] = r
+    del cpu_args, cpu_logits, args, b, params
+    torch.cuda.empty_cache()
+
+    # mamba2-1.3b prefill at S = 2048 (a multiple of its chunk: ssd_scan)
+    cfg = get_config("mamba2-1.3b")
+    model = get_model(cfg)
+    params = model.init_params(g_params)
+    shape = InputShape("steps_prefill", S, 1, "prefill")
+    b = build_step(cfg, shape, None, device="cuda")
+    args = materialize(torch, b, params, g_data, cfg.vocab_size)
+    r = steps_case(torch, ops, f"mamba2-1.3b prefill S={S}", b, args,
+                   {"ssd_scan": cfg.num_layers},
+                   bundle_flops(cfg, "prefill", 1, S))
+    plain_logits, plain_cache = b.fn(*args, impl="ref")
+    logits, cache = r.pop("out")
+    r["vs_plain"] = logits_vs_plain(torch, "mamba2-1.3b prefill", logits,
+                                    plain_logits, SSM_LOGIT_ATOL["bfloat16"])
+    h, hp = cache["ssm"][0], plain_cache["ssm"][0]
+    gap = ((h - hp).abs().max() / hp.abs().max().clamp_min(1e-30)).item()
+    if not (torch.equal(cache["conv"][0], plain_cache["conv"][0])
+            and gap <= SSM_STATE_RTOL_FP32):
+        raise AssertionError(f"steps mamba2-1.3b prefill: layer 0's state "
+                             f"differs from the plain path's ({gap:.3e})")
+    r["layer0_state_gap"] = gap
+    res["mamba2_prefill"] = r
+    records["mamba2_prefill"] = dryrun.make_record(cfg, shape, b,
+                                                   r.pop("trace"))
+    del plain_logits, plain_cache, logits, cache, args, b, params
+    torch.cuda.empty_cache()
+
+    # whisper-tiny, the parallel train bundle: C = 1, 2 local steps of 2
+    # rows of 128 tokens and 1500 frames; its aggregation on fused_agg
+    cfg = get_config("whisper-tiny")
+    model = get_model(cfg)
+    params = model.init_params(g_params)
+    E = STEPS_ENCDEC_TRAIN
+    tshape = InputShape("steps_train", E["seq"], E["batch"], "train")
+    b = build_step(cfg, tshape, None, device="cuda",
+                   local_steps=E["local_steps"])
+    args = materialize(torch, b, params, g_data, cfg.vocab_size)
+    n_params = sum(t.numel() for _, t in flat_leaves(params))
+    dtypes = len({t.dtype for _, t in flat_leaves(params)})
+    with AggTap(ops) as tap:
+        r = steps_case(torch, ops, "whisper-tiny train (parallel)", b, args,
+                       {"fused_agg": dtypes},
+                       bundle_flops(cfg, "train", E["batch"], E["seq"],
+                                    local_steps=E["local_steps"],
+                                    agg_params=n_params))
+    w_card, m_card = r.pop("out")
+    r["agg_worst_err_over_bound"] = agg_tree_check(
+        torch, agg, next(c for c in tap.calls if c[3] is w_card))
+    cpu_args = on_cpu(torch, args)
+    t0 = time.perf_counter()
+    w_cpu, m_cpu = b.fn(*cpu_args)           # the plain path: the CPU
+    r["cpu_s"] = time.perf_counter() - t0
+    rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(
+        float(m_cpu["loss"]))
+    print(f"steps whisper-tiny train: loss card {float(m_card['loss']):.5f}"
+          f" vs CPU {float(m_cpu['loss']):.5f} (rel {rel:.2e}, tol "
+          f"{STEPS_LOSS_RTOL_BF16}); participants "
+          f"{float(m_card['participants']):.0f} / "
+          f"{float(m_cpu['participants']):.0f}; fused_agg leaves vs plain "
+          f"worst err/bound {r['agg_worst_err_over_bound']:.3f}", flush=True)
+    if not (rel <= STEPS_LOSS_RTOL_BF16 and float(m_card["participants"])
+            == float(m_cpu["participants"]) == 1.0):
+        raise AssertionError("steps whisper-tiny train: the card's round "
+                             "differs from the CPU's")
+    r["loss_card"], r["loss_cpu"] = float(m_card["loss"]), float(m_cpu["loss"])
+    r["vs_plain"] = params_within_round(torch, "whisper-tiny train (card vs "
+                                        "CPU)", w_card, w_cpu, params,
+                                        E["local_steps"])
+    records["train"] = dryrun.make_record(cfg, tshape, b, r.pop("trace"),
+                                          local_steps=E["local_steps"])
+    res["whisper_train"] = r
+    del w_card, w_cpu, cpu_args, args, b, params, tap
+    torch.cuda.empty_cache()
+
+    # granite-3-2b at 2 of its 40 layers, the sequential train bundle; its
+    # round against the parallel bundle's at C = 1 (eq. 13 is linear)
+    Q = STEPS_SEQ_TRAIN
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              num_layers=Q["layers"], fed_mode="sequential")
+    model = get_model(cfg)
+    params = model.init_params(g_params)
+    sshape = InputShape("steps_train", Q["seq"], Q["batch"], "train")
+    b = build_step(cfg, sshape, None, device="cuda",
+                   local_steps=Q["local_steps"])
+    args = materialize(torch, b, params, g_data, cfg.vocab_size)
+    r = steps_case(torch, ops, f"granite-3-2b train (sequential, "
+                   f"{Q['layers']} layers)",
+                   b, args, {}, bundle_flops(cfg, "train", Q["batch"],
+                                             Q["seq"],
+                                             local_steps=Q["local_steps"]))
+    acc, loss = r.pop("out")
+    pb = build_step(dataclasses.replace(cfg, fed_mode="parallel"), sshape,
+                    None, device="cuda", local_steps=Q["local_steps"])
+    w_par, m_par = pb.fn(params, _tree_map(args[2], lambda t: t[None]),
+                         *pb.args[2:])
+    rel = abs(float(loss) - float(m_par["loss"])) / abs(float(m_par["loss"]))
+    print(f"steps granite-3-2b sequential: loss {float(loss):.5f} vs the "
+          f"parallel bundle's {float(m_par['loss']):.5f} (rel {rel:.2e}, "
+          f"tol {STEPS_LOSS_RTOL_BF16})", flush=True)
+    if rel > STEPS_LOSS_RTOL_BF16:
+        raise AssertionError("steps granite-3-2b sequential: the loss differs "
+                             "from the parallel round's")
+    r["loss"], r["loss_parallel"] = float(loss), float(m_par["loss"])
+    r["vs_plain"] = params_within_round(
+        torch, "granite-3-2b sequential (vs parallel at C=1)",
+        apply_accumulated(params, acc), w_par, params, Q["local_steps"])
+    records["train_sequential"] = dryrun.make_record(
+        cfg, sshape, b, r.pop("trace"), local_steps=Q["local_steps"])
+    res["granite_sequential_train"] = r
+    del acc, w_par, args, b, pb, params
+    torch.cuda.empty_cache()
+
+    # (c) joules from the dry run's FLOPs (the nominal 10 pJ/FLOP) beside
+    # phase 4's from_microbench at the card's power limit
+    watts = power_limit_watts(card)
+    dec = DecodeCostModel.from_dryrun(records["decode"],
+                                      batch=STEPS_DECODE["batch"])
+    pre = DecodeCostModel.from_dryrun(records["decode"], records["prefill"],
+                                      batch=1, prompt_len=S)
+    trn = from_dryrun(records["train"], local_steps=E["local_steps"])
+    micro = serve["microbench"]
+    at_limit = {"prefill": watts * micro["seconds_per_prefill_token"],
+                "decode": watts * micro["seconds_per_decode_token"]}
+    energy = {"dryrun_j_per_prefill_token": pre.joules_per_prefill_token,
+              "dryrun_j_per_decode_token": dec.joules_per_decode_step,
+              "microbench_j_per_prefill_token_at_limit": at_limit["prefill"],
+              "microbench_j_per_decode_token_at_limit": at_limit["decode"],
+              "watts": watts,
+              "dryrun_train_j_per_local_step": trn.joules_per_step,
+              "dryrun_train_j_per_round": trn.round_cost(E["local_steps"])}
+    print(f"steps energy, granite-3-2b: from_dryrun (FLOPs at "
+          f"{records['decode']['energy']['assumed_joules_per_flop']:.0e} "
+          f"J/FLOP) prefill {pre.joules_per_prefill_token:.4e} J/token, "
+          f"decode {dec.joules_per_decode_step:.4e} J/token; "
+          f"from_microbench (phase 4) at the card's {watts} W limit prefill "
+          f"{at_limit['prefill']:.4e} J/token, decode {at_limit['decode']:.4e}"
+          f" J/token; whisper-tiny DeviceCostModel.from_dryrun "
+          f"{trn.joules_per_step:.4e} J a local step, "
+          f"{energy['dryrun_train_j_per_round']:.4e} J a round", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"steps phase: {seconds:.1f} s", flush=True)
+    return {"cases": res, "energy": energy, "seconds": seconds,
+            "records": {k: {kk: v[kk] for kk in ("memory", "cost",
+                                                  "roofline", "step_meta")}
+                        for k, v in records.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5331,13 +5915,17 @@ def main(argv=None) -> int:
     obs = obs_phase(torch, fs, args.seed, card, replay_keep)
     del replay_keep
     resume = resume_phase(torch, args.seed, card)
+    steps = steps_phase(torch, agg, args.seed, card, serve)
+    cases = steps["cases"]
     kernel["launches_by_path"] = {
         "serve granite-3-2b": serve["flash_launches"],
         **{f"serve olmoe-1b-7b {mode}": r["flash_launches"]
            for mode, r in serve_moe["runs"].items()},
         "serve internvl2-76b (8 layers)": serve_vlm["flash_launches"],
         "serve recurrentgemma-2b": serve_hybrid["flash_launches"],
-        "serve whisper-tiny": serve_encdec["flash_launches"]}
+        "serve whisper-tiny": serve_encdec["flash_launches"],
+        "steps granite-3-2b prefill bundle":
+            cases["granite_prefill"]["launches"]["flash_attention"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     agg_kernel["launches_by_path"] = {
         "train cifar-cnn": agg_kernel["launches"],
@@ -5346,7 +5934,9 @@ def main(argv=None) -> int:
         "launch.train granite-3-2b, checkpointed every round":
             resume["train"]["launches"],
         "launch.train granite-3-2b, resumed in a fresh process":
-            resume["train"]["resumed_launches"]}
+            resume["train"]["resumed_launches"],
+        "steps whisper-tiny train bundle":
+            cases["whisper_train"]["launches"]["fused_agg"]}
     agg_kernel["launches"] = sum(agg_kernel["launches_by_path"].values())
     agg_kernel["lm_tree"] = train_lm["agg_tree"]
     fleet_kernel["launches_by_path"] = {
@@ -5387,6 +5977,12 @@ def main(argv=None) -> int:
             "collective_ms_nccl_1_rank": sharded["nccl1_collective_ms"],
             "collective_ms_gloo_2_ranks": sharded["gloo2_collective_ms"]}
 
+    ssd_kernel["launches_by_path"] = {
+        "serve mamba2-1.3b": mamba["ssd_launches"],
+        "steps mamba2-1.3b prefill bundle":
+            cases["mamba2_prefill"]["launches"]["ssd_scan"]}
+    ssd_kernel["launches"] = sum(ssd_kernel["launches_by_path"].values())
+
     kernels = [kernel, agg_kernel, fleet_kernel, serve_kernel, ssd_kernel]
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels, "serve": serve,
@@ -5396,7 +5992,7 @@ def main(argv=None) -> int:
               "serve_vlm": serve_vlm, "train_lm": train_lm,
               "serve_hybrid": serve_hybrid, "serve_encdec": serve_encdec,
               "train_new_families": train_new, "replay": replay,
-              "obs": obs, "resume": resume}
+              "obs": obs, "resume": resume, "steps": steps}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -119,13 +119,16 @@ def local_update(loss_fn: LossFn, optimizer: Optimizer, params: PyTree,
 
 def parallel_round(loss_fn: LossFn, optimizer: Optimizer, cfg: FedConfig,
                    w_global: PyTree, client_batches: PyTree, p, E, rnd,
-                   rng: torch.Tensor):
+                   rng: torch.Tensor, constrain=None, constrain_opt=None):
     """One global round with every client at once.
 
     ``client_batches``: leaves (C, T, ...) per-client per-local-step
     minibatches on the params' device; ``p`` (C,) data weights, ``E`` (C,)
     renewal cycles, ``rnd`` the global round index, ``rng`` this round's
-    key.
+    key.  ``constrain`` maps the stacked local models, and
+    ``constrain_opt`` (default ``constrain``) the stacked optimizer state,
+    after they are made and after every local step
+    (`dist.sharding.stacked_constrainer`); both default to the identity.
 
     All clients compute the local update and the mask zeroes the
     non-participants at aggregation, the equivalent form the paper uses
@@ -140,7 +143,7 @@ def parallel_round(loss_fn: LossFn, optimizer: Optimizer, cfg: FedConfig,
         return step_fn(w_stack, batch, prng.fold_in(keys, ts))
 
     return _stacked_round(optimizer, cfg, w_global, client_batches, p, E,
-                          rnd, grad_step)
+                          rnd, grad_step, constrain, constrain_opt)
 
 
 def replay_round(loss_and_decisions, optimizer: Optimizer, cfg: FedConfig,
@@ -186,9 +189,11 @@ def replay_round(loss_and_decisions, optimizer: Optimizer, cfg: FedConfig,
 
 
 def _stacked_round(optimizer, cfg, w_global, client_batches, p, E, rnd,
-                   grad_step):
+                   grad_step, constrain=None, constrain_opt=None):
     """The round engine around ``grad_step(w_stack, batch, ts) -> (losses
     (C,), grads)``, the local step mapped over the stacked clients."""
+    cst = constrain if constrain is not None else (lambda tree: tree)
+    cst_opt = constrain_opt if constrain_opt is not None else cst
     n, T = cfg.num_clients, cfg.local_steps
     rnd = int(rnd)
     mask = scheduling.participation_mask(cfg.policy, cfg.seed, rnd, E,
@@ -196,9 +201,9 @@ def _stacked_round(optimizer, cfg, w_global, client_batches, p, E, rnd,
     scale = scheduling.aggregation_scale(cfg.policy, E)
 
     # stacked local models and a fresh local optimizer state (eq. 6)
-    w_stack = tree_map(lambda x: x.unsqueeze(0).expand((n,) + x.shape)
-                       .clone(), w_global)
-    opt_state = optimizer.init(w_stack)
+    w_stack = cst(tree_map(lambda x: x.unsqueeze(0).expand((n,) + x.shape)
+                           .clone(), w_global))
+    opt_state = cst_opt(optimizer.init(w_stack))
 
     losses = []
     for t in range(T):
@@ -206,6 +211,7 @@ def _stacked_round(optimizer, cfg, w_global, client_batches, p, E, rnd,
         batch = tree_map(lambda b: b[:, t], client_batches)
         loss, grads = grad_step(w_stack, batch, ts)
         w_stack, opt_state = optimizer.update(grads, opt_state, w_stack, ts)
+        w_stack, opt_state = cst(w_stack), cst_opt(opt_state)
         losses.append(loss)
     losses = torch.stack(losses).mean(dim=0)       # (C,) mean local loss
 

@@ -30,7 +30,8 @@ from repro_torch.energy.control import (
 )
 from repro_torch.energy.costs import (DEVICE_WATTS, JOULES_PER_BYTE_RADIO,
                                       JOULES_PER_FLOP, DecodeCostModel,
-                                      DeviceCostModel, from_flops)
+                                      DeviceCostModel, energy_record,
+                                      from_dryrun, from_flops)
 from repro_torch.energy.fleet import (
     FLEET_POLICIES,
     EnergyLoop,
@@ -49,7 +50,8 @@ __all__ = [
     "AdmissionRule", "BudgetRule", "CadenceRule", "ControlBounds",
     "ControlState", "ServerController", "Telemetry", "run_controlled",
     "DEVICE_WATTS", "JOULES_PER_BYTE_RADIO", "JOULES_PER_FLOP",
-    "DecodeCostModel", "DeviceCostModel", "from_flops",
+    "DecodeCostModel", "DeviceCostModel", "energy_record", "from_dryrun",
+    "from_flops",
     "FLEET_POLICIES", "EnergyLoop", "FleetConfig", "FleetResult",
     "fleet_mask", "simulate_fleet", "TraceHarvest",
 ]

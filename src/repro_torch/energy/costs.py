@@ -1,7 +1,10 @@
 """Device energy costs (the JAX package's ``energy/costs.py``): what one
 federated round (`DeviceCostModel`) and one inference request
-(`DecodeCostModel`) debit the battery.  ``from_dryrun`` waits for the
-dry-run pipeline (``ROADMAP.md`` Queue 1 item 27).
+(`DecodeCostModel`) debit the battery.  Compute cost comes from a FLOP
+count (``from_flops``, ``from_params``) or from a `launch.dryrun` record
+(``from_dryrun``: either package's records, whose keys are the same),
+radio cost from the model's parameter bytes; ``energy_record`` is the
+record's ``energy`` block.
 
 Nominal constants (order-of-magnitude for an edge-class accelerator and a
 wireless uplink; override per deployment):
@@ -52,6 +55,24 @@ def from_flops(flops_per_step: float, upload_bytes: float,
     )
 
 
+def from_dryrun(record: dict, local_steps: int = 5,
+                bytes_per_param: float = 2.0,
+                joules_per_flop: float = JOULES_PER_FLOP,
+                joules_per_byte: float = JOULES_PER_BYTE_RADIO
+                ) -> DeviceCostModel:
+    """Cost model from one `launch.dryrun` record: its
+    ``cost.flops_per_device`` covers the whole local phase of
+    ``local_steps`` steps; the upload and the download are the model,
+    ``params_active`` parameters at ``bytes_per_param`` (bf16 default)."""
+    flops_total = float(record["cost"]["flops_per_device"])
+    params = float(record.get("params_active") or record["params_analytic"])
+    return from_flops(flops_total / max(local_steps, 1),
+                      params * bytes_per_param,
+                      download_bytes=params * bytes_per_param,
+                      joules_per_flop=joules_per_flop,
+                      joules_per_byte=joules_per_byte)
+
+
 @dataclasses.dataclass(frozen=True)
 class DecodeCostModel:
     """Joules debited per inference-request component: one prefill over the
@@ -82,6 +103,43 @@ class DecodeCostModel:
                                                * joules_per_byte))
 
     @classmethod
+    def from_dryrun(cls, decode_record: dict,
+                    prefill_record: dict | None = None,
+                    batch: int | None = None, prompt_len: int | None = None,
+                    bytes_per_response: float = 512.0,
+                    joules_per_flop: float = JOULES_PER_FLOP,
+                    joules_per_byte: float = JOULES_PER_BYTE_RADIO
+                    ) -> "DecodeCostModel":
+        """Decode-path cost model from `launch.dryrun` records.  A
+        ``decode`` record's ``cost.flops_per_device`` is one decode step over
+        the shape's whole batch, so a generated token costs it over the
+        batch; a ``prefill`` record prices prompt tokens as flops / (batch
+        x seq), and without one a prompt token costs a generated one.
+        ``batch`` / ``prompt_len`` override the shape registry's figures
+        for ``record["shape"]`` (a record of a shape outside the registry
+        needs both)."""
+        from repro_torch.configs.base import INPUT_SHAPES
+
+        b = (batch if batch is not None
+             else INPUT_SHAPES[decode_record["shape"]].global_batch)
+        dec_flops = float(decode_record["cost"]["flops_per_device"])
+        per_decode = dec_flops / max(b, 1) * joules_per_flop
+        if prefill_record is not None:
+            pb, ps = batch, prompt_len
+            if pb is None or ps is None:
+                shape = INPUT_SHAPES[prefill_record["shape"]]
+                pb = shape.global_batch if pb is None else pb
+                ps = shape.seq_len if ps is None else ps
+            pre_flops = float(prefill_record["cost"]["flops_per_device"])
+            per_prefill = pre_flops / max(pb * ps, 1) * joules_per_flop
+        else:
+            per_prefill = per_decode
+        return cls(joules_per_prefill_token=per_prefill,
+                   joules_per_decode_step=per_decode,
+                   joules_per_response_upload=(bytes_per_response
+                                               * joules_per_byte))
+
+    @classmethod
     def from_microbench(cls, seconds_per_prefill_token: float,
                         seconds_per_decode_token: float,
                         watts: float = DEVICE_WATTS,
@@ -100,3 +158,19 @@ class DecodeCostModel:
                    joules_per_decode_step=watts * seconds_per_decode_token,
                    joules_per_response_upload=(bytes_per_response
                                                * joules_per_byte))
+
+
+def energy_record(flops_per_device: float, num_params: float,
+                  local_steps: int, bytes_per_param: float = 2.0) -> dict:
+    """The `launch.dryrun` record's ``energy`` block: nominal joules of the
+    workload at the constants above."""
+    m = from_flops(flops_per_device / max(local_steps, 1),
+                   num_params * bytes_per_param,
+                   download_bytes=num_params * bytes_per_param)
+    return {
+        "joules_per_local_step": m.joules_per_step,
+        "joules_per_upload": m.joules_per_upload,
+        "joules_per_round": m.round_cost(local_steps),
+        "assumed_joules_per_flop": JOULES_PER_FLOP,
+        "assumed_joules_per_byte_radio": JOULES_PER_BYTE_RADIO,
+    }

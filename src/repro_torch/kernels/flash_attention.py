@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -134,6 +135,24 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         acc = torch.where(live[:, None], acc_new, acc)
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2).contiguous().to(q.dtype)
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask keeps, positions from 0 on both
+    sides: key j is visible to query i where j < Skv, j <= i if
+    ``causal``, and i - j < ``window`` if ``window`` > 0."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def work_flops(B: int, Sq: int, Skv: int, H: int, D: int, causal: bool,
+               window: int) -> int:
+    """The FLOPs of the function: two products of D over each visible
+    (query, key) pair (``visible_pairs``), for every batch row and query
+    head; what the kernel computes once its masked tiles are skipped."""
+    return 4 * B * H * D * visible_pairs(Sq, Skv, causal, window)
 
 
 def kernel_tolerance(q, k, v, want, *, causal: bool = True, window: int = 0):

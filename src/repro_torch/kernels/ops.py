@@ -1,9 +1,23 @@
 """Device dispatch for the kernels: a CUDA tensor launches the kernel (or
 the wrapper raises), a CPU tensor takes the kernel's plain version.  There
-is no fallback from one to the other."""
+is no fallback from one to the other.
+
+``flash_attention``, ``ssd_scan``, ``fused_agg`` and ``fused_agg_tree`` go
+through ``torch.library`` custom ops (``torch.ops.repro_torch.*``), so
+that a shape-only trace (``FakeTensorMode``, `launch.dryrun`) reaches
+each op's fake implementation, which allocates its outputs and launches
+nothing, and ``torch.utils.flop_counter.FlopCounterMode`` prices each op
+at the kernel's own work (causal and windowed attention at the pairs the
+mask keeps; the scan's chunked products; 2 C M for an aggregation), not
+at its plain version's.  On a real tensor an op's implementation is the
+dispatch by device above; only a launch there adds to a kernel's
+``launches``.  The ops have no autograd formula: the training path runs
+on the plain functions (``impl="ref"``), as the reference trains."""
 from __future__ import annotations
 
 import torch
+from torch.library import custom_op
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fleet_step as _fleet
@@ -11,10 +25,20 @@ from repro_torch.kernels import fused_agg as _agg
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.tree import tree_leaves, tree_map
 
+Tensor = torch.Tensor
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q (B, Sq, H, D); k, v (B, Skv, K, D) with H % K == 0 (GQA mapped
-    inside).  Returns (B, Sq, H, D) in q's dtype."""
+
+def _on_kernel_device(name: str, t: Tensor) -> None:
+    """Raise for a device that has neither the kernel nor its plain version
+    (e.g. ``meta``; a fake tensor reports the device it stands for)."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+# ---------------------------------------------------------------- flash ----
+@custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+              window: int) -> Tensor:
     if q.device.type == "cuda":
         return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
@@ -23,15 +47,57 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
-def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
-    """Chunked SSD scan: x (B, S, H, P), dt (B, S, H) fp32, A (H,) fp32,
-    Bm / Cm (B, S, G, N) with H % G == 0 (groups mapped inside).  Returns
-    (y (B, S, H, P) fp32, final state (B, H, P, N) fp32)."""
+@_flash_op.register_fake
+def _(q, k, v, causal, window):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None,
+      **kwargs) -> int:
+    B, Sq, H, D = q_shape
+    return _fa.work_flops(B, Sq, k_shape[1], H, D, causal, window)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B, Sq, H, D); k, v (B, Skv, K, D) with H % K == 0 (GQA mapped
+    inside).  Returns (B, Sq, H, D) in q's dtype."""
+    _on_kernel_device("flash_attention", q)
+    return _flash_op(q, k, v, bool(causal), int(window))
+
+
+# ------------------------------------------------------------- ssd_scan ----
+@custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+            chunk: int) -> tuple[Tensor, Tensor]:
     if x.device.type == "cuda":
         return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk)
     if x.device.type == "cpu":
         return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+
+
+@_ssd_op.register_fake
+def _(x, dt, A, Bm, Cm, chunk):
+    B, S, H, P = x.shape
+    f32 = torch.float32
+    return (x.new_empty((B, S, H, P), dtype=f32),
+            x.new_empty((B, H, P, Bm.shape[3]), dtype=f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk, *args,
+      out_shape=None, **kwargs) -> int:
+    B, S, H, P = x_shape
+    return _ssd.work_flops(B, S, H, P, B_shape[2], B_shape[3], chunk)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
+    """Chunked SSD scan: x (B, S, H, P), dt (B, S, H) fp32, A (H,) fp32,
+    Bm / Cm (B, S, G, N) with H % G == 0 (groups mapped inside).  Returns
+    (y (B, S, H, P) fp32, final state (B, H, P, N) fp32)."""
+    _on_kernel_device("ssd_scan", x)
+    return _ssd_op(x, dt, A, Bm, Cm, int(chunk))
 
 
 def ssd_scan_y(x, dt, A, Bm, Cm, *, chunk: int = 128):
@@ -41,9 +107,9 @@ def ssd_scan_y(x, dt, A, Bm, Cm, *, chunk: int = 128):
     return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)[0].to(x.dtype)
 
 
-def fused_agg(w, w_stack, s):
-    """w (M,), w_stack (C, M), s (C,) float32 -> (M,) in w's dtype:
-    w (1 - sum s) + s @ w_stack, i.e. w + sum_c s_c (w_stack[c] - w)."""
+# ------------------------------------------------------------ fused_agg ----
+@custom_op("repro_torch::fused_agg", mutates_args=())
+def _agg_op(w: Tensor, w_stack: Tensor, s: Tensor) -> Tensor:
     if w.device.type == "cuda":
         return _agg.fused_agg_cuda(w, w_stack, s)
     if w.device.type == "cpu":
@@ -51,15 +117,58 @@ def fused_agg(w, w_stack, s):
     raise ValueError(f"fused_agg: no kernel for device {w.device}")
 
 
+@_agg_op.register_fake
+def _(w, w_stack, s):
+    return w.new_empty(w.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.fused_agg)
+def _(w_shape, ws_shape, s_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * ws_shape[0] * ws_shape[1]
+
+
+def fused_agg(w, w_stack, s):
+    """w (M,), w_stack (C, M), s (C,) float32 -> (M,) in w's dtype:
+    w (1 - sum s) + s @ w_stack, i.e. w + sum_c s_c (w_stack[c] - w)."""
+    _on_kernel_device("fused_agg", w)
+    return _agg_op(w, w_stack, s)
+
+
+@custom_op("repro_torch::fused_agg_tree", mutates_args=())
+def _agg_tree_op(ws: list[Tensor], w_stacks: list[Tensor],
+                 s: Tensor) -> list[Tensor]:
+    dev = ws[0].device
+    if dev.type == "cuda":
+        return _agg.fused_agg_tree_cuda(ws, w_stacks, s)
+    if dev.type == "cpu":
+        return [_agg.fused_agg_plain(w.reshape(-1),
+                                     st.reshape(st.shape[0], -1), s)
+                .reshape(w.shape) for w, st in zip(ws, w_stacks)]
+    raise ValueError(f"fused_agg: no kernel for device {dev}")
+
+
+@_agg_tree_op.register_fake
+def _(ws, w_stacks, s):
+    return [w.new_empty(w.shape) for w in ws]
+
+
+@register_flop_formula(torch.ops.repro_torch.fused_agg_tree)
+def _(ws_shapes, ws_stack_shapes, s_shape, *args, out_shape=None,
+      **kwargs) -> int:
+    return sum(2 * st.numel() for st in ws_stack_shapes)
+
+
 def fused_agg_tree(w_global, w_stack, s):
     """``fused_agg`` over a tree, each leaf flattened: w_global's leaves
     (...), w_stack's (C, ...).  On the card one launch per tree (per
     dtype); on the CPU leaf by leaf."""
-    if tree_leaves(w_global)[0].device.type == "cuda":
-        return _agg.fused_agg_tree_cuda(w_global, w_stack, s)
-    return tree_map(lambda w, ws: fused_agg(
-        w.reshape(-1), ws.reshape(ws.shape[0], -1), s).reshape(w.shape),
-        w_global, w_stack)
+    ws, stacks = tree_leaves(w_global), tree_leaves(w_stack)
+    if not ws or len(ws) != len(stacks):
+        raise ValueError(f"fused_agg_tree: w_global has {len(ws)} leaves, "
+                         f"w_stack {len(stacks)}")
+    _on_kernel_device("fused_agg", ws[0])
+    outs = iter(_agg_tree_op(ws, stacks, s))
+    return tree_map(lambda w: next(outs), w_global)
 
 
 def fleet_step(program, env, *, n: int, emit: bool = False,

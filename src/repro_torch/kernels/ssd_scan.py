@@ -142,6 +142,21 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int):
     return (y_intra + y_inter).reshape(Bsz, S, H, P), h
 
 
+def work_flops(B: int, S: int, H: int, P: int, G: int, N: int,
+               chunk: int) -> int:
+    """The FLOPs of the chunked scan, per chunk of Q = ``chunk`` rows: C.B
+    over the causal pairs (Q(Q+1)/2 N products) once a (batch row,
+    group), since it depends on neither dt nor A; and once a (batch row,
+    head) M x over the causal pairs (Q(Q+1)/2 P), C.h and the state update
+    (2 Q P N); two FLOPs a product.  The count of
+    ``chip_smoke.ssd_work``."""
+    Q, nC = chunk, S // chunk
+    pairs = Q * (Q + 1) // 2
+    cb = 2 * B * G * nC * pairs * N
+    rest = 2 * B * H * nC * (pairs * P + 2 * Q * P * N)
+    return cb + rest
+
+
 def _gamma(n: int, u: float = 2.0 ** -24) -> float:
     return n * u / (1 - n * u)
 

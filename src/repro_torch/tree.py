@@ -25,3 +25,16 @@ def tree_leaves(tree: PyTree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_map_with_path(fn: Callable, tree: PyTree, path: tuple = ()
+                       ) -> PyTree:
+    """``fn(path, leaf)`` leaf by leaf, ``path`` the tuple of dict keys and
+    sequence indices (as strings) from the root to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)

@@ -63,7 +63,8 @@ def test_package_has_modules():
                  "launch/trace_fleet.py", "checkpoint/_msgpack.py",
                  "checkpoint/ckpt.py", "checkpoint/resume.py",
                  "launch/battery_control.py", "launch/train_100m.py",
-                 "launch/noniid_ablation.py"):
+                 "launch/noniid_ablation.py", "launch/steps.py",
+                 "launch/dryrun.py", "launch/mesh.py"):
         assert need in names
 
 
@@ -91,3 +92,34 @@ def test_package_calls_no_library_aggregation():
     kernel; ``chip_smoke.py`` times ``torch.addmv`` as its yardstick only."""
     for path in _port_files():
         assert "addmv" not in open(path).read(), path
+
+
+def test_dryrun_cli_record_reads_in_both_packages(tmp_path):
+    """``python -m repro_torch.launch.dryrun`` on the 16 x 16 layout
+    (whisper-tiny, train_4k, one local step) writes a record that the
+    port's and the JAX package's ``from_dryrun`` read alike."""
+    import dataclasses
+    import json
+    import subprocess
+    import sys
+
+    from repro.energy import costs as jcosts
+    from repro_torch.energy import costs as tcosts
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "whisper-tiny", "--shape", "train_4k", "--mesh", "single",
+         "--local-steps", "1", "--device", "cpu", "--no-calibrate",
+         "--out", str(tmp_path)],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "OK   whisper-tiny__train_4k__single" in proc.stdout
+    rec = json.load(open(tmp_path / "whisper-tiny__train_4k__single.json"))
+    assert rec["partitioned"] is False and rec["multi_pod"] is False
+    assert rec["mesh"] == "16x16 (data,model)"
+    assert rec["step_meta"]["client_groups"] == 16
+    assert rec["memory"]["argument_bytes_per_device"] > 0
+    ours, theirs = tcosts.from_dryrun(rec, 1), jcosts.from_dryrun(rec, 1)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.joules_per_step > 0
