@@ -57,17 +57,17 @@ without either.  Phases, each of which raises on a failed check:
    on).  Every kernel's count is set to 0 before each run and read after
    it (one fused_agg launch per round: the whole tree).  The card's masks must equal the
    CPU's bitwise, no-op rounds must leave the model bitwise unchanged, and
-   the loss must fall.  Sustainable rounds 0 and 3 (rounds 1, 2 and 4
-   and the wait_all rounds are left out for time: ~1 min each) are run
-   again from the card's params before them: on the card through
+   the loss must fall.  Sustainable round 0 (rounds 1-4 and the
+   wait_all rounds are left out for time: ~1 min each) is run
+   again from the card's params before it: on the card through
    ``core.replay_round``, which reads out every local step's max-pool and
    ReLU decisions and must equal the round bitwise, and on the CPU
    replaying those decisions in float32 and in float64.  The card's round
    must agree with the CPU's float32 round (loss to 1e-4, 90% of the params
    to 1e-6 (1 + |w|), or to the CPU's own float32 distance from float64
-   where that is larger) and lie within one round's Adam bound.  Two SGD
-   rounds (lr 1e-2) through the same entry point are held elementwise, to
-   1e-6 + 1e-5 |w|, against their float64 replays.  Prints per-round ms,
+   where that is larger) and lie within one round's Adam bound.  One SGD
+   round (lr 1e-2) through the same entry point is held elementwise, to
+   1e-6 + 1e-5 |w|, against its float64 replay.  Prints per-round ms,
    client-steps/s and a profile of one round.
 6. Fig. 1: ``repro_torch.launch.fig1.run_fig1`` for 10 rounds under
    ``sustainable`` and ``greedy`` (N=40, the faithful participants-only
@@ -194,8 +194,8 @@ without either.  Phases, each of which raises on a failed check:
    prompts {2048, 777, 300}, 16 tokens each (3 x 8 = 24 flash launches);
    the same checks as phase 14, and the vision rows must move the logits.
 16. Train LM: ``repro_torch.launch.train``'s path on granite-3-2b at full
-   width (its 40 layers cut to 4, or to 2 if 4 peak above 70 GB), 8
-   clients, taus (1, 2, 4, 8), T = 5 Adam steps of 4 x 512 tokens, 3
+   width (remat on; its 40 layers cut to 3, or to 2 if 3 peak above 70
+   GB), 8 clients, taus (1, 2, 4, 8), T = 5 Adam steps of 4 x 512 tokens, 3
    sustainable rounds after a warm-up: two fused_agg launches a round (one
    a dtype: fp32 norms, bf16 weights) and no other kernel, every leaf the
    kernel wrote within ``kernel_tolerance`` of ``fused_agg_plain`` on the
@@ -203,7 +203,8 @@ without either.  Phases, each of which raises on a failed check:
    that tree beside its bytes bound, its plain version and one addmv a
    leaf.  Then round 0 of granite-3-2b's smoke config and of olmoe-1b-7b's
    in each MoE mode, fp32, on the card against the CPU from the card's
-   params (phase 5's bounds; MoE losses within 1e-5).
+   params (phase 5's bounds; MoE losses within 1e-5).  One round at 2
+   layers with remat on and off prints their peaks.
 17. Serve hybrid: recurrentgemma-2b at full width and depth (26 layers =
    8 x (R, R, A) + 2 R, LRU width 2560, H=10, K=1, D=256, window 2048,
    bf16, random weights from ``--seed``) through ``DecodeEngine.run`` with
@@ -291,7 +292,9 @@ without either.  Phases, each of which raises on a failed check:
    (48 ssd_scan launches), whisper-tiny's parallel train bundle (C = 1,
    2 local steps of 2 rows of 128 tokens and 1500 frames; one fused_agg
    launch a dtype, each leaf against the plain version) and granite-3-2b
-   at 2 of its 40 layers through the sequential train bundle.  Each is
+   at 2 of its 40 layers through the sequential train bundle, with remat
+   off and on (the loss bitwise, the params within two evaluations'
+   bound, both peaks printed).  Each is
    held against its plain path: the prefills against ``impl="ref"`` on
    the card (logits within phase 4's / phase 12's bf16 bounds, layer 0's
    cache bitwise, Mamba2's layer-0 state within 1e-3 of its largest |h|),
@@ -307,6 +310,16 @@ without either.  Phases, each of which raises on a failed check:
    (``t_memory_s``, from unfused bytes, printed only).  Prints
    ``DecodeCostModel.from_dryrun`` and ``DeviceCostModel.from_dryrun``
    joules beside phase 4's ``from_microbench`` at the card's power limit.
+   Besides, the sequential train bundle at full width with remat
+   (``deep_train_case``): granite-3-2b at all 40 layers, which must fit,
+   and recurrentgemma-2b at the deepest of 26, 14 and 8 layers whose dry
+   run fits the card (each leaves a tail layer).  Each is traced with
+   remat on and off first (its peak printed both ways), then run as the
+   main path and held to its dry run as above (busy time by CUDA events
+   around a call: a profile of ~26,000 kernels costs more than the run),
+   its first local step's loss bitwise a ``torch.no_grad`` ``loss_fn`` on
+   the same batch, every leaf of its accumulated delta finite and not all
+   zero.
    Phase 4 also prints tok/s and the S=2048 prefill's wall time through
    the ``torch.library`` custom op and with the wrapper called directly.
 
@@ -365,11 +378,10 @@ LOGIT_ATOL = {"bfloat16": 0.5, "float32": 1e-3}
 TRAIN = dict(clients=40, local_steps=5, batch=24, taus=(1, 5, 10, 20),
              lr=1e-3)
 TRAIN_ROUNDS = {"sustainable": 5, "wait_all": 3}
-# the rounds replayed on the CPU (~45-60 s each): sustainable rounds 1, 2
-# and 4 (loss 0 from round 4 on) and the wait_all rounds (the same round
-# code under another mask) are left out to keep the script within its
-# time
-TRAIN_REPLAY = {"sustainable": (0, 3), "wait_all": ()}
+# the rounds replayed on the CPU (~45-60 s each): sustainable rounds 1-4
+# (loss 0 from round 4 on) and the wait_all rounds (the same round code
+# under another mask) are left out to keep the script within its time
+TRAIN_REPLAY = {"sustainable": (0,), "wait_all": ()}
 # each round of the card with participants, against the same round on
 # the CPU from the card's params before it, every max-pool and ReLU taking
 # the card's decision of the same step and client (``replay_round``; a
@@ -387,7 +399,7 @@ TRAIN_REPLAY = {"sustainable": (0, 3), "wait_all": ()}
 # float64 replay.
 LOSS_RTOL = 1e-4
 BULK_Q, BULK_TOL = 0.9, 1e-6
-SGD_CHECK = dict(policy="sustainable", optimizer="sgd", lr=1e-2, rounds=2)
+SGD_CHECK = dict(policy="sustainable", optimizer="sgd", lr=1e-2, rounds=1)
 FIG1_ROUNDS = 10
 
 PROMPT_LENS = (2048, 1537, 777, 1024, 129, 1999)
@@ -3895,13 +3907,15 @@ def vlm_serve_phase(torch, fa, seed: int, card: str) -> dict:
 
 # the LM train phase: granite-3-2b at full width through the train
 # launcher's path, 8 clients, T = 5 Adam steps of 4 x 512 tokens, 3
-# sustainable rounds; its 40 layers cut to 4, or to 2 where 4 take more
-# than LM_PEAK_LIMIT of the card (8 stacked clients' bf16 params, grads and
-# new params and their fp32 Adam moments)
+# sustainable rounds, remat on (the config's default); its 40 layers cut to
+# the deepest of LM_LAYERS that takes no more than LM_PEAK_LIMIT of the
+# card (8 stacked clients' bf16 params, grads and new params and their
+# fp32 Adam moments); then one round at the last of them with remat on
+# and off, for their peaks
 LM_TRAIN = dict(clients=8, local_steps=5, batch=4, seq=512,
                 taus=(1, 2, 4, 8), lr=1e-3)
 LM_TRAIN_ROUNDS = 3
-LM_LAYERS = (4, 2)
+LM_LAYERS = (3, 2)
 LM_PEAK_LIMIT = 70e9
 # card vs CPU: one round of a smoke config from the card's params, held as
 # phase 5 holds the CNN's (LOSS_RTOL, BULK_TOL, the Adam bound); the MoE
@@ -3999,8 +4013,8 @@ def lm_round_vs_cpu(torch, train, label, cfg, seed) -> dict:
 
 
 def lm_train_rounds(torch, agg, train, cfg, seed, last: bool,
-                    settings=None) -> dict:
-    """``LM_TRAIN_ROUNDS`` sustainable rounds of ``cfg`` through
+                    settings=None, rounds: int = LM_TRAIN_ROUNDS) -> dict:
+    """``rounds`` sustainable rounds of ``cfg`` through
     ``make_run`` with ``settings`` (default ``LM_TRAIN``), after a warm-up
     round: each round's kernel launches (counts set to 0 before it, read
     after it: one fused_agg launch a dtype of the params), its fused_agg
@@ -4028,7 +4042,7 @@ def lm_train_rounds(torch, agg, train, cfg, seed, last: bool,
         oom = True
     peak = torch.cuda.max_memory_allocated()
     if not oom and (last or peak <= LM_PEAK_LIMIT):
-        for r in range(LM_TRAIN_ROUNDS):
+        for r in range(rounds):
             ops.zero_launches()
             torch.cuda.reset_peak_memory_stats()
             with AggTap(ops) as tap:
@@ -4054,7 +4068,7 @@ def lm_train_rounds(torch, agg, train, cfg, seed, last: bool,
                   f"({C * T / dt:.2f} client-steps/s); launches {counts}; "
                   f"fused_agg leaves vs plain: worst err/bound "
                   f"{worst[-1]:.3f} ok", flush=True)
-            if r + 1 < LM_TRAIN_ROUNDS:
+            if r + 1 < rounds:
                 tap.calls.clear()
     return {"cfg": cfg, "run": run, "params": w, "history": hist,
             "peak_bytes": peak, "oom": oom,
@@ -4144,6 +4158,26 @@ def lm_train_phase(torch, agg, seed: int, card: str) -> dict:
     del w, ws, leaves, run
     torch.cuda.empty_cache()
 
+    # a warm-up round at the last depth tried, remat on and off: the peaks
+    probe = {}
+    for remat in (True, False):
+        if remat and cfg.num_layers == LM_LAYERS[-1]:
+            probe[remat] = peak
+            continue
+        p = lm_train_rounds(torch, agg, train, dataclasses.replace(
+            cfg, num_layers=LM_LAYERS[-1], remat=remat), seed, last=False,
+            rounds=0)
+        if p["oom"]:
+            raise AssertionError(f"train lm: {LM_LAYERS[-1]} layers "
+                                 f"{'with' if remat else 'without'} remat "
+                                 f"ran out of memory")
+        probe[remat] = p["peak_bytes"]
+        del p
+        torch.cuda.empty_cache()
+    print(f"train lm: granite-3-2b at {LM_LAYERS[-1]} layers, one round: peak "
+          f"torch.cuda.max_memory_allocated {probe[True] / 1e9:.2f} GB with "
+          f"remat, {probe[False] / 1e9:.2f} GB without", flush=True)
+
     smoke = {"granite-3-2b": lm_round_vs_cpu(
         torch, train, "granite-3-2b smoke", get_smoke_config("granite-3-2b"),
         seed)}
@@ -4154,6 +4188,8 @@ def lm_train_phase(torch, agg, seed: int, card: str) -> dict:
     return {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
             **LM_TRAIN, "rounds": len(hist), "history": hist,
             "peak_bytes": peak, "layers_tried": tried,
+            f"peak_bytes_{LM_LAYERS[-1]}_layers": {"remat": probe[True],
+                                                   "no_remat": probe[False]},
             "wall_s": wall, "client_steps_per_s": len(hist) * C * T / wall,
             "fused_agg_launches": sum(h["fused_agg_launches"] for h in hist),
             "agg_tree": {"leaves": n_leaves, "kernel_ms": kernel_ms,
@@ -5380,6 +5416,7 @@ STEPS_PREFILL_SEQ = 2048             # granite-3-2b and mamba2-1.3b, B = 1
 STEPS_DECODE = dict(batch=4, cache=2048)
 STEPS_ENCDEC_TRAIN = dict(local_steps=2, batch=2, seq=128)  # + 1500 frames
 STEPS_SEQ_TRAIN = dict(layers=2, local_steps=2, batch=4, seq=512)
+STEPS_HYBRID_DEPTHS = (26, 14, 8)    # recurrentgemma-2b: each leaves a tail
 STEPS_LR = 1e-4                      # launch.steps.make_optimizer_for's
 # the dry run against the card: predicted FLOPs within 2% of the count
 # from the config; the predicted peak of the step's own bytes within a
@@ -5411,13 +5448,23 @@ def dense_layer_flops(cfg, T: int) -> int:
     return proj + 2 * T * d * ff * (3 if cfg.mlp_type == "swiglu" else 2)
 
 
+def rec_layer_flops(cfg, T: int) -> int:
+    """The products of one RG-LRU layer over T tokens: the x and y
+    branches, the two gates, the output projection and the MLP."""
+    d, w, ff = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.d_ff
+    return (2 * T * (3 * d * w + 2 * w * w)
+            + 2 * T * d * ff * (3 if cfg.mlp_type == "swiglu" else 2))
+
+
 def bundle_flops(cfg, kind, B, S, *, local_steps=1, cache_len=0,
                  agg_params=0) -> int:
     """A bundle's FLOPs counted from its config: 2 M K N a product; the
     kernels at their own work (flash over the causal pairs, `ssd_work`'s
     chunked products); decode attention over the whole cache; training on
     the plain path (attention over the whole square), 3x its forward a
-    local step (a product's backward is two of its size), plus 2 C M for a
+    local step (a product's backward is two of its size), one more forward
+    of the rematerialised layers where ``cfg.remat`` is set (the decoder's
+    only, for an encoder-decoder; every layer otherwise), plus 2 C M for a
     parallel round's aggregation (``agg_params`` = M at C = 1)."""
     H, D, d = cfg.num_heads, cfg.head_dim, cfg.d_model
     Vu = vocab_out(cfg)
@@ -5443,12 +5490,20 @@ def bundle_flops(cfg, kind, B, S, *, local_steps=1, cache_len=0,
                + 2 * B * S * 2 * d * cfg.q_dim
                + 2 * B * Se * 2 * d * cfg.kv_dim
                + 4 * B * H * D * S * Se)
-        fwd = cfg.encoder_layers * enc + cfg.num_layers * dec
+        layers = cfg.num_layers * dec
+        fwd = cfg.encoder_layers * enc + layers
     else:
-        fwd = cfg.num_layers * (dense_layer_flops(cfg, B * S)
-                                + 4 * B * H * D * S * S)
+        attn = dense_layer_flops(cfg, B * S) + 4 * B * H * D * S * S
+        if cfg.family == "hybrid":
+            n_attn = cfg.num_layers // 3
+            layers = (n_attn * attn + (cfg.num_layers - n_attn)
+                      * rec_layer_flops(cfg, B * S))
+        else:
+            layers = cfg.num_layers * attn
+        fwd = layers
     fwd += 2 * B * S * d * Vu
-    return 3 * fwd * local_steps + 2 * agg_params
+    recompute = layers if cfg.remat else 0
+    return (3 * fwd + recompute) * local_steps + 2 * agg_params
 
 
 def tree_meta(tree, prefix=""):
@@ -5498,13 +5553,19 @@ def materialize(torch, bundle, params, gen, vocab: int) -> list:
 
 
 def steps_case(torch, ops, label, bundle, args, want_launches,
-               explicit) -> dict:
+               explicit, tr=None, inspect=None, profile=True) -> dict:
     """Run ``bundle`` once on the card as the main path (counts set to 0
     just before and read just after; its peak above the arguments), take
-    its device-busy time, dry-run it, and hold the dry run to the card."""
+    its device-busy time, dry-run it (``tr``: its trace, if taken
+    already), and hold the dry run to the card.  With ``inspect``, the
+    main run's output is handed to it and dropped before the profile (a
+    full-depth round's accumulator and a second run do not fit the card
+    together): the result holds what it returns under ``"inspected"``.
+    Without ``profile``, busy is the device time between CUDA events
+    around one call (idle gaps included: never less than busy)."""
     from repro_torch.launch import dryrun
 
-    tr = dryrun.trace(bundle)               # shape-only, on fake CUDA
+    tr = tr or dryrun.trace(bundle)         # shape-only, on fake CUDA
     out = bundle.fn(*args)                  # warm-up: allocator, cuBLAS
     del out
     torch.cuda.synchronize()
@@ -5520,11 +5581,21 @@ def steps_case(torch, ops, label, bundle, args, want_launches,
     if counts != {**dict.fromkeys(counts, 0), **want_launches}:
         raise AssertionError(f"steps {label}: launches {counts}, expected "
                              f"{want_launches} and no other")
+    real = {"args": dryrun.tree_bytes(args, "cuda"),
+            "outputs": dryrun.tree_bytes(out, "cuda")}
+    inspected = None
+    if inspect is not None:
+        inspected, out = inspect(out), None
     call = lambda: bundle.fn(*args)
     timed_by = "torch.profiler"
     try:
-        prof = device_profile(torch, call, launched(torch, call),
-                              tries=FALLBACK_TRIES)
+        if not profile:
+            timed_by = "CUDA events around one call (an upper bound on busy)"
+            prof = {"device_ms": cuda_ms(call, 1, torch), "kernels": None,
+                    "profiles": 0}
+        else:
+            prof = device_profile(torch, call, launched(torch, call),
+                                  tries=FALLBACK_TRIES)
     except ProfileIncomplete as e:
         # late in a run the profiler has missed a flash kernel of a
         # prefill in every try: a window that records some kernels then
@@ -5536,8 +5607,6 @@ def steps_case(torch, ops, label, bundle, args, want_launches,
     busy_s = prof["device_ms"] / 1e3
     pred = {"args": dryrun.tree_bytes(bundle.args, "cuda"),
             "outputs": dryrun.tree_bytes(tr["outputs"], "cuda")}
-    real = {"args": dryrun.tree_bytes(args, "cuda"),
-            "outputs": dryrun.tree_bytes(out, "cuda")}
     ratio = tr["temp_peak"] / max(measured_temp, 1)
     flop_err = abs(tr["flops"] - explicit) / explicit
     t_compute = tr["flops"] / PEAK_FLOPS["bfloat16"]
@@ -5547,7 +5616,8 @@ def steps_case(torch, ops, label, bundle, args, want_launches,
           and t_compute <= STEPS_BUSY_SLACK * busy_s)
     print(f"steps {label}: launches {want_launches or 'none'}; wall "
           f"{wall_ms:.2f} ms, device busy {prof['device_ms']:.3f} ms "
-          f"({prof['kernels']} kernels); dry run: argument bytes "
+          + (f"({prof['kernels']} kernels)" if prof["kernels"] else
+             "(CUDA events)") + f"; dry run: argument bytes "
           f"{pred['args']:,} (card {real['args']:,}), output bytes "
           f"{pred['outputs']:,} (card {real['outputs']:,}); temp peak "
           f"{tr['temp_peak'] / 1e9:.4f} GB vs the card's "
@@ -5572,7 +5642,7 @@ def steps_case(torch, ops, label, bundle, args, want_launches,
             "flops_by_op": tr["flops_by_op"], "flop_rel_err": flop_err,
             "unfused_bytes": tr["bytes"], "t_compute_s": t_compute,
             "t_memory_s": t_memory, "trace_s": tr["seconds"],
-            "out": out, "trace": tr}
+            "out": out, "inspected": inspected, "trace": tr}
 
 
 def on_cpu(torch, tree):
@@ -5626,6 +5696,123 @@ def params_within_round(torch, label, a, b, w0, T, s=1.0) -> dict:
         raise AssertionError(f"steps {label}: params differ beyond one "
                              f"round's Adam bound")
     return {"max_abs_diff": dmax, "worst_over_bound": worst}
+
+
+class LossTap:
+    """Records the loss of every local step: the value that
+    ``core.round.micro_value_and_grad``'s function returns."""
+
+    def __init__(self):
+        from repro_torch.core import round as round_mod
+        self.mod, self.real, self.losses = (
+            round_mod, round_mod.micro_value_and_grad, [])
+
+    def __enter__(self):
+        def tapped(loss_fn, num_micro):
+            vg = self.real(loss_fn, num_micro)
+
+            def f(*a):
+                loss, grads = vg(*a)
+                self.losses.append(loss.detach().clone())
+                return loss, grads
+            return f
+        self.mod.micro_value_and_grad = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.micro_value_and_grad = self.real
+
+
+def deep_train_case(torch, ops, cfg, g_params, g_data):
+    """The sequential train bundle of ``cfg`` (remat on) at
+    ``STEPS_SEQ_TRAIN``'s batch, sequence and local steps: the dry run's
+    peak with remat on and off (fake tensors: no card memory); where the
+    remat peak fits the card, the bundle on the card as the main path held
+    to its dry run (`steps_case`), the first local step's loss bitwise a
+    ``torch.no_grad`` ``loss_fn`` on the same batch, every leaf of the
+    accumulated delta finite and not all zero.  None where the peak does
+    not fit (predicted, or the card runs out of memory)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_map
+
+    Q = STEPS_SEQ_TRAIN
+    T = Q["local_steps"]
+    shape = InputShape("steps_train", Q["seq"], Q["batch"], "train")
+    label = (f"{cfg.name} train (sequential, {cfg.num_layers} layers, "
+             f"remat on)")
+    b = build_step(cfg, shape, None, device="cuda", local_steps=T)
+    tr = dryrun.trace(b)
+    arg_bytes = dryrun.tree_bytes(b.args, "cuda")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    peak = arg_bytes + tr["temp_peak"]
+    if peak > card_bytes:
+        print(f"steps {cfg.name} sequential, {cfg.num_layers} layers: the "
+              f"dry run's peak with remat (arguments {arg_bytes / 1e9:.3f} "
+              f"GB + temp) {peak / 1e9:.3f} GB, traced in "
+              f"{tr['seconds']:.1f} s, above the card's "
+              f"{card_bytes / 1e9:.3f} GB: does not fit", flush=True)
+        return None
+    tr_off = dryrun.trace(build_step(dataclasses.replace(cfg, remat=False),
+                                     shape, None, device="cuda",
+                                     local_steps=T))
+    peak_off = arg_bytes + tr_off["temp_peak"]
+    print(f"steps {cfg.name} sequential, {cfg.num_layers} layers: the dry "
+          f"run's peak (arguments {arg_bytes / 1e9:.3f} GB + temp) "
+          f"{peak / 1e9:.3f} GB with remat, {peak_off / 1e9:.3f} GB without "
+          f"(traced in {tr['seconds']:.1f} + {tr_off['seconds']:.1f} s), "
+          f"the card {card_bytes / 1e9:.3f} GB: run", flush=True)
+    torch.cuda.empty_cache()
+    model = get_model(cfg)
+    params = model.init_params(g_params)
+    args = materialize(torch, b, params, g_data, cfg.vocab_size)
+
+    def inspect(out):
+        acc = flat_leaves(out[0])
+        bad = [name for name, t in acc if not (
+            bool(torch.isfinite(t).all()) and bool((t != 0).any()))]
+        if bad:
+            raise AssertionError(f"steps {label}: the accumulated delta is "
+                                 f"not finite or all zero in {bad}")
+        return {"delta_leaves": len(acc),
+                "delta_max_abs": max(t.abs().max().item() for _, t in acc)}
+
+    r = None
+    try:
+        with LossTap() as tap:
+            r = steps_case(torch, ops, label, b, args, {},
+                           bundle_flops(cfg, "train", Q["batch"], Q["seq"],
+                                        local_steps=T), tr=tr,
+                           inspect=inspect, profile=False)
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"steps {label}: ran out of memory on the card: "
+              f"{str(e).splitlines()[0]}", flush=True)
+    if r is None:
+        del params, args
+        torch.cuda.empty_cache()
+        return None
+    with torch.no_grad():
+        want = model.loss_fn(params, tree_map(lambda t: t[0], args[2]))
+    first, seen = tap.losses[0], r["inspected"]
+    same = torch.equal(first, want)
+    print(f"steps {label}: the first local step's loss {float(first):.6f} "
+          f"vs torch.no_grad loss_fn {float(want):.6f} "
+          f"({'bitwise' if same else 'DIFFER'}); the delta's "
+          f"{seen['delta_leaves']} leaves finite and nonzero (max |d| "
+          f"{seen['delta_max_abs']:.3e}); the card's peak "
+          f"{(arg_bytes + r['temp_measured']) / 1e9:.3f} GB", flush=True)
+    if not same:
+        raise AssertionError(f"steps {label}: the first local step's loss "
+                             f"differs from a no-grad loss_fn")
+    del r["out"], r["trace"], params, args
+    torch.cuda.empty_cache()
+    return {**r, "first_step_loss": float(first),
+            "no_grad_loss": float(want), "arg_bytes": arg_bytes,
+            "peak_predicted": peak, "peak_predicted_remat_off": peak_off,
+            "peak_measured": arg_bytes + r["temp_measured"],
+            "card_bytes": card_bytes}
 
 
 def steps_phase(torch, agg, seed: int, card: str, serve: dict) -> dict:
@@ -5760,23 +5947,44 @@ def steps_phase(torch, agg, seed: int, card: str, serve: dict) -> dict:
     del w_card, w_cpu, cpu_args, args, b, params, tap
     torch.cuda.empty_cache()
 
-    # granite-3-2b at 2 of its 40 layers, the sequential train bundle; its
-    # round against the parallel bundle's at C = 1 (eq. 13 is linear)
+    # granite-3-2b at 2 of its 40 layers, the sequential train bundle with
+    # remat off and on (one set of arguments): the same loss, params within
+    # two evaluations' bound; the remat round against the parallel
+    # bundle's at C = 1 (eq. 13 is linear)
     Q = STEPS_SEQ_TRAIN
-    cfg = dataclasses.replace(get_config("granite-3-2b"),
-                              num_layers=Q["layers"], fed_mode="sequential")
-    model = get_model(cfg)
-    params = model.init_params(g_params)
+    base = dataclasses.replace(get_config("granite-3-2b"),
+                               num_layers=Q["layers"], fed_mode="sequential")
+    params = get_model(base).init_params(g_params)
     sshape = InputShape("steps_train", Q["seq"], Q["batch"], "train")
-    b = build_step(cfg, sshape, None, device="cuda",
-                   local_steps=Q["local_steps"])
-    args = materialize(torch, b, params, g_data, cfg.vocab_size)
-    r = steps_case(torch, ops, f"granite-3-2b train (sequential, "
-                   f"{Q['layers']} layers)",
-                   b, args, {}, bundle_flops(cfg, "train", Q["batch"],
-                                             Q["seq"],
-                                             local_steps=Q["local_steps"]))
+    args, seq = None, {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, remat=remat)
+        b = build_step(cfg, sshape, None, device="cuda",
+                       local_steps=Q["local_steps"])
+        args = args or materialize(torch, b, params, g_data, cfg.vocab_size)
+        seq[remat] = (b, steps_case(
+            torch, ops, f"granite-3-2b train (sequential, {Q['layers']} "
+            f"layers, remat {'on' if remat else 'off'})", b, args, {},
+            bundle_flops(cfg, "train", Q["batch"], Q["seq"],
+                         local_steps=Q["local_steps"])))
+    (_, r_off), (b, r) = seq[False], seq[True]
+    acc_off, loss_off = r_off.pop("out")
     acc, loss = r.pop("out")
+    print(f"steps granite-3-2b sequential, {Q['layers']} layers: loss remat "
+          f"on {float(loss):.6f}, off {float(loss_off):.6f} "
+          f"({'bitwise' if torch.equal(loss, loss_off) else 'DIFFER'}); "
+          f"the card's peak above the arguments {r['temp_measured'] / 1e9:.4f}"
+          f" GB on, {r_off['temp_measured'] / 1e9:.4f} GB off", flush=True)
+    if not torch.equal(loss, loss_off):
+        raise AssertionError("steps granite-3-2b sequential: remat changes "
+                             "the loss")
+    r["vs_remat_off"] = params_within_round(
+        torch, "granite-3-2b sequential (remat on vs off)",
+        apply_accumulated(params, acc), apply_accumulated(params, acc_off),
+        params, Q["local_steps"])
+    r["remat_off"] = {k: r_off[k] for k in ("temp_measured", "temp_predicted",
+                                            "flops", "device_ms", "wall_ms")}
+    del acc_off, r_off, seq
     pb = build_step(dataclasses.replace(cfg, fed_mode="parallel"), sshape,
                     None, device="cuda", local_steps=Q["local_steps"])
     w_par, m_par = pb.fn(params, _tree_map(args[2], lambda t: t[None]),
@@ -5797,6 +6005,32 @@ def steps_phase(torch, agg, seed: int, card: str, serve: dict) -> dict:
     res["granite_sequential_train"] = r
     del acc, w_par, args, b, pb, params
     torch.cuda.empty_cache()
+
+    # the sequential bundle at full width and depth with remat: granite-3-2b
+    # at its 40 layers, which must fit; recurrentgemma-2b at the deepest of
+    # STEPS_HYBRID_DEPTHS that fits
+    res["granite_full_depth_train"] = deep_train_case(
+        torch, ops, dataclasses.replace(get_config("granite-3-2b"),
+                                        fed_mode="sequential"),
+        g_params, g_data)
+    if res["granite_full_depth_train"] is None:
+        raise AssertionError("steps granite-3-2b: the full 40 layers do not "
+                             "fit the card")
+    tried = []
+    for layers in STEPS_HYBRID_DEPTHS:
+        r = deep_train_case(torch, ops, dataclasses.replace(
+            get_config(HYBRID_ARCH), num_layers=layers,
+            fed_mode="sequential"), g_params, g_data)
+        tried.append(layers)
+        if r is not None:
+            break
+    else:
+        raise AssertionError(f"steps {HYBRID_ARCH}: none of "
+                             f"{STEPS_HYBRID_DEPTHS} layers fits the card")
+    print(f"steps {HYBRID_ARCH}: the sequential round at full width takes "
+          f"{layers} of {get_config(HYBRID_ARCH).num_layers} layers (tried "
+          f"{tried})", flush=True)
+    res["hybrid_deep_train"] = {**r, "layers": layers, "tried": tried}
 
     # (c) joules from the dry run's FLOPs (the nominal 10 pJ/FLOP) beside
     # phase 4's from_microbench at the card's power limit
@@ -5887,35 +6121,65 @@ def main(argv=None) -> int:
                     or "spill" in line):
                 print("ptxas:", line.strip())
 
+    laps, clock = {}, [time.perf_counter()]
+
+    def lap(phase):
+        """Prints and keeps the seconds since the last lap."""
+        now = time.perf_counter()
+        laps[phase], clock[0] = now - clock[0], now
+        print(f"phase {phase}: {laps[phase]:.1f} s", flush=True)
+
     kernel = kernel_phase(torch, fa, args.seed)
+    lap("2 flash kernel")
     agg_kernel = fused_agg_phase(torch, agg, args.seed)
+    lap("3 fused_agg kernel")
     fleet_kernel = fleet_step_phase(torch, fs, args.seed)
+    lap("fleet_step kernel")
     serve_kernel = serve_step_phase(torch, fs, args.seed)
+    lap("serve_step kernel")
     ssd_kernel = ssd_scan_phase(torch, ssd, args.seed)
+    lap("ssd_scan kernel")
     serve = serve_phase(torch, fa, args.seed, card)
+    lap("4 serve")
     kernel["launches"] = serve["flash_launches"]
     mamba = mamba2_serve_phase(torch, ssd, args.seed, card)
+    lap("serve mamba2")
     ssd_kernel["launches"] = mamba["ssd_launches"]
     train = train_phase(torch, fa, agg, args.seed, card)
+    lap("5 train")
     agg_kernel["launches"] = sum(train[policy]["fused_agg_launches"]
                                  for policy in TRAIN_ROUNDS)
     fig1 = fig1_phase(torch, args.seed)
+    lap("fig1")
     fleet = fleet_phase(torch, fs, args.seed, card)
+    lap("fleet")
     fleet_kernel["launches"] = fleet["launches"]
     serve_fleet = serve_fleet_phase(torch, fs, args.seed, card)
+    lap("serving fleet")
     serve_kernel["launches"] = serve_fleet["launches"]
     sharded = sharded_phase(torch, fs, args.seed, card, fleet, serve_fleet)
+    lap("13 sharded")
     serve_moe = moe_serve_phase(torch, fa, args.seed, card)
+    lap("14 serve moe")
     serve_vlm = vlm_serve_phase(torch, fa, args.seed, card)
+    lap("15 serve vlm")
     train_lm = lm_train_phase(torch, agg, args.seed, card)
+    lap("16 train lm")
     serve_hybrid = hybrid_serve_phase(torch, fa, args.seed, card)
+    lap("17 serve hybrid")
     serve_encdec = encdec_serve_phase(torch, fa, args.seed, card)
+    lap("18 serve encdec")
     train_new = new_families_train_phase(torch, agg, args.seed, card)
+    lap("19 train encdec")
     replay, replay_keep = replay_phase(torch, fs, args.seed, card)
+    lap("20 replay")
     obs = obs_phase(torch, fs, args.seed, card, replay_keep)
+    lap("21 obs")
     del replay_keep
     resume = resume_phase(torch, args.seed, card)
+    lap("22 resume")
     steps = steps_phase(torch, agg, args.seed, card, serve)
+    lap("23 steps")
     cases = steps["cases"]
     kernel["launches_by_path"] = {
         "serve granite-3-2b": serve["flash_launches"],
@@ -5992,7 +6256,8 @@ def main(argv=None) -> int:
               "serve_vlm": serve_vlm, "train_lm": train_lm,
               "serve_hybrid": serve_hybrid, "serve_encdec": serve_encdec,
               "train_new_families": train_new, "replay": replay,
-              "obs": obs, "resume": resume, "steps": steps}
+              "obs": obs, "resume": resume, "steps": steps,
+              "phase_seconds": laps}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models.remat import remat
 from repro_torch.models.transformer import layer_params
 
 
@@ -77,9 +78,14 @@ def forward(cfg: ModelConfig, params, batch, impl: str | None = None,
     tokens = batch["tokens"]
     x = L.embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+    def body(h, p, memory, positions):
+        return _dec_layer(cfg, p, h, memory, positions, impl=impl)[0]
+
+    if cfg.remat:                   # the decoder layers only, as the
+        body = remat(body)          # reference
     for i in range(cfg.num_layers):
-        x, _, _ = _dec_layer(cfg, layer_params(params["dec_layers"], i), x,
-                             memory, positions, impl=impl)
+        x = body(x, layer_params(params["dec_layers"], i), memory, positions)
     x = L.apply_norm(cfg, params["ln_f"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(cfg, params["embed"], x, padded=padded_logits), aux

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models.remat import remat
 from repro_torch.models.transformer import layer_params
 
 _C = 8.0  # RG-LRU decay sharpness constant
@@ -173,14 +174,23 @@ def forward(cfg: ModelConfig, params, batch, impl: str | None = None,
     x = L.embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     n_blocks, n_tail = _counts(cfg)
-    for i in range(n_blocks):
-        p = layer_params(params["blocks"], i)
+
+    def block(h, p, positions):
         for role in ROLES:
-            x, _ = _apply_layer(cfg, p[role], x, "rec")
-        x, _ = _apply_layer(cfg, p["attn"], x, "attn", positions=positions,
+            h, _ = _apply_layer(cfg, p[role], h, "rec")
+        h, _ = _apply_layer(cfg, p["attn"], h, "attn", positions=positions,
                             impl=impl)
+        return h
+
+    def tail(h, p):
+        return _apply_layer(cfg, p, h, "rec")[0]
+
+    if cfg.remat:
+        block, tail = remat(block), remat(tail)
+    for i in range(n_blocks):
+        x = block(x, layer_params(params["blocks"], i), positions)
     for i in range(n_tail):
-        x, _ = _apply_layer(cfg, layer_params(params["tail"], i), x, "rec")
+        x = tail(x, layer_params(params["tail"], i))
     x = L.apply_norm(cfg, params["ln_f"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(cfg, params["embed"], x, padded=padded_logits), aux

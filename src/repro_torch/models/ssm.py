@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models import layers as L
+from repro_torch.models.remat import remat
 from repro_torch.models.transformer import layer_params
 
 IMPLS = (None, "ref")
@@ -147,11 +148,16 @@ def forward(cfg: ModelConfig, params, batch, impl: str | None = None,
     """batch: {tokens (B, S) int} -> (logits (B, S, V) fp32, aux = 0)."""
     _check_impl(impl)
     x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
-    for i in range(cfg.num_layers):
-        p = layer_params(params["layers"], i)
-        y, _ = _mixer_apply(cfg, p["mixer"], L.apply_norm(cfg, p["ln"], x),
+
+    def body(h, p):
+        y, _ = _mixer_apply(cfg, p["mixer"], L.apply_norm(cfg, p["ln"], h),
                             impl=impl)
-        x = x + y
+        return h + y
+
+    if cfg.remat:
+        body = remat(body)
+    for i in range(cfg.num_layers):
+        x = body(x, layer_params(params["layers"], i))
     x = L.apply_norm(cfg, params["ln_f"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(cfg, params["embed"], x, padded=padded_logits), aux

@@ -17,12 +17,15 @@ within each slot's row (the reference engine decodes each slot alone).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.remat import remat
 
 FAMILIES = ("dense", "moe", "vlm")
 
@@ -83,6 +86,12 @@ def _block(cfg, p, x, positions, window, impl):
     return x + m, kv, aux
 
 
+def _layer(cfg, x, p, positions, impl=None):
+    """One block for training: (x, aux), its keys and values dropped."""
+    x, _, aux = _block(cfg, p, x, positions, None, impl)
+    return x, aux
+
+
 def forward(cfg: ModelConfig, params, batch, impl: str | None = None,
             padded_logits: bool = False):
     """batch: {tokens (B, S) int, [vision_embeds (B, n_vis, d)]} ->
@@ -94,9 +103,11 @@ def forward(cfg: ModelConfig, params, batch, impl: str | None = None,
     x = _splice_vision(x, batch.get("vision_embeds"))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = partial(_layer, cfg, impl=impl)
+    if cfg.remat:
+        body = remat(body)
     for i in range(cfg.num_layers):
-        x, _, a = _block(cfg, layer_params(params["layers"], i), x,
-                         positions, None, impl)
+        x, a = body(x, layer_params(params["layers"], i), positions)
         aux = aux + a
     x = L.apply_norm(cfg, params["ln_f"], x)
     return L.unembed(cfg, params["embed"], x, padded=padded_logits), aux

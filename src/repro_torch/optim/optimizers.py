@@ -28,8 +28,29 @@ class Optimizer(NamedTuple):
     # update(grads, state, params, step) -> (new_params, new_state)
 
 
-def _cast_like(new, ref):
-    return tree_map(lambda n, r: n.to(r.dtype), new, ref)
+_CHUNK = 1 << 26             # elements of a leaf a chunk of an update takes
+
+
+def _chunked(fn, *leaves):
+    """``fn`` (elementwise over leaves of one shape, returning a tuple of
+    tensors of that shape) in chunks of the leading axis of at most about
+    ``_CHUNK`` elements, written into new tensors: the same values as one
+    call, with the float32 temporaries of one chunk alive at a time (a
+    layer-stacked leaf can hold half a model)."""
+    lead = leaves[0]
+    n = min(-(-lead.numel() // _CHUNK), lead.shape[0] if lead.dim() else 1)
+    if n <= 1:
+        return fn(*leaves)
+    edges = [round(i * lead.shape[0] / n) for i in range(n + 1)]
+    outs = None
+    for a, b in zip(edges, edges[1:]):
+        part = fn(*(x[a:b] for x in leaves))
+        if outs is None:
+            outs = tuple(lead.new_empty(lead.shape, dtype=t.dtype)
+                         for t in part)
+        for o, t in zip(outs, part):
+            o[a:b] = t
+    return outs
 
 
 def _zeros_f32(p):
@@ -47,12 +68,11 @@ def sgd(lr: Schedule | float, momentum: float = 0.0) -> Optimizer:
     def update(grads, state, params, step):
         eta = sched(step)
         if momentum == 0.0:
-            new = tree_map(lambda p, g: p.float() - eta * g.float(),
-                           params, grads)
-            return _cast_like(new, params), state
+            return tree_map(lambda p, g: (p.float() - eta * g.float()).to(
+                p.dtype), params, grads), state
         new_m = tree_map(lambda m, g: momentum * m + g.float(), state, grads)
-        new = tree_map(lambda p, m: p.float() - eta * m, params, new_m)
-        return _cast_like(new, params), new_m
+        return tree_map(lambda p, m: (p.float() - eta * m).to(p.dtype),
+                        params, new_m), new_m
 
     return Optimizer(init, update)
 
@@ -72,18 +92,21 @@ def adam(lr: Schedule | float, b1: float = 0.9, b2: float = 0.999,
     def update(grads, state, params, step):
         step_f = state["t"] + 1.0
         eta = sched(step)
-        m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
-                     state["m"], grads)
-        v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
-                     state["v"], grads)
         # float32 powers of a float32 counter, as jnp computes them
         mhat_scale = 1.0 / (1 - torch.pow(torch.tensor(b1), step_f))
         vhat_scale = 1.0 / (1 - torch.pow(torch.tensor(b2), step_f))
-        new = tree_map(
-            lambda p, m_, v_: p.float()
-            - eta * (m_ * mhat_scale) / (torch.sqrt(v_ * vhat_scale) + eps),
-            params, m, v)
-        return _cast_like(new, params), {"m": m, "v": v, "t": step_f}
+
+        def leaf(p, g, m, v):
+            m = b1 * m + (1 - b1) * g.float()
+            v = b2 * v + (1 - b2) * torch.square(g.float())
+            new = p.float() - eta * (m * mhat_scale) / (
+                torch.sqrt(v * vhat_scale) + eps)
+            return new.to(p.dtype), m, v
+
+        out = tree_map(lambda *x: _chunked(leaf, *x), params, grads,
+                       state["m"], state["v"])
+        pick = lambda i: tree_map(lambda _, o: o[i], params, out)
+        return pick(0), {"m": pick(1), "v": pick(2), "t": step_f}
 
     return Optimizer(init, update)
 
