@@ -69,7 +69,7 @@ without either.  Phases, each of which raises on a failed check:
    round (lr 1e-2) through the same entry point is held elementwise, to
    1e-6 + 1e-5 |w|, against its float64 replay.  Prints per-round ms,
    client-steps/s and a profile of one round.
-6. Fig. 1: ``repro_torch.launch.fig1.run_fig1`` for 10 rounds under
+6. Fig. 1: ``repro_torch.launch.fig1.run_fig1`` for 5 rounds under
    ``sustainable`` and ``greedy`` (N=40, the faithful participants-only
    driver), with test accuracy, which must be above chance.
 7. fleet_step kernel (run after phase 3): ``fleet_step_cuda`` against
@@ -84,7 +84,7 @@ without either.  Phases, each of which raises on a failed check:
    include the wrapper's host time) against its plain version and the
    bytes bound (``step_ops.bytes_moved``; no library call computes it).
 8. Fleet: ``repro_torch.launch.fleet``'s path, ``examples/energy_fleet.py``'s
-   scenario at N = 1,000,000: 50 rounds each of sustainable, greedy and
+   scenario at N = 1,000,000: 30 rounds each of sustainable, greedy and
    threshold 1.5 with histograms, and one grouped sustainable run; every
    kernel's count is set to 0 before each run and read after it (one
    fleet_step launch a round, no other kernel), energy is conserved every
@@ -153,9 +153,9 @@ without either.  Phases, each of which raises on a failed check:
 13. Sharded fleet (run after phases 8 and 10): the client axis over
    ``torch.distributed`` ranks (``simulate_fleet`` / ``run_serve_
    controlled`` with ``mesh=``).  (a) One NCCL rank on cuda:0 at full
-   size: the example's fleet scenario at N = 1,000,000, 50 sustainable
+   size: the example's fleet scenario at N = 1,000,000, 30 sustainable
    rounds with histograms and masks, and the serving scenario's controlled
-   run, 96 epochs with modes: every stat, mask, mode, charge and count
+   run, 48 epochs with modes: every stat, mask, mode, charge and count
    bitwise equal to the same run host-local on the card, one step kernel
    and one finalize a round or epoch and no other kernel, and each round's
    finalize bitwise equal to its plain version (``step_ops.row_stats``)
@@ -236,9 +236,9 @@ without either.  Phases, each of which raises on a failed check:
    (its two 256000 x 2560 embeddings alone are 1.31 B params).
 20. Replay (run after phase 19): ``launch.fleet``'s trace scenario (the
    bundled solar profiles replayed by ``TraceHarvest``, scaled per
-   client, plus the RF side channel) at N = 1e6 for 50 sustainable
+   client, plus the RF side channel) at N = 1e6 for 30 sustainable
    rounds with histograms, and ``launch.serve_fleet``'s (``TraceTraffic``
-   over the request-log profiles, ``TraceHarvest``) at N = 1e6 for 96
+   over the request-log profiles, ``TraceHarvest``) at N = 1e6 for 48
    gated epochs, each with its counts set to 0 just before and read just
    after: one fleet_step / serve_step launch a round / epoch and no other
    kernel, conservation (and the request ledger) every round, histogram
@@ -256,10 +256,10 @@ without either.  Phases, each of which raises on a failed check:
    client-rounds/s and client-epochs/s.
 21. Obs (run after phase 20): phase 20's fleet run again under
    ``Obs(tap=True)`` must equal the ``obs=None`` run bitwise in every
-   stat, charge and streak and log one manifest, 50 ``round`` and 150
+   stat, charge and streak and log one manifest, 30 ``round`` and 90
    ``hist`` events, which ``report.summarize`` / ``dist`` read; one
-   ``run_serve_controlled`` of the serving replay, 96 epochs in chunks of
-   24, logs 4 ``serve_chunk`` spans, 4 ``control`` events and no
+   ``run_serve_controlled`` of the serving replay, 48 epochs in chunks of
+   24, logs 2 ``serve_chunk`` spans, 2 ``control`` events and no
    ``retrace_warning``; a ``profiler_trace`` around one chunk holds the
    ``serve_chunk`` annotation beside its 24 ``serve_step_kernel``
    launches (taken again, up to five times, where the profiler missed
@@ -283,7 +283,7 @@ without either.  Phases, each of which raises on a failed check:
    ``train_100m`` (3 rounds; its model file read back bitwise) and
    ``noniid_ablation`` (3 rounds a cell).  Prints save and restore
    seconds, checkpoint bytes and the phase's seconds.
-23. Steps (run last): ``launch.steps.build_step`` bundles built for the
+23. Steps (run after phase 22): ``launch.steps.build_step`` bundles built for the
    card alone (``mesh=None``), run on the card at full width with random
    weights from ``--seed``, each once as the main path (every kernel's
    count set to 0 just before and read just after): granite-3-2b's
@@ -312,9 +312,10 @@ without either.  Phases, each of which raises on a failed check:
    joules beside phase 4's ``from_microbench`` at the card's power limit.
    Besides, the sequential train bundle at full width with remat
    (``deep_train_case``): granite-3-2b at all 40 layers, which must fit,
-   and recurrentgemma-2b at the deepest of 26, 14 and 8 layers whose dry
-   run fits the card (each leaves a tail layer).  Each is traced with
-   remat on and off first (its peak printed both ways), then run as the
+   and recurrentgemma-2b at the deepest of 14 and 8 layers whose dry run
+   fits the card (each leaves a tail layer; its 26 need 99.69 GB).  Each is traced with
+   remat on first (without remat, PR 26 traced 103.08 GB and 77.82 GB:
+   the traces are left out for time), then run as the
    main path and held to its dry run as above (busy time by CUDA events
    around a call: a profile of ~26,000 kernels costs more than the run),
    its first local step's loss bitwise a ``torch.no_grad`` ``loss_fn`` on
@@ -322,6 +323,28 @@ without either.  Phases, each of which raises on a failed check:
    zero.
    Phase 4 also prints tok/s and the S=2048 prefill's wall time through
    the ``torch.library`` custom op and with the wrapper called directly.
+24. Sharded steps (run last): the bundles through ``launch.steps.execute``
+   on a ``DeviceMesh``, from phase 23's inputs (kept on the host between
+   the phases), against its host-local outputs.  (a) One NCCL rank on a 1
+   x 1 ("data", "model") mesh: granite-3-2b's and mamba2-1.3b's S = 2048
+   prefills, bitwise phase 23's, and whisper-tiny's train bundle, its
+   aggregation within ``aggregation.sharded_tolerance`` of the host-local
+   kernel on the same stacks and its round within one round's Adam bound
+   of phase 23's; the launches by name equal phase 23's (40 flash, 48
+   ssd_scan, 2 fused_agg); wall and busy ms beside phase 23's (DTensor's
+   dispatch on the host).  (b) Two gloo ranks sharing cuda:0 (this file
+   with ``--steps-sharded-child``; NCCL refuses two ranks on one card):
+   first a probe of the collectives gloo takes on CUDA tensors
+   (all_reduce, all_gather_into_tensor, reduce_scatter_tensor), printed;
+   then granite-3-2b's prefill at full width on {data 1, model 2} (phase
+   23's weights from the same seed and its tokens; 40 flash launches a
+   rank on 16 of 32 query heads; logits within phase 4's bf16 bound of
+   phase 23's) and whisper-tiny's parallel round with C = 2 on {data 2,
+   model 1} (a client a rank, 2 fused_agg launches a rank, both ranks
+   the same model; the loss and params against the host-local C = 2
+   round on the card, the aggregation within its sharded bound).  A case
+   whose collectives (``STEPS_SHARDED_NEEDS``) gloo refused is not run,
+   and the line says which.
 
 Every profile must record the kernels its window launched (the port's
 launch counts say how many), or it is taken again, and after ten the
@@ -400,7 +423,7 @@ TRAIN_REPLAY = {"sustainable": (0,), "wait_all": ()}
 LOSS_RTOL = 1e-4
 BULK_Q, BULK_TOL = 0.9, 1e-6
 SGD_CHECK = dict(policy="sustainable", optimizer="sgd", lr=1e-2, rounds=1)
-FIG1_ROUNDS = 10
+FIG1_ROUNDS = 5
 
 PROMPT_LENS = (2048, 1537, 777, 1024, 129, 1999)
 GEN = 32
@@ -1625,7 +1648,7 @@ def fleet_step_phase(torch, fs, seed: int) -> dict:
 
 # the fleet phase: examples/energy_fleet.py's scenario at fleet_scale.py's
 # largest host-local size
-FLEET = dict(clients=1_000_000, rounds=50)
+FLEET = dict(clients=1_000_000, rounds=30)
 FLEET_GROUPS_RUN = 4                # the §V taus: group = client mod 4
 FLEET_BERNOULLI_ROUNDS = 10         # card vs CPU, masks and charge bitwise
 FLEET_CPU_ROUNDS = 2                # the scenario's first rounds on the CPU
@@ -2826,7 +2849,7 @@ def fig1_phase(torch, seed: int) -> dict:
 # ranks sharing the card (NCCL refuses two ranks on one device) on
 # exact-arithmetic fleets, the scenarios' first rounds, and counts above
 # 2^24 on one rank
-SHARDED = dict(clients=1_000_000, rounds=50, epochs=96)
+SHARDED = dict(clients=1_000_000, rounds=30, epochs=48)
 SHARDED_WORLD = 2
 SHARDED_DYADIC_N = 1_000_001        # padded to 1,000,002 over two ranks
 SHARDED_DYADIC_ROUNDS = 20
@@ -4494,7 +4517,7 @@ def new_families_train_phase(torch, agg, seed: int, card: str) -> dict:
 
 # the replay phase (20): the fleets on the bundled day profiles, phase 8's
 # and phase 10's sizes and horizons
-REPLAY = dict(clients=1_000_000, rounds=50, epochs=96)
+REPLAY = dict(clients=1_000_000, rounds=30, epochs=48)
 REPLAY_EXACT_ROUNDS = 10            # card vs CPU on the parity-oracle tables
 REPLAY_CPU_ROUNDS = 2               # the bundled tables' first rounds
 REPLAY_PAD_TO = 1_000_448           # the T = N table's padded width
@@ -5416,7 +5439,7 @@ STEPS_PREFILL_SEQ = 2048             # granite-3-2b and mamba2-1.3b, B = 1
 STEPS_DECODE = dict(batch=4, cache=2048)
 STEPS_ENCDEC_TRAIN = dict(local_steps=2, batch=2, seq=128)  # + 1500 frames
 STEPS_SEQ_TRAIN = dict(layers=2, local_steps=2, batch=4, seq=512)
-STEPS_HYBRID_DEPTHS = (26, 14, 8)    # recurrentgemma-2b: each leaves a tail
+STEPS_HYBRID_DEPTHS = (14, 8)        # recurrentgemma-2b: each leaves a tail
 STEPS_LR = 1e-4                      # launch.steps.make_optimizer_for's
 # the dry run against the card: predicted FLOPs within 2% of the count
 # from the config; the predicted peak of the step's own bytes within a
@@ -5726,7 +5749,7 @@ class LossTap:
 def deep_train_case(torch, ops, cfg, g_params, g_data):
     """The sequential train bundle of ``cfg`` (remat on) at
     ``STEPS_SEQ_TRAIN``'s batch, sequence and local steps: the dry run's
-    peak with remat on and off (fake tensors: no card memory); where the
+    peak with remat (fake tensors: no card memory); where the
     remat peak fits the card, the bundle on the card as the main path held
     to its dry run (`steps_case`), the first local step's loss bitwise a
     ``torch.no_grad`` ``loss_fn`` on the same batch, every leaf of the
@@ -5755,15 +5778,10 @@ def deep_train_case(torch, ops, cfg, g_params, g_data):
               f"{tr['seconds']:.1f} s, above the card's "
               f"{card_bytes / 1e9:.3f} GB: does not fit", flush=True)
         return None
-    tr_off = dryrun.trace(build_step(dataclasses.replace(cfg, remat=False),
-                                     shape, None, device="cuda",
-                                     local_steps=T))
-    peak_off = arg_bytes + tr_off["temp_peak"]
     print(f"steps {cfg.name} sequential, {cfg.num_layers} layers: the dry "
           f"run's peak (arguments {arg_bytes / 1e9:.3f} GB + temp) "
-          f"{peak / 1e9:.3f} GB with remat, {peak_off / 1e9:.3f} GB without "
-          f"(traced in {tr['seconds']:.1f} + {tr_off['seconds']:.1f} s), "
-          f"the card {card_bytes / 1e9:.3f} GB: run", flush=True)
+          f"{peak / 1e9:.3f} GB with remat (traced in {tr['seconds']:.1f} "
+          f"s), the card {card_bytes / 1e9:.3f} GB: run", flush=True)
     torch.cuda.empty_cache()
     model = get_model(cfg)
     params = model.init_params(g_params)
@@ -5810,7 +5828,7 @@ def deep_train_case(torch, ops, cfg, g_params, g_data):
     torch.cuda.empty_cache()
     return {**r, "first_step_loss": float(first),
             "no_grad_loss": float(want), "arg_bytes": arg_bytes,
-            "peak_predicted": peak, "peak_predicted_remat_off": peak_off,
+            "peak_predicted": peak,
             "peak_measured": arg_bytes + r["temp_measured"],
             "card_bytes": card_bytes}
 
@@ -5844,6 +5862,8 @@ def steps_phase(torch, agg, seed: int, card: str, serve: dict) -> dict:
                    bundle_flops(cfg, "prefill", 1, S))
     plain_logits, plain_cache = b.fn(*args, impl="ref")
     logits, cache = r.pop("out")
+    keep = {"granite_prefill": for_sharded(torch, cfg, shape, args,
+                                            (logits, cache), r)}
     r["vs_plain"] = logits_vs_plain(torch, "granite-3-2b prefill", logits,
                                     plain_logits, LOGIT_ATOL["bfloat16"])
     if not all(torch.equal(cache[k][0], plain_cache[k][0]) for k in cache):
@@ -5885,6 +5905,8 @@ def steps_phase(torch, agg, seed: int, card: str, serve: dict) -> dict:
                    bundle_flops(cfg, "prefill", 1, S))
     plain_logits, plain_cache = b.fn(*args, impl="ref")
     logits, cache = r.pop("out")
+    keep["mamba2_prefill"] = for_sharded(torch, cfg, shape, args,
+                                         (logits, cache), r)
     r["vs_plain"] = logits_vs_plain(torch, "mamba2-1.3b prefill", logits,
                                     plain_logits, SSM_LOGIT_ATOL["bfloat16"])
     h, hp = cache["ssm"][0], plain_cache["ssm"][0]
@@ -5919,6 +5941,8 @@ def steps_phase(torch, agg, seed: int, card: str, serve: dict) -> dict:
                                     local_steps=E["local_steps"],
                                     agg_params=n_params))
     w_card, m_card = r.pop("out")
+    keep["whisper_train"] = for_sharded(torch, cfg, tshape, args,
+                                        (w_card, m_card), r)
     r["agg_worst_err_over_bound"] = agg_tree_check(
         torch, agg, next(c for c in tap.calls if c[3] is w_card))
     cpu_args = on_cpu(torch, args)
@@ -6064,7 +6088,666 @@ def steps_phase(torch, agg, seed: int, card: str, serve: dict) -> dict:
     return {"cases": res, "energy": energy, "seconds": seconds,
             "records": {k: {kk: v[kk] for kk in ("memory", "cost",
                                                   "roofline", "step_meta")}
-                        for k, v in records.items()}}
+                        for k, v in records.items()}, "keep": keep}
+
+
+# ----------------------------------------------------- 24 sharded steps ----
+STEPS_SHARDED_WORLD = 2
+STEPS_SHARDED_DEADLINE = 300.0      # seconds for the spawned ranks
+STEPS_SHARDED_TIMEOUT = 180         # seconds a rank waits in a collective
+# (b): whisper-tiny's parallel round with C = 2 on {data 2, model 1}: two
+# rows of 128 tokens (and 1500 frames) a client, as phase 23's C = 1
+STEPS_SHARDED_TRAIN = dict(clients=2, local_steps=2, batch=4, seq=128)
+# the collectives DTensor and the aggregation issue, probed over gloo on
+# CUDA tensors of each dtype the cases move, at a case's size (an 8 MB
+# bf16 activation of granite-3-2b's S = 2048 prefill), before the cases
+# (two ranks share one card: NCCL refuses it); "<collective> <dtype>"
+GLOO_PROBE = ("all_reduce float32", "all_reduce bfloat16",
+              "all_gather_into_tensor bfloat16",
+              "reduce_scatter_tensor bfloat16")
+GLOO_PROBE_NUMEL = 1 << 22
+GLOO_PROBE_TIMEOUT = 90             # seconds for the probes, started together
+
+
+def for_sharded(torch, cfg, shape, args, out, r) -> dict:
+    """What phase 24 reuses of a phase-23 case: the config, the inputs and
+    the host-local outputs (on the host: the card's memory goes to the
+    deeper cases in between), its launches and times."""
+    from repro_torch.tree import tree_map
+
+    return {"cfg": cfg, "shape": shape, "args": on_cpu(torch, args),
+            "devices": tree_map(lambda t: getattr(t, "device", None), args),
+            "out": on_cpu(torch, out), "launches": dict(r["launches"]),
+            "wall_ms": r["wall_ms"], "device_ms": r["device_ms"]}
+
+
+def kept_args(torch, k):
+    """A kept case's arguments, each tensor back on its device (the
+    host-side inputs, the key, p and E, stay on the host)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t, d: t.to(d) if isinstance(t, torch.Tensor)
+                    else t, k["args"], k["devices"])
+
+
+def execute_case(torch, ops, label, bundle, args, mesh, want_launches,
+                 host) -> tuple:
+    """``launch.steps.execute`` of ``bundle`` on ``mesh`` as the main path
+    (after a warm-up call, which pays DTensor's sharding propagation: it
+    is cached by op and placement): launches counted by name from 0 just
+    before and read just after, wall time, device-busy time from the
+    profiler beside phase 23's host-local call (``host``); returns (the
+    record, the outputs gathered to full tensors)."""
+    from repro_torch.dist.sharding import gather_tree
+    from repro_torch.launch.steps import execute
+
+    call = lambda: execute(bundle, args, mesh)
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    ops.zero_launches()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    if counts != {**dict.fromkeys(counts, 0), **want_launches}:
+        raise AssertionError(f"sharded steps {label}: launches {counts}, "
+                             f"expected {want_launches} (phase 23's) and no "
+                             f"other")
+    full = gather_tree(out)
+    del out
+    expect = {names: want_launches.get(wrapper, 0) * per
+              for wrapper, kinds in PROFILE_NAMES.items()
+              for names, per in kinds}
+    try:
+        prof = device_profile(torch, call, expect, tries=FALLBACK_TRIES)
+        timed_by = "torch.profiler"
+    except ProfileIncomplete as e:
+        print(f"sharded steps {label}: {e}", flush=True)
+        prof = device_profile(torch, call)
+        timed_by = ("torch.profiler, a window that missed some of the "
+                    "call's kernels (busy a lower bound)")
+    print(f"sharded steps {label}: launches {want_launches}; "
+          f"through execute on a 1 x 1 mesh wall {wall_ms:.2f} ms (first "
+          f"call {first_ms:.1f} ms), device busy {prof['device_ms']:.3f} ms "
+          f"({prof['kernels']} kernels); host-local (phase 23) wall "
+          f"{host['wall_ms']:.2f} ms, busy {host['device_ms']:.3f} ms",
+          flush=True)
+    return {"launches": counts, "wall_ms": wall_ms, "first_call_ms": first_ms,
+            "device_ms": prof["device_ms"], "kernels": prof["kernels"],
+            "busy_timed_by": timed_by, "host_wall_ms": host["wall_ms"],
+            "host_device_ms": host["device_ms"]}, full
+
+
+def bitwise_tree(torch, label, got, want) -> None:
+    from repro_torch.tree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    same = len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+    print(f"sharded steps {label}: outputs {'bitwise' if same else 'DIFFER'}"
+          f" phase 23's host-local ones", flush=True)
+    if not same:
+        raise AssertionError(f"sharded steps {label}: the outputs differ from "
+                             f"phase 23's")
+
+
+def agg_within_sharded_bound(torch, label, w, stack, s, ranks, got) -> float:
+    """Each leaf of ``got`` (the sharded aggregation's model) against the
+    host-local kernel on the full stacks, within
+    ``aggregation.sharded_tolerance``; returns the worst error / bound."""
+    from repro_torch.core.aggregation import sharded_tolerance
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+
+    w, stack, got = list(w), list(stack), list(got)
+    want = ops.fused_agg_tree(w, stack, s)      # after the counted run
+    worst = 0.0
+    for i, (g, wt, wl, st) in enumerate(zip(got, tree_leaves(want), w,
+                                            stack)):
+        tol = sharded_tolerance(wl, st, s, ranks, wt)
+        ratio = ((g.float() - wt.float()).abs() / tol).max().item()
+        if not (bool(torch.isfinite(g).all()) and ratio <= 1.0):
+            raise AssertionError(f"sharded steps {label}: leaf {i} "
+                                 f"{tuple(wl.shape)} at {ratio:.3f} of "
+                                 f"sharded_tolerance")
+        worst = max(worst, ratio)
+    print(f"sharded steps {label}: the aggregation over {ranks} rank(s) vs "
+          f"the host-local kernel on the same stacks: worst err / "
+          f"sharded_tolerance {worst:.3f} ok", flush=True)
+    return worst
+
+
+def gloo_probe_child(name: str, rank: int, world: int, init: str,
+                     out_dir: str) -> None:
+    """A rank of one probe of phase 24(b): ``name`` ("<collective>
+    <dtype>", one of GLOO_PROBE) over gloo on CUDA tensors of
+    GLOO_PROBE_NUMEL elements, through ``torch.distributed.
+    _functional_collectives`` as DTensor issues it (all_reduce through
+    ``torch.distributed`` too, as the aggregation does), its result
+    checked; writes "ok" or the error raised to out_dir/probe_{name}_
+    {rank}.json.  A probe runs in processes of its own: a collective that
+    gloo does not take on CUDA tensors may fail in C++ and end them."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    collective, dtype = name.split()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=init, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GLOO_PROBE_TIMEOUT))
+    group, n = dist.group.WORLD, GLOO_PROBE_NUMEL
+    x = torch.full((n,), 1.0 + rank, device="cuda",
+                   dtype=getattr(torch, dtype))
+    total = sum(1.0 + r for r in range(world))
+    try:
+        if collective == "all_reduce":
+            y = x.clone()
+            dist.all_reduce(y)
+            z = funcol.all_reduce(x, "sum", group).wait()
+            ok = bool((y == total).all() and (z == total).all())
+        elif collective == "all_gather_into_tensor":
+            y = funcol.all_gather_tensor(x, 0, group).wait()
+            ok = bool((y.reshape(world, n)[:, 0].float().cpu()
+                       == torch.arange(1.0, world + 1.0)).all())
+        else:
+            y = funcol.reduce_scatter_tensor(x.repeat(world), "sum", 0,
+                                             group).wait()
+            ok = bool(y.shape[0] == n and (y == total).all())
+        torch.cuda.synchronize()
+        result = "ok" if ok else "wrong result"
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        result = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    with open(os.path.join(out_dir, f"probe_{name}_{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def gloo_probe_start(out_dir: str, seed: int) -> dict:
+    """Start each probe of GLOO_PROBE in STEPS_SHARDED_WORLD processes of
+    its own (`gloo_probe_child`), all together; `gloo_probe_finish`
+    reads them."""
+    world, procs = STEPS_SHARDED_WORLD, {}
+    for name in GLOO_PROBE:
+        init = "file://" + os.path.join(out_dir, "probe_" + name.replace(
+            " ", "_"))
+        procs[name] = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--gloo-probe-child", name, str(rank), str(world), init,
+             out_dir], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+            for rank in range(world)]
+    return procs
+
+
+def gloo_probe_finish(procs: dict, out_dir: str) -> dict:
+    """Which collectives gloo takes on CUDA tensors in this torch: for each
+    probe "ok", the error raised, or how its processes ended; written to
+    out_dir/probe.json for the ranks of (b), which wait for it."""
+    out, t0 = {}, time.perf_counter()
+    try:
+        for name, ps in procs.items():
+            ends, last = [], ""
+            for p in ps:
+                left = GLOO_PROBE_TIMEOUT - (time.perf_counter() - t0)
+                try:
+                    _, err = p.communicate(timeout=max(left, 0.1))
+                    ends.append(p.returncode)
+                    lines = err.decode(errors="replace").strip().splitlines()
+                    last = last or (lines[-1][:160] if lines else "")
+                except subprocess.TimeoutExpired:
+                    ends.append("timed out")
+            if all(e == 0 for e in ends):
+                with open(os.path.join(out_dir, f"probe_{name}_0.json")) as f:
+                    out[name] = json.load(f)
+            else:
+                out[name] = f"the probe's processes ended {ends}: {last}"
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    with open(os.path.join(out_dir, "probe.json.tmp"), "w") as f:
+        json.dump(out, f)
+    os.replace(os.path.join(out_dir, "probe.json.tmp"),
+               os.path.join(out_dir, "probe.json"))
+    return out
+
+
+class CollectiveTap:
+    """Counts the collectives a call issues, by the name GLOO_PROBE gives
+    them: DTensor's (``torch.distributed._functional_collectives``) and
+    ``torch.distributed``'s own (the aggregation's all-reduce)."""
+
+    NAMES = {"all_reduce": "all_reduce",
+             "all_gather_tensor": "all_gather_into_tensor",
+             "all_gather_single": "all_gather_into_tensor",
+             "all_gather_into_tensor": "all_gather_into_tensor",
+             "reduce_scatter_tensor": "reduce_scatter_tensor",
+             "reduce_scatter_single": "reduce_scatter_tensor",
+             "all_to_all_single": "all_to_all_single"}
+
+    def __init__(self):
+        import torch.distributed as dist
+        import torch.distributed._functional_collectives as funcol
+
+        self.mods, self.seen, self.real = (funcol, dist), {}, []
+
+    def __enter__(self):
+        for mod in self.mods:
+            for attr, name in self.NAMES.items():
+                fn = getattr(mod, attr, None)
+                if fn is None:
+                    continue
+
+                def wrap(*a, _fn=fn, _name=name, **k):
+                    self.seen[_name] = self.seen.get(_name, 0) + 1
+                    return _fn(*a, **k)
+
+                self.real.append((mod, attr, fn))
+                setattr(mod, attr, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.real:
+            setattr(mod, attr, fn)
+
+
+def tree_digest(tree) -> str:
+    """A hash of every leaf's bytes, in order (ranks compare models)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in flat_leaves(tree):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def steps_sharded_child(rank: int, world: int, init: str, out_dir: str,
+                        seed: int) -> None:
+    """A rank of phase 24(b): gloo ranks sharing cuda:0.  granite-3-2b's
+    prefill at full width on {data 1, model 2} (phase 23's weights, from
+    the same seed, and its tokens) and whisper-tiny's parallel round with
+    C = 2 on {data 2, model 1}, each skipped (with the collectives named)
+    where the probe (out_dir/probe.json) refused one that it issues;
+    writes out_dir/rank{rank}.json and rank 0 the gathered logits."""
+    import datetime
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import aggregation
+    from repro_torch.dist.sharding import gather_tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import SpecMesh
+    from repro_torch.launch.serve import seeded_generators
+    from repro_torch.launch.steps import build_step, execute
+    from repro_torch.models import get_model
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    faulthandler.enable()
+    dist.init_process_group(
+        "gloo", init_method=init, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=STEPS_SHARDED_TIMEOUT))
+    with open(os.path.join(out_dir, "needs.json")) as f:
+        needs = json.load(f)
+    probe, t0 = os.path.join(out_dir, "probe.json"), time.perf_counter()
+    while not os.path.exists(probe):          # the probes run meanwhile
+        if time.perf_counter() - t0 > GLOO_PROBE_TIMEOUT + 60:
+            raise AssertionError("sharded steps: no probe result")
+        time.sleep(0.2)
+    with open(probe) as f:
+        refused = {k for k, v in json.load(f).items() if v != "ok"}
+    rec = {}
+
+    # granite-3-2b prefill, heads over the model axis: 16 of 32 a rank
+    case = "granite prefill {data 1, model 2}"
+    if refused & set(needs["granite_prefill"]):
+        rec["granite_prefill"] = {"skipped": sorted(
+            refused & set(needs["granite_prefill"]))}
+    else:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config("granite-3-2b")
+        g_params, _, _ = seeded_generators(seed, torch.device("cuda"))
+        params = get_model(cfg).init_params(g_params)  # phase 23's weights
+        tokens = torch.load(os.path.join(out_dir, "tokens.pt")).cuda()
+        b = build_step(cfg, InputShape("steps_prefill", tokens.shape[1], 1,
+                                       "prefill"), mesh, device="cuda")
+        heads, real = [], fa.flash_attention_cuda
+
+        def tapped(q, k, v, **kw):
+            heads.append((q.shape[2], k.shape[2]))
+            return real(q, k, v, **kw)
+
+        tapped.launches = 0
+        fa.flash_attention_cuda = tapped
+        try:
+            args = (params, {"tokens": tokens})
+            execute(b, args, mesh)                      # warm-up
+            torch.cuda.synchronize()
+            dist.barrier()
+            del heads[:]
+            ops.zero_launches()
+            real.launches = 0
+            with CollectiveTap() as col:
+                t0 = time.perf_counter()
+                out = execute(b, args, mesh)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = {"flash_attention": real.launches,
+                        **{k: v for k, v in ops.launch_counts().items()
+                           if k != "flash_attention"}}
+        finally:
+            fa.flash_attention_cuda = real
+        logits = gather_tree(out[0])
+        if rank == 0:
+            torch.save(logits.cpu(), os.path.join(out_dir, "logits.pt"))
+        rec["granite_prefill"] = {"launches": launches, "wall_ms": wall_ms,
+                                  "heads": sorted(set(heads)),
+                                  "collectives": col.seen}
+        del params, out, logits, args, b
+        torch.cuda.empty_cache()
+
+    # whisper-tiny's parallel round, C = 2: a client a rank
+    if refused & set(needs["whisper_train"]):
+        rec["whisper_train"] = {"skipped": sorted(
+            refused & set(needs["whisper_train"]))}
+    else:
+        mesh = init_device_mesh("cuda", (world, 1),
+                                mesh_dim_names=("data", "model"))
+        Z = STEPS_SHARDED_TRAIN
+        cfg = get_config("whisper-tiny")
+        g_params, g_data, _ = seeded_generators(seed + 24,
+                                                torch.device("cuda"))
+        params = get_model(cfg).init_params(g_params)
+        shape = InputShape("steps_train", Z["seq"], Z["batch"], "train")
+        b = build_step(cfg, shape, mesh, device="cuda",
+                       local_steps=Z["local_steps"])
+        if b.meta["client_groups"] != Z["clients"]:
+            raise AssertionError(f"sharded steps: C = "
+                                 f"{b.meta['client_groups']}")
+        args = materialize(torch, b, params, g_data, cfg.vocab_size)
+        calls, real_agg = [], aggregation.ops.fused_agg_tree
+
+        def agg_tap(w, st, s):
+            out = real_agg(w, st, s)
+            calls.append((w, st, s))
+            return out
+
+        aggregation.ops.fused_agg_tree = agg_tap
+        try:
+            ops.zero_launches()
+            with CollectiveTap() as col:
+                t0 = time.perf_counter()
+                w_new, metrics = execute(b, args, mesh)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = ops.launch_counts()
+        finally:
+            aggregation.ops.fused_agg_tree = real_agg
+        w_full = gather_tree(w_new)
+        m_full = {k: float(gather_tree(v)) for k, v in metrics.items()}
+        (w_l, st_l, s_l), = calls
+        torch.save({"stack": [t.cpu() for t in st_l], "s": s_l.cpu()},
+                   os.path.join(out_dir, f"stack{rank}.pt"))
+        dist.barrier()
+        rec["whisper_train"] = {"launches": launches, "wall_ms": wall_ms,
+                                "digest": tree_digest(w_full),
+                                "metrics": m_full, "collectives": col.seen,
+                                "local_rows": int(st_l[0].shape[0])}
+        if rank == 0:
+            # the host-local C = 2 round on the card, the same arguments
+            hb = build_step(cfg, shape, SpecMesh({"data": world,
+                                                  "model": 1}),
+                            device="cuda", local_steps=Z["local_steps"])
+            w_host, m_host = hb.fn(*args)
+            parts = [torch.load(os.path.join(out_dir, f"stack{r}.pt"))
+                     for r in range(world)]
+            stack = [torch.cat([p["stack"][i] for p in parts]).cuda()
+                     for i in range(len(w_l))]
+            s_full = torch.cat([p["s"] for p in parts]).cuda()
+            leaves = [t for _, t in flat_leaves(params)]
+            got = [t for _, t in flat_leaves(w_full)]
+            if len(leaves) != len(w_l):
+                raise AssertionError("sharded steps: the aggregation took "
+                                     f"{len(w_l)} leaves of {len(leaves)}")
+            rel = abs(m_full["loss"] - float(m_host["loss"])) / abs(
+                float(m_host["loss"]))
+            print(f"sharded steps whisper-tiny C=2: loss {m_full['loss']:.6f}"
+                  f" vs host-local {float(m_host['loss']):.6f} (rel "
+                  f"{rel:.2e}, tol {STEPS_LOSS_RTOL_BF16}); participants "
+                  f"{m_full['participants']:.0f} / "
+                  f"{float(m_host['participants']):.0f}", flush=True)
+            if not (rel <= STEPS_LOSS_RTOL_BF16 and m_full["participants"]
+                    == float(m_host["participants"])):
+                raise AssertionError("sharded steps whisper-tiny: the round "
+                                     "differs from the host-local one")
+            rec["whisper_train"].update(
+                loss_host=float(m_host["loss"]),
+                vs_host=params_within_round(
+                    torch, "whisper-tiny C=2 (2 gloo ranks vs host-local)",
+                    w_full, w_host, params, Z["local_steps"],
+                    s=float(s_full.abs().sum())),
+                agg_worst_err_over_bound=agg_within_sharded_bound(
+                    torch, "whisper-tiny C=2", leaves, stack, s_full, world,
+                    got))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def spawn_step_ranks(out_dir: str, seed: int, probes: dict) -> tuple:
+    """`steps_sharded_child` in STEPS_SHARDED_WORLD processes (this file
+    with ``--steps-sharded-child``), as `spawn_ranks` runs phase 13's,
+    started while ``probes`` (`gloo_probe_start`) run: (the probe's
+    result, the ranks' records)."""
+    world = STEPS_SHARDED_WORLD
+    init = f"file://{os.path.join(out_dir, 'rendezvous')}"
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+        procs.append((log, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--steps-sharded-child", str(rank), str(world), init, out_dir],
+            stdout=log, stderr=subprocess.STDOUT)))
+    t0 = time.perf_counter()
+    try:
+        probe = gloo_probe_finish(probes, out_dir)
+        print(f"sharded steps: gloo on CUDA tensors at {GLOO_PROBE_NUMEL} "
+              f"elements (ready {time.perf_counter() - t0:.1f} s after the "
+              f"ranks started): "
+              + "; ".join(f"{k} {v}" for k, v in probe.items()), flush=True)
+        for rank, (log, p) in enumerate(procs):
+            left = STEPS_SHARDED_DEADLINE - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 0.1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"sharded steps: the {world} ranks "
+                                     f"outlasted {STEPS_SHARDED_DEADLINE:.0f}"
+                                     f" s")
+            log.close()
+            with open(os.path.join(out_dir, f"rank{rank}.log")) as f:
+                text = f.read()
+            for line in text.splitlines():
+                if line.startswith("sharded steps") or "steps " in line[:6]:
+                    print(f"[rank {rank}] {line}", flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"sharded steps: rank {rank} exited "
+                                     f"{p.returncode}:\n{text[-3000:]}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return probe, out
+
+
+# the collectives each case of (b) issued in a rehearsal over two gloo
+# ranks on the CPU (CollectiveTap, torch 2.13): a case runs only where the
+# probe took every one (the round splits its clients alone over the data
+# axis: each rank steps its own, and only the sums are all-reduced)
+STEPS_SHARDED_NEEDS = {"granite_prefill": ["all_reduce bfloat16",
+                                           "all_gather_into_tensor bfloat16",
+                                           "reduce_scatter_tensor bfloat16"],
+                       "whisper_train": ["all_reduce float32"]}
+
+
+def sharded_steps_phase(torch, agg, seed: int, card: str, keep: dict) -> dict:
+    """Phase 24: step bundles through ``launch.steps.execute`` across
+    ranks.  (a) one NCCL rank, a 1 x 1 mesh: phase 23's granite-3-2b and
+    mamba2-1.3b prefills (bitwise its outputs) and whisper-tiny's train
+    bundle (within the aggregation's sharded bound), the same launches;
+    (b) two gloo ranks sharing cuda:0 (`steps_sharded_child`)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_step
+
+    t_phase = time.perf_counter()
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="steps_sharded_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'nccl')}", rank=0,
+        world_size=1,
+        timeout=datetime.timedelta(seconds=STEPS_SHARDED_TIMEOUT))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for name in ("granite_prefill", "mamba2_prefill"):
+            k = keep[name]
+            b = build_step(k["cfg"], k["shape"], mesh, device="cuda")
+            args = kept_args(torch, k)
+            r, out = execute_case(torch, ops, name.replace("_", " "), b,
+                                  args, mesh, k["launches"], k)
+            bitwise_tree(torch, name.replace("_", " "), out, k["out"])
+            res[name] = r
+            del args, out, b
+            torch.cuda.empty_cache()
+        k = keep["whisper_train"]
+        b = build_step(k["cfg"], k["shape"], mesh, device="cuda",
+                       local_steps=STEPS_ENCDEC_TRAIN["local_steps"])
+        args = kept_args(torch, k)
+        with AggTap(ops) as tap:
+            r, (w_new, m_new) = execute_case(
+                torch, ops, "whisper train", b, args, mesh, k["launches"], k)
+        w_host, m_host = k["out"]
+        # the aggregation of the counted run (the second call of four)
+        w_l, st_l, s_l, _ = tap.calls[1]
+        r["agg_worst_err_over_bound"] = agg_within_sharded_bound(
+            torch, "whisper train (1 x 1)", w_l, st_l, s_l, 1,
+            [t for _, t in flat_leaves(w_new)])
+        del w_l, st_l, s_l
+        r["loss"], r["loss_host"] = float(m_new["loss"]), float(
+            m_host["loss"])
+        r["bitwise_host"] = bool(
+            r["loss"] == r["loss_host"]
+            and all(torch.equal(a.cpu(), b_.cpu()) for (_, a), (_, b_) in
+                    zip(flat_leaves(w_new), flat_leaves(w_host))))
+        print(f"sharded steps whisper train (1 x 1): loss {r['loss']:.6f} vs "
+              f"phase 23's {r['loss_host']:.6f}; the new model "
+              f"{'bitwise' if r['bitwise_host'] else 'not bitwise'} phase "
+              f"23's", flush=True)
+        r["vs_host"] = params_within_round(
+            torch, "whisper train (1 x 1 vs phase 23)", w_new, w_host,
+            args[0], STEPS_ENCDEC_TRAIN["local_steps"])
+        res["whisper_train"] = r
+        del args, w_new, m_new, tap, b
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks sharing cuda:0, started as the probe runs
+    probes = gloo_probe_start(tmp, seed)
+    torch.save(keep["granite_prefill"]["args"][1]["tokens"],
+               os.path.join(tmp, "tokens.pt"))
+    with open(os.path.join(tmp, "needs.json"), "w") as f:
+        json.dump(STEPS_SHARDED_NEEDS, f)
+    probe, ranks = spawn_step_ranks(tmp, seed, probes)
+    two = {"probe": probe}
+    g = [rk["granite_prefill"] for rk in ranks]
+    if "skipped" in g[0]:
+        print(f"sharded steps granite prefill {{data 1, model 2}}: not run: "
+              f"gloo refused {g[0]['skipped']} on CUDA tensors", flush=True)
+        two["granite_prefill"] = g[0]
+    else:
+        cfg = keep["granite_prefill"]["cfg"]
+        for r in g:
+            if r["launches"] != {**dict.fromkeys(r["launches"], 0),
+                                 "flash_attention": cfg.num_layers} \
+                    or r["heads"] != [[cfg.num_heads // STEPS_SHARDED_WORLD,
+                                       cfg.num_kv_heads
+                                       // STEPS_SHARDED_WORLD]]:
+                raise AssertionError(f"sharded steps granite prefill: a rank "
+                                     f"launched {r['launches']} on heads "
+                                     f"{r['heads']}")
+        logits = torch.load(os.path.join(tmp, "logits.pt")).cuda()
+        host = keep["granite_prefill"]["out"][0].cuda()
+        two["granite_prefill"] = {
+            **g[0], "rank1_wall_ms": g[1]["wall_ms"],
+            "vs_host": logits_vs_plain(
+                torch, "granite-3-2b prefill on 2 gloo ranks {data 1, model "
+                "2} vs host-local", logits, host, LOGIT_ATOL["bfloat16"])}
+        print(f"sharded steps granite prefill {{data 1, model 2}}: each rank "
+              f"{g[0]['launches']['flash_attention']} flash launches on "
+              f"{g[0]['heads'][0][0]} of {cfg.num_heads} query heads; wall "
+              f"{g[0]['wall_ms']:.1f} / {g[1]['wall_ms']:.1f} ms; "
+              f"collectives a rank {g[0]['collectives']}", flush=True)
+    w = [rk["whisper_train"] for rk in ranks]
+    if "skipped" in w[0]:
+        print(f"sharded steps whisper train C=2 {{data 2, model 1}}: not "
+              f"run: gloo refused {w[0]['skipped']} on CUDA tensors",
+              flush=True)
+        two["whisper_train"] = w[0]
+    else:
+        dtypes = keep["whisper_train"]["launches"]["fused_agg"]
+        for r in w:
+            if r["launches"] != {**dict.fromkeys(r["launches"], 0),
+                                 "fused_agg": dtypes} \
+                    or r["local_rows"] != 1:
+                raise AssertionError(f"sharded steps whisper train: a rank "
+                                     f"launched {r['launches']} on "
+                                     f"{r['local_rows']} client rows")
+        if w[0]["digest"] != w[1]["digest"]:
+            raise AssertionError("sharded steps whisper train: the ranks "
+                                 "hold different global models")
+        print(f"sharded steps whisper train C=2 {{data 2, model 1}}: each "
+              f"rank {dtypes} fused_agg launches on its one client row; both"
+              f" ranks hold the same model; wall {w[0]['wall_ms']:.1f} / "
+              f"{w[1]['wall_ms']:.1f} ms; collectives a rank "
+              f"{w[0]['collectives']}", flush=True)
+        two["whisper_train"] = {**w[0], "rank1_wall_ms": w[1]["wall_ms"]}
+    res["gloo2"] = two
+    seconds = time.perf_counter() - t_phase
+    print(f"sharded steps phase: {seconds:.1f} s", flush=True)
+    return {"cases": res, "seconds": seconds}
 
 
 def main(argv=None) -> int:
@@ -6074,6 +6757,12 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-child", nargs=4,
                     metavar=("RANK", "WORLD", "INIT", "OUT_DIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--steps-sharded-child", nargs=4,
+                    metavar=("RANK", "WORLD", "INIT", "OUT_DIR"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-probe-child", nargs=5,
+                    metavar=("PROBE", "RANK", "WORLD", "INIT", "OUT_DIR"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--resume-child", nargs=6,
                     metavar=("KIND", "CKPT", "KILL_AFTER", "SIGNAL",
                              "CORRUPT", "RESUME"), help=argparse.SUPPRESS)
@@ -6081,6 +6770,14 @@ def main(argv=None) -> int:
     if args.sharded_child:
         rank, world, init, out_dir = args.sharded_child
         sharded_child(int(rank), int(world), init, out_dir, args.seed)
+        return 0
+    if args.gloo_probe_child:
+        name, rank, world, init, out_dir = args.gloo_probe_child
+        gloo_probe_child(name, int(rank), int(world), init, out_dir)
+        return 0
+    if args.steps_sharded_child:
+        rank, world, init, out_dir = args.steps_sharded_child
+        steps_sharded_child(int(rank), int(world), init, out_dir, args.seed)
         return 0
     if args.resume_child:
         kind, ckpt, kill_after, sig, corrupt, resume = args.resume_child
@@ -6180,7 +6877,12 @@ def main(argv=None) -> int:
     lap("22 resume")
     steps = steps_phase(torch, agg, args.seed, card, serve)
     lap("23 steps")
+    sharded_steps = sharded_steps_phase(torch, agg, args.seed, card,
+                                        steps.pop("keep"))
+    lap("24 sharded steps")
     cases = steps["cases"]
+    one = sharded_steps["cases"]
+    two = one["gloo2"]
     kernel["launches_by_path"] = {
         "serve granite-3-2b": serve["flash_launches"],
         **{f"serve olmoe-1b-7b {mode}": r["flash_launches"]
@@ -6189,7 +6891,13 @@ def main(argv=None) -> int:
         "serve recurrentgemma-2b": serve_hybrid["flash_launches"],
         "serve whisper-tiny": serve_encdec["flash_launches"],
         "steps granite-3-2b prefill bundle":
-            cases["granite_prefill"]["launches"]["flash_attention"]}
+            cases["granite_prefill"]["launches"]["flash_attention"],
+        "sharded steps granite-3-2b prefill, one NCCL rank":
+            one["granite_prefill"]["launches"]["flash_attention"],
+        **({} if "skipped" in two["granite_prefill"] else {
+            "sharded steps granite-3-2b prefill, rank 0 of 2 gloo "
+            "{data 1, model 2}":
+                two["granite_prefill"]["launches"]["flash_attention"]})}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     agg_kernel["launches_by_path"] = {
         "train cifar-cnn": agg_kernel["launches"],
@@ -6200,7 +6908,13 @@ def main(argv=None) -> int:
         "launch.train granite-3-2b, resumed in a fresh process":
             resume["train"]["resumed_launches"],
         "steps whisper-tiny train bundle":
-            cases["whisper_train"]["launches"]["fused_agg"]}
+            cases["whisper_train"]["launches"]["fused_agg"],
+        "sharded steps whisper-tiny train, one NCCL rank":
+            one["whisper_train"]["launches"]["fused_agg"],
+        **({} if "skipped" in two["whisper_train"] else {
+            "sharded steps whisper-tiny train C=2, rank 0 of 2 gloo "
+            "{data 2, model 1}":
+                two["whisper_train"]["launches"]["fused_agg"]})}
     agg_kernel["launches"] = sum(agg_kernel["launches_by_path"].values())
     agg_kernel["lm_tree"] = train_lm["agg_tree"]
     fleet_kernel["launches_by_path"] = {
@@ -6244,7 +6958,9 @@ def main(argv=None) -> int:
     ssd_kernel["launches_by_path"] = {
         "serve mamba2-1.3b": mamba["ssd_launches"],
         "steps mamba2-1.3b prefill bundle":
-            cases["mamba2_prefill"]["launches"]["ssd_scan"]}
+            cases["mamba2_prefill"]["launches"]["ssd_scan"],
+        "sharded steps mamba2-1.3b prefill, one NCCL rank":
+            one["mamba2_prefill"]["launches"]["ssd_scan"]}
     ssd_kernel["launches"] = sum(ssd_kernel["launches_by_path"].values())
 
     kernels = [kernel, agg_kernel, fleet_kernel, serve_kernel, ssd_kernel]
@@ -6257,7 +6973,7 @@ def main(argv=None) -> int:
               "serve_hybrid": serve_hybrid, "serve_encdec": serve_encdec,
               "train_new_families": train_new, "replay": replay,
               "obs": obs, "resume": resume, "steps": steps,
-              "phase_seconds": laps}
+              "sharded_steps": sharded_steps, "phase_seconds": laps}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -35,6 +35,7 @@ from torch.func import grad, grad_and_value, vmap
 
 from repro_torch import prng
 from repro_torch.core import aggregation, scheduling
+from repro_torch.device import is_dtensor
 from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -139,8 +140,8 @@ def parallel_round(loss_fn: LossFn, optimizer: Optimizer, cfg: FedConfig,
     keys = prng.fold_in(rng, torch.arange(cfg.num_clients))
     step_fn = vmap(micro_value_and_grad(loss_fn, cfg.micro_batches))
 
-    def grad_step(w_stack, batch, ts):
-        return step_fn(w_stack, batch, prng.fold_in(keys, ts))
+    def grad_step(w_stack, batch, ts, rows=slice(None)):
+        return step_fn(w_stack, batch, prng.fold_in(keys[rows], ts))
 
     return _stacked_round(optimizer, cfg, w_global, client_batches, p, E,
                           rnd, grad_step, constrain, constrain_opt)
@@ -174,11 +175,11 @@ def replay_round(loss_and_decisions, optimizer: Optimizer, cfg: FedConfig,
     step_fn = vmap(grad(f, has_aux=True))
     seen = []
 
-    def grad_step(w_stack, batch, ts):
+    def grad_step(w_stack, batch, ts, rows=slice(None)):
         t = ts - int(rnd) * cfg.local_steps
         leaf = tree_leaves(w_stack)[0]
         rr = () if routes is None else tuple(
-            z.to(leaf.device, leaf.dtype) for z in routes[t])
+            z[rows].to(leaf.device, leaf.dtype) for z in routes[t])
         grads, (loss, decisions) = step_fn(w_stack, batch, *rr)
         seen.append([z.detach().cpu() for z in decisions])
         return loss, grads
@@ -188,10 +189,51 @@ def replay_round(loss_and_decisions, optimizer: Optimizer, cfg: FedConfig,
     return w_new, metrics, seen
 
 
+def _client_split(*trees):
+    """``(rows, placements, mesh)`` where every leaf of ``trees`` is a
+    DTensor split over the mesh along its leading (client) axis only, and
+    replicated over every other mesh dim, all alike: ``rows`` is the
+    slice of clients this rank holds.  None otherwise (plain tensors, or
+    a stack split over the model axis too)."""
+    leaves = [x for tree in trees for x in tree_leaves(tree)]
+    if not leaves or not all(is_dtensor(x) for x in leaves):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    pl, mesh = leaves[0].placements, leaves[0].device_mesh
+    if not any(q == Shard(0) for q in pl) or any(
+            q != Shard(0) and not isinstance(q, Replicate) for q in pl) \
+            or any(x.placements != pl for x in leaves):
+        return None
+    shape, offset = compute_local_shape_and_global_offset(
+        leaves[0].shape, mesh, pl)
+    return slice(offset[0], offset[0] + shape[0]), pl, mesh
+
+
+def _stacked_dtensor(x, n: int, placements, mesh):
+    """This rank's client rows ``x`` as the DTensor of all ``n``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = (n,) + tuple(x.shape[1:])
+    return DTensor.from_local(x, mesh, placements, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride(), run_check=False)
+
+
 def _stacked_round(optimizer, cfg, w_global, client_batches, p, E, rnd,
                    grad_step, constrain=None, constrain_opt=None):
-    """The round engine around ``grad_step(w_stack, batch, ts) -> (losses
-    (C,), grads)``, the local step mapped over the stacked clients."""
+    """The round engine around ``grad_step(w_stack, batch, ts, rows) ->
+    (losses, grads)``, the local step mapped over the stacked clients
+    (``rows`` the slice of clients they are).
+
+    Across ranks (DTensors, `launch.steps.execute`), where the stacks and
+    the batches are split over the data axes on their client axis alone,
+    each rank steps its own client rows on its local tensors, the
+    reference's client group a device; the aggregation then sums the
+    groups across ranks.  Any other split (the model axis too) runs the
+    step on the DTensors."""
     cst = constrain if constrain is not None else (lambda tree: tree)
     cst_opt = constrain_opt if constrain_opt is not None else cst
     n, T = cfg.num_clients, cfg.local_steps
@@ -203,17 +245,27 @@ def _stacked_round(optimizer, cfg, w_global, client_batches, p, E, rnd,
     # stacked local models and a fresh local optimizer state (eq. 6)
     w_stack = cst(tree_map(lambda x: x.unsqueeze(0).expand((n,) + x.shape)
                            .clone(), w_global))
+    split = _client_split(w_stack, client_batches)
+    rows = slice(None)
+    if split is not None:
+        rows, placed, mesh = split
+        w_stack = tree_map(lambda x: x.to_local(), w_stack)
+        client_batches = tree_map(lambda x: x.to_local(), client_batches)
+        cst = cst_opt = lambda tree: tree
     opt_state = cst_opt(optimizer.init(w_stack))
 
     losses = []
     for t in range(T):
         ts = rnd * T + t        # global schedule index (Theorem 1's eta_t)
         batch = tree_map(lambda b: b[:, t], client_batches)
-        loss, grads = grad_step(w_stack, batch, ts)
+        loss, grads = grad_step(w_stack, batch, ts, rows)
         w_stack, opt_state = optimizer.update(grads, opt_state, w_stack, ts)
         w_stack, opt_state = cst(w_stack), cst_opt(opt_state)
         losses.append(loss)
     losses = torch.stack(losses).mean(dim=0)       # (C,) mean local loss
+    if split is not None:                # the rows back into the stack
+        back = lambda x: _stacked_dtensor(x, n, placed, mesh)
+        w_stack, losses = tree_map(back, w_stack), back(losses)
 
     w_new = aggregation.aggregate(w_global, w_stack, mask, p, scale,
                                   cfg.server_lr)

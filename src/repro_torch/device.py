@@ -1,6 +1,8 @@
 """Device resolution: the card by default, the CPU only when asked for."""
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -26,3 +28,10 @@ def require_same_device(tensor: torch.Tensor, device: torch.device,
     if tensor.device.type != device.type or (
             device.index is not None and tensor.device.index != device.index):
         raise ValueError(f"{what} is on {tensor.device}, expected {device}")
+
+
+def is_dtensor(t) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor`` (a step run across
+    ranks); imports nothing: no DTensor exists before its module is."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)

@@ -23,7 +23,8 @@ divisible dim, or onto the model-sharded dim (``fsdp + (model,)``).
 ``torch.distributed.tensor``): `placements` turns a spec into one
 ``Shard(d)`` / ``Replicate()`` a mesh dim; several axes on one tensor dim
 must come in mesh order, which is DTensor's major-to-minor order.
-`shard_tree` / `gather_tree` distribute and gather a tree;
+`shard_tree` / `redistribute_tree` / `gather_tree` place a step's
+inputs, its outputs, and gather a tree (`launch.steps.execute`);
 `stacked_constrainer` redistributes a parallel round's stacked state
 (the identity on plain tensors).
 
@@ -336,12 +337,15 @@ def stacked_constrainer(mesh, model_axis=MODEL_AXIS, zero_axis=None):
 # --------------------------------------------------------------- placement --
 def placements(spec: P, mesh) -> list:
     """One ``Shard(d)`` / ``Replicate()`` a dim of ``mesh`` (a
-    ``DeviceMesh``) for ``spec``.  Several axes on one tensor dim must be
+    ``DeviceMesh``) for ``spec``; an axis of size 1 is ``Replicate()``,
+    which holds the same slice and keeps DTensor's sharding propagation
+    to the axes that split.  Several axes on one tensor dim must be
     named in mesh order: DTensor splits such a dim over its mesh dims
     major-to-minor in mesh order, which is the reference's tuple order."""
     from torch.distributed.tensor import Replicate, Shard
 
-    names = list(axis_sizes(mesh))
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
     out: list = [Replicate() for _ in names]
     for d, entry in enumerate(spec):
         if entry is None:
@@ -352,17 +356,39 @@ def placements(spec: P, mesh) -> list:
             raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not "
                              f"in mesh order {tuple(names)}")
         for i in where:
-            out[i] = Shard(d)
+            if sizes[names[i]] > 1:      # one rank's "shard" is the whole dim
+                out[i] = Shard(d)
     return out
 
 
 def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
-    """Each leaf distributed over ``mesh`` by its spec (the same full
-    tensor on every rank in; a DTensor holding this rank's slice out)."""
+    """Each tensor leaf distributed over ``mesh`` by its spec (the same
+    full tensor on every rank in; a DTensor holding this rank's slice out,
+    cut from the rank's own copy with no collective); leaves that are not
+    tensors (a round index, a step offset) pass through."""
     from torch.distributed.tensor import distribute_tensor
 
     return tree_map(lambda x, spec: distribute_tensor(
-        x, mesh, placements(spec, mesh)), tree, specs)
+        x, mesh, placements(spec, mesh), src_data_rank=None)
+        if isinstance(x, torch.Tensor) else x, tree, specs)
+
+
+def redistribute_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """Each tensor leaf as a DTensor on ``mesh`` at its spec's placement: a
+    DTensor redistributed, a plain tensor (the same on every rank: a step
+    computed it from replicated inputs) taken as replicated first;
+    other leaves as they are.  The outputs' side of `shard_tree`."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def leaf(x, spec):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, placements(spec, mesh))
+
+    return tree_map(leaf, tree, specs)
 
 
 def gather_tree(tree: PyTree) -> PyTree:

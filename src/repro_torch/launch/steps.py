@@ -22,12 +22,21 @@ scheduling inputs (p, E, the key).  `launch.dryrun` traces a bundle with
 them; a caller that executes ``fn`` passes real tensors of the same shapes
 and dtypes.  ``mesh`` is None (the card alone, a 1 x 1 layout), a
 ``launch.mesh.SpecMesh`` (a layout, for its specs) or a ``DeviceMesh``;
-the specs are `dist.sharding`'s.  Executing a step across ranks on
-sharded params is not part of this module.
+the specs are `dist.sharding`'s.
+
+`execute` runs a bundle: with no mesh it calls ``fn`` as it is; with a
+``DeviceMesh`` (one process a rank, the bundle built for that mesh) it
+places the arguments by ``in_specs``, runs ``fn`` once on the DTensors
+under ``implicit_replication`` and returns the outputs at ``out_specs``,
+the port's ``jax.jit(fn, in_shardings, out_shardings)``.  The kernels run
+on each rank's local shard through their sharding rules
+(`kernels.ops.register_sharding_rules`), the parallel round's aggregation
+on each rank's client rows (`core.aggregation.aggregate`).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from functools import partial
 from typing import Any
 
@@ -39,6 +48,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.round import (FedConfig, parallel_round,
                                     sequential_client_step)
 from repro_torch.dist import sharding as shard
+from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import card_spec_mesh
 from repro_torch.models import get_model
 from repro_torch.models.layers import dtype_of
@@ -288,3 +298,34 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
     if shape.kind == "decode":
         return build_decode_step(cfg, shape, mesh, device=device)
     raise ValueError(shape.kind)
+
+
+# ------------------------------------------------------------ execution ----
+def execute(bundle: StepBundle, args: tuple, mesh=None):
+    """Run ``bundle.fn`` on ``args`` (real tensors of the bundle's shapes
+    and dtypes, the same full values on every rank).  ``mesh`` None: the
+    call as it is.  A ``DeviceMesh``: each argument placed by its
+    ``in_specs`` (`dist.sharding.shard_tree`), but for the host-side
+    inputs, the arguments at a bare ``P()`` (p, E, the round index, the
+    key, a position, a client's weights and step offset), which pass as
+    they are; ``fn`` run once under ``implicit_replication`` (those
+    inputs, and tensors the step makes itself, positions and masks, are
+    read as replicated); the outputs redistributed to ``out_specs``
+    (DTensors; `dist.sharding.gather_tree` gathers them)."""
+    if mesh is None:
+        return bundle.fn(*args)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    shard.check_mesh(mesh)
+    if len(args) != len(bundle.in_specs):
+        raise ValueError(f"execute: {len(args)} arguments, the bundle's "
+                         f"fn takes {len(bundle.in_specs)}")
+    kops.register_sharding_rules()
+    placed = tuple(a if spec == P() else shard.shard_tree(a, spec, mesh)
+                   for a, spec in zip(args, bundle.in_specs))
+    with implicit_replication(), warnings.catch_warnings():
+        # a (1,) tensor (p, E, the mask at C = 1) read as replicated is
+        # what implicit replication is for
+        warnings.filterwarnings("ignore", message="Found a non-scalar tensor")
+        out = bundle.fn(*placed)
+    return shard.redistribute_tree(out, bundle.out_specs, mesh)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dtype_of, init_normal
 
@@ -191,10 +192,27 @@ def cache_write(cache, k_new, v_new, pos, ring: bool):
     is (B,).  Returns ``cache``."""
     W = cache["k"].shape[1]
     idx = pos % W if ring else pos.clamp(max=W - 1)
-    rows = torch.arange(k_new.shape[0], device=k_new.device)
-    cache["k"][rows, idx] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, idx] = v_new[:, 0].to(cache["v"].dtype)
+    for name, new in (("k", k_new), ("v", v_new)):
+        _write_rows(cache[name], new, idx)
     return cache
+
+
+def _write_rows(c, new, idx):
+    """``c[b, idx[b]] = new[b, 0]`` for every row b, in place.  A DTensor
+    cache (a decode step across ranks: batch and kv heads sharded) is
+    written shard by shard: ``new`` is placed as the cache is, and each
+    rank writes its own rows (``idx`` read at the rows' global offset)
+    into its local tensor, which is a view of the cache's."""
+    if is_dtensor(c):
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+
+        new = new.redistribute(c.device_mesh, c.placements).to_local()
+        shape, offset = compute_local_shape_and_global_offset(
+            c.shape, c.device_mesh, c.placements)
+        c, idx = c.to_local(), idx[offset[0]:offset[0] + shape[0]]
+    rows = torch.arange(new.shape[0], device=new.device)
+    c[rows, idx] = new[:, 0].to(c.dtype)
 
 
 def decode_attention(cfg: ModelConfig, p, x, cache, pos, *, ring: bool,

@@ -193,8 +193,11 @@ def softmax_xent(logits, labels, mask=None, valid_vocab: int | None = None):
         col = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(col < valid_vocab, logits, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    # the difference taken before the gathered dim is dropped: on logits
+    # split over the vocab (a step across ranks) the gathered column is a
+    # masked partial sum that DTensor reduces only at its own shape
+    nll = (logz[..., None]
+           - torch.gather(logits, -1, labels.long()[..., None]))[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -196,14 +196,17 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None,
     _check_impl(impl)
     tokens = batch["tokens"]
     x = L.embed_tokens(cfg, params["embed"], tokens)
-    cache = init_cache(cfg, tokens.shape[0], device=x.device)
+    conv, ssm = [], []
     for i in range(cfg.num_layers):
         p = layer_params(params["layers"], i)
         y, (conv_s, ssm_s) = _mixer_apply(
             cfg, p["mixer"], L.apply_norm(cfg, p["ln"], x), impl=impl)
         x = x + y
-        cache["conv"][i] = conv_s
-        cache["ssm"][i] = ssm_s
+        conv.append(conv_s.to(L.dtype_of(cfg)))
+        ssm.append(ssm_s.float())
+    # stacked, not written into a zeroed cache (`init_cache`'s layout): the
+    # same values, and no in-place write a step across ranks cannot place
+    cache = {"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
     x = L.apply_norm(cfg, params["ln_f"], x)
     return L.unembed(cfg, params["embed"], x[:, -1:]), cache
 

@@ -135,6 +135,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def _pad_seq(t, length: int):
+    """(B, S, ...) zero-padded along S to ``length``."""
+    if t.shape[1] == length:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], length - t.shape[1])
+                                     + tuple(t.shape[2:]))], dim=1)
+
+
 def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None,
             impl: str | None = None, window: int | None = None):
     """Run the prompt; return (last-position logits (B, 1, V), KV cache).
@@ -151,17 +159,22 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int | None = None,
     x = _splice_vision(x, batch.get("vision_embeds"))
     positions = torch.arange(S, device=tokens.device)
     eff_window = cfg.sliding_window if window is None else window
-    cache = init_cache(cfg, B, cache_len, device=x.device)
+    dt = L.dtype_of(cfg)
     shift = S % cache_len
+    layers = {"k": [], "v": []}
     for i in range(cfg.num_layers):
-        x, (k, v), _ = _block(cfg, layer_params(params["layers"], i), x,
-                              positions, eff_window, impl)
-        if cache_len >= S:           # pad: slots S.. stay zero
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-        else:                        # ring: last cache_len positions, rolled
-            cache["k"][i] = torch.roll(k[:, -cache_len:], shift, dims=1)
-            cache["v"][i] = torch.roll(v[:, -cache_len:], shift, dims=1)
+        x, kv, _ = _block(cfg, layer_params(params["layers"], i), x,
+                          positions, eff_window, impl)
+        for name, t in zip(("k", "v"), kv):
+            t = t.to(dt)
+            if cache_len >= S:       # pad: slots S.. stay zero
+                t = _pad_seq(t, cache_len)
+            else:                    # ring: last cache_len positions, rolled
+                t = torch.roll(t[:, -cache_len:], shift, dims=1)
+            layers[name].append(t)
+    # stacked, not written into a zeroed cache: the same values, and no
+    # in-place write into a tensor that a step across ranks cannot place
+    cache = {name: torch.stack(ts) for name, ts in layers.items()}
     x = L.apply_norm(cfg, params["ln_f"], x)
     logits = L.unembed(cfg, params["embed"], x[:, -1:])
     return logits, cache

@@ -15,6 +15,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.optim.schedules import constant
 from repro_torch.tree import tree_map
 
@@ -36,7 +37,13 @@ def _chunked(fn, *leaves):
     tensors of that shape) in chunks of the leading axis of at most about
     ``_CHUNK`` elements, written into new tensors: the same values as one
     call, with the float32 temporaries of one chunk alive at a time (a
-    layer-stacked leaf can hold half a model)."""
+    layer-stacked leaf can hold half a model).  On DTensors (a step run
+    across ranks) each rank chunks its local tensors, every leaf placed
+    as the first DTensor among them (the update is elementwise), and the
+    outputs come back as DTensors so placed."""
+    dleaf = next((x for x in leaves if is_dtensor(x)), None)
+    if dleaf is not None:
+        return _chunked_local(fn, dleaf, leaves)
     lead = leaves[0]
     n = min(-(-lead.numel() // _CHUNK), lead.shape[0] if lead.dim() else 1)
     if n <= 1:
@@ -51,6 +58,25 @@ def _chunked(fn, *leaves):
         for o, t in zip(outs, part):
             o[a:b] = t
     return outs
+
+
+def _chunked_local(fn, dleaf, leaves):
+    """`_chunked` on each rank's local tensors, placed as ``dleaf``; a plain
+    leaf among them is taken as replicated (the same on every rank)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, pl = dleaf.device_mesh, dleaf.placements
+
+    def local(x):
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, pl).to_local()
+
+    outs = _chunked(fn, *(local(x) for x in leaves))
+    return tuple(DTensor.from_local(o, mesh, pl, shape=dleaf.shape,
+                                    stride=dleaf.stride(), run_check=False)
+                 for o in outs)
 
 
 def _zeros_f32(p):
